@@ -6,24 +6,40 @@ NVIDIA card.
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``ska_sdp_cip_tpu_torch/csrc`` with nvcc
-(into ``build/torch_kernels/``), then runs five phases and prints one
-JSON object per phase:
+(one nvcc per source, started together, into ``build/torch_kernels/``),
+then runs nine phases and prints one JSON object per phase:
 
 1. ``device``: card name, ``nvidia-smi`` name and power limit, build time;
 2. ``b1``: the gridding kernel against its plain version, on small
    plans (G = 1 and G = 2) and on one bench-size plane group (G = 2);
    then the whole bench-size image of the noise-like bench visibilities
-   against a float64 DFT at 256 random pixels (``bench_dft``: a reading
-   against the 1e-4 contract, gated only at 10x it);
+   against a float64 DFT at 256 random pixels (``bench_dft``, gated at
+   the 1e-4 contract);
 3. ``b2``: the fused first-axis DFT kernel against its plain version at
-   the bench transform (4096 rows -> 2048-row crop, m = 4096 and 2048);
-4. ``e2e_small``: ``dirty_image`` on the card against the explicit DFT
+   the bench transform: out-cropped (invert: 4096 rows -> 2048-row
+   crop, m = 4096 and 2048) and in-cropped at sign -1 (predict: 2048
+   image rows -> 4096, m = 2048 and 4096);
+4. ``b3``: the degridding kernel against its plain version, on small
+   plans (G = 1 without w-stacking, G = 2) and on one bench-size plane
+   group;
+5. ``e2e_small``: ``dirty_image`` on the card against the explicit DFT
    (``dirty_image_dft``) on a 256 px check plan;
-5. ``slice``: ``invert_dataset(VisibilityReader(obs), 2048, 5.0,
+6. ``predict``: ``predict_visibilities`` on the card against
+   ``predict_dft`` on a 256 px check plan; at bench size the adjoint
+   identity <invert(v), I> = Re <v, predict(I)> (float64 dot products
+   on the host), the median wall of 3 calls and the kernels' launch
+   counts;
+7. ``slice``: ``invert_dataset(VisibilityReader(obs), 2048, 5.0,
    device="cuda")`` on a 5,836,800-visibility synthetic dataset, with
    the kernels' launch counts, the brightest source's peak position, a
    float64 DFT spot check of 448 pixels, the median wall time of 3 runs
-   after a warm run, a per-stage breakdown and a profile of one call.
+   after a warm run, a per-stage breakdown and a profile of one call;
+8. ``major_cycle``: ``MeasurementOperator.build`` + ``major_cycle_clean(
+   num_major=3, minor_iter=100)`` on the same dataset, gated on the
+   residual (below 0.6 x the dirty peak) and on the brightest CLEAN
+   component (at the brightest source's pixel), with the plan and
+   staging seconds, the seconds of each major cycle, the kernels'
+   launch counts and a profile of one cycle.
 
 Then a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -175,11 +191,10 @@ def compare_group(plan, args, *, time_it: bool, iters: int = 3) -> dict:
     return out
 
 
-def phase_b1(device, bench=(BENCH_TIMES, BENCH_ANTENNAS, BENCH_CHANNELS),
-             bench_npix=BENCH_NPIX) -> dict:
+def small_visibilities():
+    """The small check problem of the b1/b3 phases: uvw, freqs, vis, wgt."""
     from ska_sdp_cip_tpu_torch.io.synth import synthetic_uvw
 
-    results = {"phase": "b1", "cases": []}
     rng = np.random.default_rng(17)
     uvw, _ = synthetic_uvw(3, 10, max_baseline_m=5000.0, seed=23)
     freqs = np.array([1.0e9, 1.07e9])
@@ -188,6 +203,30 @@ def phase_b1(device, bench=(BENCH_TIMES, BENCH_ANTENNAS, BENCH_CHANNELS),
         np.complex64
     )
     wgt = rng.uniform(0.5, 2.0, size=shape).astype(np.float32)
+    return uvw, freqs, vis, wgt
+
+
+def bench_problem(device, bench=(BENCH_TIMES, BENCH_ANTENNAS, BENCH_CHANNELS),
+                  npix=BENCH_NPIX) -> dict:
+    """bench.py's visibilities, planned and staged on ``device`` once for
+    the b1, b3 and predict phases."""
+    uvw, freqs, vis, wgt = bench_visibilities(*bench)
+    plan, arrays, re_s, im_s = staged_problem(
+        uvw, freqs, vis, wgt, npix, BENCH_ASEC, device
+    )
+    return {"uvw": uvw, "freqs": freqs, "vis": vis, "wgt": wgt,
+            "plan": plan, "arrays": arrays, "re_s": re_s, "im_s": im_s}
+
+
+def largest_group(plan) -> int:
+    from ska_sdp_cip_tpu_torch.ops.gridder import group_active_blocks
+
+    return int(np.argmax([len(x) for x in group_active_blocks(plan)]))
+
+
+def phase_b1(device, bench: dict) -> dict:
+    results = {"phase": "b1", "cases": []}
+    uvw, freqs, vis, wgt = small_visibilities()
     for wstack in (False, True):
         plan, arrays, re_s, im_s = staged_problem(
             uvw, freqs, vis, wgt, 96, 40.0, device, do_wstacking=wstack
@@ -199,14 +238,12 @@ def phase_b1(device, bench=(BENCH_TIMES, BENCH_ANTENNAS, BENCH_CHANNELS),
             results["cases"].append({"plan": f"small_w{int(wstack)}",
                                      "group": k, **case})
     # One bench-size plane group (the one with the most active blocks).
-    uvw, freqs, vis, wgt = bench_visibilities(*bench)
-    plan, arrays, re_s, im_s = staged_problem(
-        uvw, freqs, vis, wgt, bench_npix, BENCH_ASEC, device
-    )
     from ska_sdp_cip_tpu_torch.ops.gridder import group_active_blocks
 
+    plan, arrays = bench["plan"], bench["arrays"]
+    re_s, im_s = bench["re_s"], bench["im_s"]
     sizes = [len(x) for x in group_active_blocks(plan)]
-    k = int(np.argmax(sizes))
+    k = largest_group(plan)
     results["bench_geometry"] = {
         "ngrid": plan.ngrid,
         "nalloc": [plan.nalloc_x, plan.nalloc_y],
@@ -224,7 +261,8 @@ def phase_b1(device, bench=(BENCH_TIMES, BENCH_ANTENNAS, BENCH_CHANNELS),
     )
     results["bench"] = {"group": k, **case}
     results["bench_dft"] = bench_dft_check(
-        plan, arrays, re_s, im_s, uvw, freqs, vis * wgt, device
+        plan, arrays, re_s, im_s, bench["uvw"], bench["freqs"],
+        bench["vis"] * bench["wgt"], device,
     )
     return results
 
@@ -235,8 +273,8 @@ def bench_dft_check(plan, arrays, re_s, im_s, uvw, freqs, wvis, device,
     The unnormalized bench image (``build_invert`` on the staged bench
     problem) against the explicit float64 DFT at ``num_pixels`` random
     pixels. On noise-like data this shows the gridder's error floor
-    (the prologue's float32 positions, ROADMAP.md C1), which point
-    sources hide.
+    (where the prologue's rounded positions showed, ROADMAP.md C1),
+    which point sources hide.
     """
     from ska_sdp_cip_tpu_torch.ops.gridder import build_invert
 
@@ -254,15 +292,21 @@ def bench_dft_check(plan, arrays, re_s, im_s, uvw, freqs, wvis, device,
         "contract": DFT_RTOL,
         "finite": bool(np.isfinite(image).all()),
     }
-    if not (out["finite"] and out["rel_to_sampled_max"] <= 10 * DFT_RTOL):
+    if not (out["finite"] and out["rel_to_sampled_max"] <= DFT_RTOL):
         raise PhaseError(
             f"bench image vs DFT {out['rel_to_sampled_max']:.3e} > "
-            f"{10 * DFT_RTOL}"
+            f"{DFT_RTOL}"
         )
     return out
 
 
 def phase_b2(device, n=4096, npix=2048) -> dict:
+    """
+    B2 against its plain version at the bench transform: the invert's
+    out-cropped pass (n rows -> npix, sign +1, ``fftp_*``) at m = n and
+    npix, then predict's in-cropped pass (npix rows of the zero-padded
+    image -> n, sign -1, ``fftq_*``) at m = npix and n.
+    """
     import torch
 
     from ska_sdp_cip_tpu_torch.ops import fft_cuda
@@ -270,44 +314,135 @@ def phase_b2(device, n=4096, npix=2048) -> dict:
     from ska_sdp_cip_tpu_torch.ops.gridder import stage_arrays
 
     fplan = make_fft_plan(n, shifted=True)
-    meta = fft_cuda.fused_pass_meta(fplan, ((n - npix) // 2, npix))
+    crop = ((n - npix) // 2, npix)
+    passes = {
+        "out_crop": (fft_cuda.fused_pass_meta(fplan, crop), +1, "fftp", n,
+                     (n, npix)),
+        "in_crop": (fft_cuda.fused_pass_meta(fplan, None, in_crop=crop), -1,
+                    "fftq", npix, (npix, n)),
+    }
     host = fft_plan_arrays(fplan, prefix="fft")
-    host.update(
-        fft_cuda.fused_pass_host_arrays(fplan, meta, sign=+1, prefix="fftp")
-    )
+    for meta, sign, prefix, _, _ in passes.values():
+        host.update(fft_cuda.fused_pass_host_arrays(fplan, meta, sign=sign,
+                                                    prefix=prefix))
     f = stage_arrays(host, device)
     rng = np.random.default_rng(3)
     results = {"phase": "b2", "n": n, "crop": npix, "cases": []}
-    for m in (n, npix):
-        re = torch.from_numpy(rng.normal(size=(n, m)).astype(np.float32))
-        im = torch.from_numpy(rng.normal(size=(n, m)).astype(np.float32))
-        re, im = re.to(device), im.to(device)
+    for name, (meta, sign, prefix, rows, widths) in passes.items():
+        for m in widths:
+            re = torch.from_numpy(
+                rng.normal(size=(rows, m)).astype(np.float32)
+            ).to(device)
+            im = torch.from_numpy(
+                rng.normal(size=(rows, m)).astype(np.float32)
+            ).to(device)
 
-        def kernel():
-            return fft_cuda.fft_first_axis_fused(
-                re, im, f, meta=meta, sign=+1
-            )
+            def kernel():
+                return fft_cuda.fft_first_axis_fused(
+                    re, im, f, meta=meta, sign=sign, prefix=prefix
+                )
 
-        def plain():
-            return fft_cuda.fft_first_axis_reference(
-                re, im, f, meta=meta, sign=+1
-            )
+            def plain():
+                return fft_cuda.fft_first_axis_reference(
+                    re, im, f, meta=meta, sign=sign
+                )
 
-        got, ref = kernel(), plain()
-        errs = [rel_err(g, r) for g, r in zip(got, ref)]
-        case = {
-            "m": m,
-            "max_abs_err": max(e[0] for e in errs),
-            "max_rel_err": max(e[1] for e in errs),
-        }
-        if device.type == "cuda":
-            case["ms"] = cuda_ms(kernel, iters=10)
-            case["plain_ms"] = cuda_ms(plain, iters=10)
-        results["cases"].append(case)
-        if not case["max_rel_err"] <= KERNEL_RTOL:
-            raise PhaseError(
-                f"B2 vs plain {case['max_rel_err']:.3e} > {KERNEL_RTOL}"
-            )
+            got, ref = kernel(), plain()
+            errs = [rel_err(g, r) for g, r in zip(got, ref)]
+            case = {
+                "pass": name,
+                "rows_in": rows,
+                "m": m,
+                "max_abs_err": max(e[0] for e in errs),
+                "max_rel_err": max(e[1] for e in errs),
+            }
+            if device.type == "cuda":
+                case["ms"] = cuda_ms(kernel, iters=10)
+                case["plain_ms"] = cuda_ms(plain, iters=10)
+            results["cases"].append(case)
+            if not case["max_rel_err"] <= KERNEL_RTOL:
+                raise PhaseError(
+                    f"B2 ({name}) vs plain {case['max_rel_err']:.3e} > "
+                    f"{KERNEL_RTOL}"
+                )
+    return results
+
+
+def compare_degrid(plan, arrays, grids, k, *, time_it: bool,
+                   iters: int = 3) -> dict:
+    """B3 kernel vs plain version on plane group ``k`` of ``grids``."""
+    import torch
+
+    from ska_sdp_cip_tpu_torch.ops import cuda_gridder as cg
+    from ska_sdp_cip_tpu_torch.ops.gridder import group_active_blocks
+
+    count = len(group_active_blocks(plan)[k])
+    args = (
+        arrays["packed"], arrays["block_len"], arrays["cblock_ox"],
+        arrays["block_oy"], grids, arrays["plane_wg"][k],
+        arrays["group_blocks"][k, :count],
+    )
+
+    def acc():
+        return torch.zeros((2, plan.num_vis), dtype=torch.float32,
+                           device=grids.device)
+
+    got = cg.degrid_planes(*args, acc(), plan=plan)
+    ref = cg.degrid_planes_reference(*args, acc(), plan=plan)
+    err, rel = rel_err(got, ref)
+    out = {"G": int(args[5].shape[0]), "active_blocks": count,
+           "max_abs_err": err, "max_rel_err": rel}
+    if time_it and grids.device.type == "cuda":
+        out["ms"] = cuda_ms(lambda: cg.degrid_planes(*args, acc(), plan=plan),
+                            iters=iters)
+        out["plain_ms"] = cuda_ms(
+            lambda: cg.degrid_planes_reference(*args, acc(), plan=plan),
+            iters=iters,
+        )
+    if not rel <= KERNEL_RTOL:
+        raise PhaseError(f"B3 vs plain {rel:.3e} > {KERNEL_RTOL}")
+    return out
+
+
+def random_grids(plan, device, seed: int):
+    """(2G, nalloc_x, nalloc_y) standard-normal float32 planes."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(
+        (2 * plan.plane_group, plan.nalloc_x, plan.nalloc_y),
+        generator=gen, device=device,
+    )
+
+
+def phase_b3(device, bench: dict) -> dict:
+    """
+    B3 against its plain version: every group of two small plans
+    (G = 1 without w-stacking, G = 2), then the bench plan's largest
+    plane group on random planes, with CUDA-event times of both.
+    """
+    from ska_sdp_cip_tpu_torch.ops.gridder import (
+        slot_plan_host_arrays,
+        stage_arrays,
+    )
+    from ska_sdp_cip_tpu_torch.ops.plan import make_plan
+
+    results = {"phase": "b3", "cases": []}
+    uvw, freqs, _, _ = small_visibilities()
+    pix = float(np.sin(np.radians(40.0 / 3600.0)))
+    for wstack in (False, True):
+        plan = make_plan(uvw, freqs, 96, pix, do_wstacking=wstack)
+        arrays = stage_arrays(slot_plan_host_arrays(plan, device), device)
+        grids = random_grids(plan, device, seed=5)
+        for k in range(plan.num_groups):
+            case = compare_degrid(plan, arrays, grids, k, time_it=False)
+            results["cases"].append({"plan": f"small_w{int(wstack)}",
+                                     "group": k, **case})
+    plan, arrays = bench["plan"], bench["arrays"]
+    k = largest_group(plan)
+    grids = random_grids(plan, device, seed=6)
+    results["bench"] = {"group": k, **compare_degrid(plan, arrays, grids, k,
+                                                      time_it=True)}
     return results
 
 
@@ -342,6 +477,194 @@ def phase_e2e_small(device, npix=256) -> dict:
     return results
 
 
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    from ska_sdp_cip_tpu_torch.ops import cuda_gridder, fft_cuda
+
+    cuda_gridder.LAUNCHES = cuda_gridder.DEGRID_LAUNCHES = 0
+    fft_cuda.LAUNCHES = fft_cuda.IN_CROP_LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    """Every kernel's launch count since :func:`reset_launches`."""
+    from ska_sdp_cip_tpu_torch.ops import cuda_gridder, fft_cuda
+
+    return {"b1": cuda_gridder.LAUNCHES, "b2_out_crop": fft_cuda.LAUNCHES,
+            "b2_in_crop": fft_cuda.IN_CROP_LAUNCHES,
+            "b3": cuda_gridder.DEGRID_LAUNCHES}
+
+
+def require_launches(launches: dict, kernels, device, where: str) -> None:
+    if device.type == "cuda" and min(launches[k] for k in kernels) <= 0:
+        raise PhaseError(f"{where}: a kernel was not launched: {launches}")
+
+
+def phase_predict(device, bench: dict, npix=256, repeats=3) -> dict:
+    """
+    ``predict_visibilities`` on ``device``: a 256 px check against
+    ``predict_dft`` (point sources, with and without w-stacking), then
+    at bench size the adjoint identity against ``dirty_image`` with
+    float64 dot products on the host, the median wall of ``repeats``
+    calls after a warm one, and the launch counts of one call.
+    """
+    import torch
+
+    from ska_sdp_cip_tpu_torch import predict_visibilities
+    from ska_sdp_cip_tpu_torch.io.synth import synthetic_uvw
+    from ska_sdp_cip_tpu_torch.ops.dft import predict_dft
+    from ska_sdp_cip_tpu_torch.ops.gridder import dirty_image
+
+    pix = float(np.sin(np.radians(BENCH_ASEC / 3600.0)))
+    results = {"phase": "predict", "npix": npix, "cases": []}
+    uvw, _ = synthetic_uvw(3, 24, max_baseline_m=5000.0, seed=77)
+    freqs = np.linspace(1.4e9, 1.45e9, 3)
+    image = np.zeros((npix, npix), np.float32)
+    rng = np.random.default_rng(78)
+    for flux in (1.7, 0.9, 0.4):
+        i, j = rng.integers(npix // 8, npix - npix // 8, size=2)
+        image[i, j] += flux
+    for wstack in (False, True):
+        ref = predict_dft(uvw, freqs, image, pix, apply_w=wstack)
+        got = predict_visibilities(uvw, freqs, image, pix,
+                                   do_wstacking=wstack, device=device)
+        err = float(np.abs(got - ref).max())
+        rel = err / float(np.abs(ref).max())
+        results["cases"].append({"wstacking": wstack, "num_vis": got.size,
+                                 "max_abs_err": err, "max_rel_err": rel})
+        if not (np.isfinite(got).all() and rel <= DFT_RTOL):
+            raise PhaseError(f"predict vs DFT {rel:.3e} > {DFT_RTOL}")
+
+    uvw, freqs, vis, wgt = (bench[k] for k in ("uvw", "freqs", "vis", "wgt"))
+    bench_npix = bench["plan"].num_pixels
+    image = np.random.default_rng(79).normal(
+        size=(bench_npix, bench_npix)
+    ).astype(np.float32)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def run():
+        return predict_visibilities(uvw, freqs, image, pix, device=device)
+
+    dirty = dirty_image(uvw, freqs, vis, wgt, bench_npix, pix, device=device)
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    model = run()
+    sync()
+    first = time.perf_counter() - t0
+    launches = read_launches()
+    require_launches(launches, ("b3", "b2_in_crop"), device, "predict")
+    walls = []
+    for _ in range(repeats):
+        sync()
+        t0 = time.perf_counter()
+        run()
+        sync()
+        walls.append(time.perf_counter() - t0)
+    weighted = (vis * wgt).astype(np.complex128)
+    lhs = float(np.vdot(image.astype(np.float64), dirty.astype(np.float64)))
+    rhs = float(np.real(np.vdot(model.astype(np.complex128), weighted)))
+    adjoint_rel = abs(lhs - rhs) / abs(lhs)
+    results["bench"] = {
+        "num_vis": int(model.size),
+        "npix": bench_npix,
+        "adjoint_lhs": lhs,
+        "adjoint_rhs": rhs,
+        "adjoint_rel": adjoint_rel,
+        "first_call_seconds": first,
+        "wall_seconds": walls,
+        "median_wall_seconds": statistics.median(walls),
+        "launches": launches,
+        "finite": bool(np.isfinite(model).all()),
+    }
+    if not (results["bench"]["finite"] and adjoint_rel <= DFT_RTOL):
+        raise PhaseError(f"adjoint identity {adjoint_rel:.3e} > {DFT_RTOL}")
+    results["breakdown"] = predict_breakdown(uvw, freqs, image, pix, device)
+    return results
+
+
+def predict_breakdown(uvw, freqs, image, pix, device) -> dict:
+    """Seconds per stage of one predict_visibilities call, synchronized,
+    and a profile of its device part."""
+    import torch
+
+    from ska_sdp_cip_tpu_torch.ops.gridder import (
+        build_predict,
+        slot_plan_host_arrays,
+        stage_arrays,
+    )
+    from ska_sdp_cip_tpu_torch.ops.plan import make_plan
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    out = {}
+    t = time.perf_counter()
+    plan = make_plan(uvw, freqs, image.shape[0], pix)
+    out["plan_seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    host = slot_plan_host_arrays(plan, device, invert=False)
+    out["host_arrays_seconds"] = time.perf_counter() - t
+    sync()
+    t = time.perf_counter()
+    arrays = stage_arrays(host, device)
+    img = torch.from_numpy(image).to(device)
+    sync()
+    out["h2d_seconds"] = time.perf_counter() - t
+    predict = build_predict(plan)
+    predict(arrays, img)  # warm
+    sync()
+    t = time.perf_counter()
+    re, im = predict(arrays, img)
+    sync()
+    out["predict_device_seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    re.cpu(), im.cpu()
+    out["d2h_seconds"] = time.perf_counter() - t
+    out["profile_device_part"] = profile_call(lambda: predict(arrays, img),
+                                              device)
+    return out
+
+
+def make_dataset(workdir: Path,
+                 size=(BENCH_TIMES, BENCH_ANTENNAS, BENCH_CHANNELS),
+                 seed: int = 1234) -> tuple:
+    """The slice's synthetic point-source dataset: (path, seconds)."""
+    from ska_sdp_cip_tpu_torch.io.synth import make_synthetic_dataset
+
+    times, antennas, channels = size
+    t0 = time.perf_counter()
+    path = make_synthetic_dataset(
+        workdir / "obs.vz",
+        num_times=times,
+        num_antennas=antennas,
+        channel_frequencies=np.linspace(*BENCH_FREQS, channels),
+        seed=seed,
+    )
+    return path, time.perf_counter() - t0
+
+
+def expected_pixel(seed: int, npix: int, asec: float) -> np.ndarray:
+    """The brightest synthetic source's pixel (row, column)."""
+    return brightest_pixels(seed, npix, asec, within=0.0)[0]
+
+
+def brightest_pixels(seed: int, npix: int, asec: float,
+                     within: float) -> np.ndarray:
+    """
+    Pixels (row, column) of the synthetic sources whose flux is within
+    ``within`` (relative) of the brightest, brightest first.
+    """
+    lm, flux = source_truth(seed)
+    pix = float(np.sin(np.radians(asec / 3600.0)))
+    order = np.argsort(-flux)
+    keep = order[flux[order] >= (1.0 - within) * flux.max()]
+    return np.round(lm[keep] / pix).astype(int) + npix // 2
+
+
 def source_truth(seed: int, num_sources: int = 5, fov_deg: float = 1.0):
     """The sky of make_synthetic_dataset: (lm (n, 2), flux (n,))."""
     rng = np.random.default_rng(seed)
@@ -351,26 +674,12 @@ def source_truth(seed: int, num_sources: int = 5, fov_deg: float = 1.0):
     return lm, flux
 
 
-def phase_slice(device, workdir: Path,
-                size=(BENCH_TIMES, BENCH_ANTENNAS, BENCH_CHANNELS),
+def phase_slice(device, path: Path, dataset_seconds: float, seed=1234,
                 npix=BENCH_NPIX, asec=BENCH_ASEC, repeats=3) -> dict:
     import torch
 
     from ska_sdp_cip_tpu_torch import VisibilityReader, invert_dataset
-    from ska_sdp_cip_tpu_torch.io.synth import make_synthetic_dataset
-    from ska_sdp_cip_tpu_torch.ops import cuda_gridder, fft_cuda
 
-    times, antennas, channels = size
-    seed = 1234
-    t0 = time.perf_counter()
-    path = make_synthetic_dataset(
-        workdir / "obs.vz",
-        num_times=times,
-        num_antennas=antennas,
-        channel_frequencies=np.linspace(*BENCH_FREQS, channels),
-        seed=seed,
-    )
-    dataset_seconds = time.perf_counter() - t0
     reader = VisibilityReader(path)
     num_vis = reader.num_data_rows * reader.num_channels
 
@@ -381,14 +690,13 @@ def phase_slice(device, workdir: Path,
         if device.type == "cuda":
             torch.cuda.synchronize()
 
-    cuda_gridder.LAUNCHES = 0
-    fft_cuda.LAUNCHES = 0
+    reset_launches()
     sync()
     t0 = time.perf_counter()
     image = run()
     sync()
     first_seconds = time.perf_counter() - t0
-    launches = {"b1": cuda_gridder.LAUNCHES, "b2": fft_cuda.LAUNCHES}
+    launches = read_launches()
 
     walls = []
     for _ in range(repeats):
@@ -402,7 +710,7 @@ def phase_slice(device, workdir: Path,
     lm, flux = source_truth(seed)
     pix = float(np.sin(np.radians(asec / 3600.0)))
     bright = int(np.argmax(flux))
-    expected = np.round(lm[bright] / pix).astype(int) + npix // 2
+    expected = expected_pixel(seed, npix, asec)
     peak = np.unravel_index(int(np.argmax(image)), image.shape)
     offset = np.abs(np.asarray(peak) - expected)
     results = {
@@ -427,8 +735,7 @@ def phase_slice(device, workdir: Path,
         raise PhaseError("slice image has the wrong shape or non-finite values")
     if offset.max() > 1:
         raise PhaseError(f"peak at {peak}, brightest source at {expected}")
-    if device.type == "cuda" and min(launches.values()) <= 0:
-        raise PhaseError(f"a kernel was not launched: {launches}")
+    require_launches(launches, ("b1", "b2_out_crop"), device, "slice")
     rel = dft_spot_check(reader, image, expected, pix, device)
     results["dft_spot_check"] = rel
     if not rel["max_rel_err"] <= DFT_RTOL:
@@ -597,6 +904,135 @@ def slice_breakdown(reader, npix, asec, device) -> dict:
     return out
 
 
+def phase_major_cycle(device, path: Path, seed=1234, npix=BENCH_NPIX,
+                      asec=BENCH_ASEC, num_major=3, minor_iter=100) -> dict:
+    """
+    ``MeasurementOperator.build`` + ``major_cycle_clean`` on the slice's
+    dataset, gated on the residual and on the brightest component; then
+    the same cycles again step by step (``hogbom_clean`` +
+    ``residual_gradient``, each synchronized) for per-cycle seconds, and
+    a profile of one cycle.
+    """
+    import torch
+
+    from ska_sdp_cip_tpu_torch import VisibilityReader
+    from ska_sdp_cip_tpu_torch.invert import (
+        StokesIGridderInput,
+        pixel_size_lm_from_asec,
+    )
+    from ska_sdp_cip_tpu_torch.models import (
+        MeasurementOperator,
+        hogbom_clean,
+        major_cycle_clean,
+    )
+    from ska_sdp_cip_tpu_torch.ops.plan import make_plan
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    out = {"phase": "major_cycle", "npix": npix, "num_major": num_major,
+           "minor_iter": minor_iter}
+    t = time.perf_counter()
+    gi = StokesIGridderInput.from_reader(VisibilityReader(path))
+    weights = gi.effective_weights()
+    vis = gi.visibilities.ravel()
+    out["read_stokes_seconds"] = time.perf_counter() - t
+    pix = pixel_size_lm_from_asec(asec)
+    sync()
+    t = time.perf_counter()
+    op = MeasurementOperator.build(gi.uvw, gi.channel_frequencies, weights,
+                                   npix, pix, device=device)
+    sync()
+    out["build_seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    make_plan(gi.uvw, gi.channel_frequencies, npix, pix)
+    out["plan_seconds"] = time.perf_counter() - t
+    out["staging_seconds"] = out["build_seconds"] - out["plan_seconds"]
+    t = time.perf_counter()
+    staged = op.stage(vis)
+    sync()
+    out["stage_vis_seconds"] = time.perf_counter() - t
+
+    reset_launches()
+    sync()
+    t = time.perf_counter()
+    model, residual = major_cycle_clean(op, staged, num_major=num_major,
+                                        minor_iter=minor_iter)
+    sync()
+    out["major_cycle_clean_seconds"] = time.perf_counter() - t
+    out["launches"] = read_launches()
+    require_launches(out["launches"], ("b1", "b2_out_crop", "b2_in_crop",
+                                       "b3"), device, "major_cycle")
+
+    psf = op.psf()
+    dirty = op.dirty_image(staged)
+    dirty_peak = float(dirty.abs().max())
+    res_max = float(residual.abs().max())
+    model_np = model.cpu().numpy()
+    brightest = np.unravel_index(int(np.argmax(model_np)), model_np.shape)
+    # The dataset's two brightest sources differ in flux by 1.3e-4
+    # (seed 1234: 2.65939 and 2.65905), so which of them collects the
+    # largest single component depends on their sub-pixel positions:
+    # the brightest component must sit at one of the sources within 1%
+    # of the brightest flux, and each of those must hold CLEAN flux.
+    sources = brightest_pixels(seed, npix, asec, within=0.01)
+    window_flux = [
+        float(model_np[max(r - 1, 0) : r + 2, max(c - 1, 0) : c + 2].sum())
+        for r, c in sources
+    ]
+    offset = np.abs(sources - np.asarray(brightest)).max(axis=1)
+    out.update({
+        "dirty_peak": dirty_peak,
+        "residual_max": res_max,
+        "residual_over_dirty_peak": res_max / dirty_peak,
+        "model_sum": float(model_np.sum()),
+        "components": int(np.count_nonzero(model_np)),
+        "brightest_component": [int(p) for p in brightest],
+        "brightest_sources": sources.tolist(),
+        "model_flux_3x3_at_sources": window_flux,
+        "finite": bool(np.isfinite(model_np).all()
+                       and torch.isfinite(residual).all()),
+    })
+    if not out["finite"]:
+        raise PhaseError("major cycle gave non-finite values")
+    if not res_max < 0.6 * dirty_peak:
+        raise PhaseError(f"residual {res_max:.4g} >= 0.6 x dirty peak "
+                         f"{dirty_peak:.4g}")
+    if offset.min() > 1 or min(window_flux) <= 0:
+        raise PhaseError(f"brightest component at {brightest}, brightest "
+                         f"sources at {sources.tolist()} with CLEAN flux "
+                         f"{window_flux}")
+
+    def cycle(state):
+        delta, _ = hogbom_clean(state["res"], psf, gain=0.1,
+                                max_iter=minor_iter)
+        sync()
+        state["minor"].append(time.perf_counter() - state["t"])
+        state["model"] = state["model"] + delta
+        state["res"] = -op.residual_gradient(state["model"], staged)
+
+    state = {"model": torch.zeros_like(dirty), "res": dirty, "minor": []}
+    cycles = []
+    for _ in range(num_major):
+        sync()
+        state["t"] = t = time.perf_counter()
+        cycle(state)
+        sync()
+        cycles.append(time.perf_counter() - t)
+    out["cycle_seconds"] = cycles
+    out["minor_cycle_seconds"] = list(state["minor"])
+    out["residual_gradient_seconds"] = [
+        c - m for c, m in zip(cycles, state["minor"])
+    ]
+    out["profile_one_cycle"] = profile_call(
+        lambda: (state.update(t=time.perf_counter()), cycle(state)), device
+    )
+    if device.type == "cuda":
+        out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -634,15 +1070,27 @@ def main() -> int:
         "build_seconds": _build.build_seconds,
         "ptxas": ptxas,
     })
-    b1 = phase_b1(device)
+    bench = bench_problem(device)
+    b1 = phase_b1(device, bench)
     emit(b1)
     b2 = phase_b2(device)
     emit(b2)
+    b3 = phase_b3(device, bench)
+    emit(b3)
     emit(phase_e2e_small(device))
+    pred = phase_predict(device, bench)
+    emit(pred)
+    del bench
     with tempfile.TemporaryDirectory() as tmp:
-        sl = phase_slice(device, Path(tmp))
-    emit(sl)
-    b2_main = b2["cases"][0]
+        path, dataset_seconds = make_dataset(Path(tmp))
+        sl = phase_slice(device, path, dataset_seconds)
+        emit(sl)
+        mc = phase_major_cycle(device, path)
+        emit(mc)
+    b2_cases = {(c["pass"], c["m"]): c for c in b2["cases"]}
+    b2_out, b2_in = b2_cases[("out_crop", 4096)], b2_cases[("in_crop", 4096)]
+    by_path = {"slice": sl["launches"], "predict": pred["bench"]["launches"],
+               "major_cycle": mc["launches"]}
     emit({"kernels": [
         {
             "name": "grid_planes",
@@ -650,19 +1098,45 @@ def main() -> int:
             "source": "ska_sdp_cip_tpu_torch/csrc/grid.cu",
             "replaces": "ska_sdp_cip_tpu/ops/pallas_gridder.py:298",
             "launches": sl["launches"]["b1"],
+            "launches_by_path": {k: v["b1"] for k, v in by_path.items()},
             "max_abs_err": b1["bench"]["max_abs_err"],
             "ms": b1["bench"]["ms"],
             "plain_ms": b1["bench"]["plain_ms"],
         },
         {
-            "name": "fft_first_axis_fused",
+            "name": "fft_first_axis_fused[out_crop]",
             "route": "cuda",
             "source": "ska_sdp_cip_tpu_torch/csrc/fft_fused.cu",
             "replaces": "ska_sdp_cip_tpu/ops/fft_pallas.py:238",
-            "launches": sl["launches"]["b2"],
-            "max_abs_err": b2_main["max_abs_err"],
-            "ms": b2_main["ms"],
-            "plain_ms": b2_main["plain_ms"],
+            "launches": sl["launches"]["b2_out_crop"],
+            "launches_by_path": {k: v["b2_out_crop"]
+                                 for k, v in by_path.items()},
+            "max_abs_err": b2_out["max_abs_err"],
+            "ms": b2_out["ms"],
+            "plain_ms": b2_out["plain_ms"],
+        },
+        {
+            "name": "fft_first_axis_fused[in_crop]",
+            "route": "cuda",
+            "source": "ska_sdp_cip_tpu_torch/csrc/fft_fused.cu",
+            "replaces": "ska_sdp_cip_tpu/ops/fft_pallas.py:238",
+            "launches": mc["launches"]["b2_in_crop"],
+            "launches_by_path": {k: v["b2_in_crop"]
+                                 for k, v in by_path.items()},
+            "max_abs_err": b2_in["max_abs_err"],
+            "ms": b2_in["ms"],
+            "plain_ms": b2_in["plain_ms"],
+        },
+        {
+            "name": "degrid_planes",
+            "route": "cuda",
+            "source": "ska_sdp_cip_tpu_torch/csrc/degrid.cu",
+            "replaces": "ska_sdp_cip_tpu/ops/pallas_gridder.py:458",
+            "launches": mc["launches"]["b3"],
+            "launches_by_path": {k: v["b3"] for k, v in by_path.items()},
+            "max_abs_err": b3["bench"]["max_abs_err"],
+            "ms": b3["bench"]["ms"],
+            "plain_ms": b3["bench"]["plain_ms"],
         },
     ]})
     print(smi, flush=True)

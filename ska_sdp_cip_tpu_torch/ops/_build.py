@@ -2,16 +2,18 @@
 Build and load the port's CUDA kernels (no counterpart in the JAX
 package, whose kernels Pallas compiles inside ``jax.jit``).
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain C interface, at first use, and loaded with ``ctypes``:
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` into a shared
+library with a plain C interface, all of them started together, at
+first use, and loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/torch_kernels/<name>.so csrc/*.cu
+         -Xcompiler -fPIC -o build/torch_kernels/<stem>_<hash>.so csrc/<stem>.cu
 
-The library name carries a hash of the sources and flags, so an edited
-source never loads a stale build. The build directory is
-``build/torch_kernels/`` beside the package. ``nvcc`` is taken from ``CUDA_HOME``/``CUDA_PATH``, then
-``PATH``, then ``/usr/local/cuda``. Nothing here runs at import time.
+A library's name carries a hash of its source and the flags, so an
+edited source never loads a stale build. The build directory is
+``build/torch_kernels/`` beside the package. ``nvcc`` is taken from
+``CUDA_HOME``/``CUDA_PATH``, then ``PATH``, then ``/usr/local/cuda``.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -41,9 +43,10 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _library = None
-#: Seconds the last build took and nvcc's report (registers, shared
-#: memory and spills per kernel, from ``-Xptxas -v``); None when the
-#: library was loaded from an earlier build.
+#: Seconds the last build took (all sources, compiled concurrently) and
+#: nvcc's report (registers, shared memory and spills per kernel, from
+#: ``-Xptxas -v``); None when every library was loaded from an earlier
+#: build.
 build_seconds: float | None = None
 build_log: str | None = None
 
@@ -73,13 +76,28 @@ def _sources() -> list[Path]:
     return sources
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+def library_path(source: Path) -> Path:
+    """Where the library built from ``source`` with the flags lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for source in _sources():
-        digest.update(source.name.encode())
-        digest.update(source.read_bytes())
-    return BUILD_DIR / f"cip_torch_kernels_{digest.hexdigest()[:16]}.so"
+    digest.update(source.read_bytes())
+    return BUILD_DIR / f"{source.stem}_{digest.hexdigest()[:16]}.so"
+
+
+class _Library:
+    """The C entries of the per-source libraries, looked up by name."""
+
+    def __init__(self, libs) -> None:
+        self._libs = libs
+
+    def __getattr__(self, name):
+        for lib in self._libs:
+            try:
+                entry = getattr(lib, name)
+            except AttributeError:
+                continue
+            setattr(self, name, entry)
+            return entry
+        raise AttributeError(f"no CUDA entry {name!r} in {CSRC}")
 
 
 def _declare(lib) -> None:
@@ -95,40 +113,61 @@ def _declare(lib) -> None:
         c_int, c_i64, c_i64, ptr,
     ]
     lib.cip_grid_planes.restype = c_int
+    lib.cip_degrid_planes.argtypes = [ptr] * 7 + [c_int, ptr, c_int] + [
+        ptr, ptr, ptr,
+        c_int, c_int, c_int, c_int,
+        c_float, c_float, c_float,
+        c_int, c_i64, c_i64, ptr,
+    ]
+    lib.cip_degrid_planes.restype = c_int
     lib.cip_fft_first_axis_fused.argtypes = [ptr] * 10 + [c_int] * 8 + [
         c_i64, ptr,
     ]
     lib.cip_fft_first_axis_fused.restype = c_int
 
 
+def _compile(sources: list[Path]) -> None:
+    """Compile ``sources``, one nvcc each, all running at once."""
+    global build_seconds, build_log
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    start = time.perf_counter()
+    jobs = []
+    for source in sources:
+        target = library_path(source)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        jobs.append((cmd, tmp, target, proc))
+    logs, failed = [], []
+    for cmd, tmp, target, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{Path(cmd[-1]).name} ({proc.returncode})")
+        else:
+            os.replace(tmp, target)
+    build_seconds = time.perf_counter() - start
+    build_log = "\n".join(logs)
+    (BUILD_DIR / "build.log").write_text(build_log)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}:\n{build_log}")
+
+
 def load_library():
-    """Build the kernels if needed and return the loaded library."""
-    global _library, build_seconds, build_log
+    """Build the kernels if needed and return their C entries."""
+    global _library
     with _lock:
         if _library is not None:
             return _library
-        target = library_path()
-        if not target.is_file():
-            target.parent.mkdir(parents=True, exist_ok=True)
-            tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-            cmd += [str(s) for s in _sources()]
-            start = time.perf_counter()
-            proc = subprocess.run(
-                cmd, capture_output=True, text=True, check=False
-            )
-            build_seconds = time.perf_counter() - start
-            build_log = proc.stdout + proc.stderr
-            (target.parent / "build.log").write_text(
-                " ".join(cmd) + "\n" + build_log
-            )
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{build_log}"
-                )
-            os.replace(tmp, target)
-        lib = ctypes.CDLL(str(target))
+        sources = _sources()
+        missing = [s for s in sources if not library_path(s).is_file()]
+        if missing:
+            _compile(missing)
+        lib = _Library([ctypes.CDLL(str(library_path(s))) for s in sources])
         _declare(lib)
         _library = lib
         return lib

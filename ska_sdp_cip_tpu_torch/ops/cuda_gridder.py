@@ -1,19 +1,23 @@
 """
-Gridding of visibility blocks onto a group of w-planes: kernel B1
-(``csrc/grid.cu``, which is B4 at G = 1) and its plain PyTorch version.
+Gridding of visibility blocks onto a group of w-planes, and its
+adjoint: kernel B1 (``csrc/grid.cu``, which is B4 at G = 1), kernel B3
+(``csrc/degrid.cu``, which is B5 at G = 1), and their plain PyTorch
+versions.
 
 Counterpart: ``ska_sdp_cip_tpu/ops/pallas_gridder.py`` —
 ``pack_plan_columns`` (copied), the ES factor build
-``_kernel_factors_group`` (ported in :func:`grid_planes_reference`),
-and the kernels built by ``build_grid_planes_pallas_group`` (G >= 2)
-and ``build_grid_planes_pallas`` (G = 1), replaced by
-:func:`grid_planes`.
+``_kernel_factors_group`` (ported in the plain versions), the kernels
+built by ``build_grid_planes_pallas_group`` (G >= 2) and
+``build_grid_planes_pallas`` (G = 1), replaced by :func:`grid_planes`,
+and those built by ``build_degrid_planes_pallas_group`` and
+``build_degrid_planes_pallas``, replaced by :func:`degrid_planes`.
 
-:func:`grid_planes` dispatches on the device of its tensors: CUDA
-tensors go to the hand-written kernel (or raise), CPU tensors to
-:func:`grid_planes_reference`. Nothing falls back from one to the
-other. Unlike the TPU kernels, which write lane segments that the
-caller seam-adds, both write whole ``(nalloc_x, nalloc_y)`` planes.
+:func:`grid_planes` and :func:`degrid_planes` dispatch on the device of
+their tensors: CUDA tensors go to the hand-written kernel (or raise),
+CPU tensors to the plain version. Nothing falls back from one to the
+other. Unlike the TPU kernels, which read and write lane segments that
+the caller seam-adds, all of them read or write whole
+``(nalloc_x, nalloc_y)`` planes.
 """
 
 from __future__ import annotations
@@ -29,6 +33,10 @@ from .plan import GridderPlan
 #: tensors). Callers reset it to 0 and read it to show that a run went
 #: through the kernel.
 LAUNCHES = 0
+
+#: Launches of the B3 kernel (one per :func:`degrid_planes` call on CUDA
+#: tensors), read the same way.
+DEGRID_LAUNCHES = 0
 
 #: Plane-group sizes the kernel is instantiated for.
 KERNEL_GROUPS = (1, 2)
@@ -141,15 +149,11 @@ def grid_planes(
     raise ValueError(f"unsupported device {packed.device}")
 
 
-def _grid_planes_cuda(packed, re, im, block_len, block_ox, block_oy, w_g,
-                      blocks, *, plan):
-    global LAUNCHES
-    from . import _build
-
-    G = w_g.shape[0]
+def _check_kernel_shape(plan: GridderPlan, G: int, name: str) -> None:
+    """Raise unless the B1/B3 kernels are built for G and the patch fits."""
     if G not in KERNEL_GROUPS:
         raise ValueError(
-            f"the B1 kernel is built for plane groups {KERNEL_GROUPS}, "
+            f"the {name} kernel is built for plane groups {KERNEL_GROUPS}, "
             f"got {G}"
         )
     smem = 2 * G * plan.patch_x * plan.patch_y * 4
@@ -160,6 +164,15 @@ def _grid_planes_cuda(packed, re, im, block_len, block_ox, block_oy, w_g,
         )
     if plan.support + 2 > 18:
         raise ValueError(f"support {plan.support} above the kernel's 16")
+
+
+def _grid_planes_cuda(packed, re, im, block_len, block_ox, block_oy, w_g,
+                      blocks, *, plan):
+    global LAUNCHES
+    from . import _build
+
+    G = w_g.shape[0]
+    _check_kernel_shape(plan, G, "B1")
     rows = [packed[i].contiguous() for i in range(3)]
     cols = [t.contiguous() for t in (re, im, block_len, block_ox, block_oy,
                                      blocks, w_g)]
@@ -241,3 +254,139 @@ def grid_planes_reference(
                 )
                 out[2 * p + q].index_add_(0, flat, patch.reshape(-1))
     return out.reshape(2 * G, nx, ny)
+
+
+def degrid_planes(
+    packed: torch.Tensor,
+    block_len: torch.Tensor,
+    block_ox: torch.Tensor,
+    block_oy: torch.Tensor,
+    grids: torch.Tensor,
+    w_g: torch.Tensor,
+    blocks: torch.Tensor,
+    acc: torch.Tensor,
+    *,
+    plan: GridderPlan,
+) -> torch.Tensor:
+    """
+    Degrid the listed blocks off the G = ``len(w_g)`` w-planes at
+    ``w_g`` and ADD the summed contributions into ``acc`` (in place;
+    returned). The adjoint of :func:`grid_planes`.
+
+    ``packed``, ``block_len/ox/oy``, ``w_g`` and ``blocks`` are as in
+    :func:`grid_planes`; ``grids`` is the (2G, nalloc_x, nalloc_y) f32
+    stack of (already transformed and unfolded) planes ordered re_0,
+    im_0, re_1, ...; ``acc`` is the (2, num_vis) f32 slot accumulator
+    (re, im). Every slot belongs to exactly one block, so a block's
+    slots are written by its own thread block only.
+    """
+    device = packed.device
+    _check_inputs(plan, packed, acc[0], acc[1], block_len, block_ox,
+                  block_oy, w_g, blocks)
+    G = w_g.shape[0]
+    shape = (2 * G, plan.nalloc_x, plan.nalloc_y)
+    if tuple(grids.shape) != shape or grids.dtype != packed.dtype:
+        raise ValueError(f"grids must be {packed.dtype} of shape {shape}")
+    if grids.device != device:
+        raise ValueError(f"grids is on {grids.device}, packed on {device}")
+    if device.type == "cuda":
+        return _degrid_planes_cuda(
+            packed, block_len, block_ox, block_oy, grids, w_g, blocks, acc,
+            plan=plan,
+        )
+    if device.type == "cpu":
+        return degrid_planes_reference(
+            packed, block_len, block_ox, block_oy, grids, w_g, blocks, acc,
+            plan=plan,
+        )
+    raise ValueError(f"unsupported device {device}")
+
+
+def _degrid_planes_cuda(packed, block_len, block_ox, block_oy, grids, w_g,
+                        blocks, acc, *, plan):
+    global DEGRID_LAUNCHES
+    from . import _build
+
+    G = w_g.shape[0]
+    _check_kernel_shape(plan, G, "B3")
+    if not (grids.is_contiguous() and acc.is_contiguous()):
+        raise ValueError("grids and acc must be contiguous")
+    rows = [packed[i].contiguous() for i in range(3)]
+    cols = [t.contiguous() for t in (block_len, block_ox, block_oy, blocks,
+                                     w_g)]
+    lib = _build.load_library()
+    k = _constants(plan)
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    err = lib.cip_degrid_planes(
+        rows[0].data_ptr(), rows[1].data_ptr(), rows[2].data_ptr(),
+        cols[0].data_ptr(), cols[1].data_ptr(), cols[2].data_ptr(),
+        cols[3].data_ptr(), int(cols[3].shape[0]), cols[4].data_ptr(),
+        int(G), grids.data_ptr(), acc[0].data_ptr(), acc[1].data_ptr(),
+        int(plan.block), int(plan.patch_x), int(plan.patch_y),
+        int(plan.support), k["beta"], k["inv_half"], k["inv_whalf"],
+        int(bool(plan.wstacking)), int(plan.nalloc_x), int(plan.nalloc_y),
+        stream,
+    )
+    _build.check(err, "cip_degrid_planes")
+    DEGRID_LAUNCHES += 1
+    return acc
+
+
+def degrid_planes_reference(
+    packed, block_len, block_ox, block_oy, grids, w_g, blocks, acc, *, plan
+) -> torch.Tensor:
+    """
+    Plain PyTorch version of :func:`degrid_planes` (counterpart: the
+    XLA branch of ``build_predict``): per block, the dense ES factor
+    matrices ax (patch_x, B) and ay (patch_y, B), ``tmp = ax^T @
+    patch`` per plane, ``sum(tmp * ay)`` over the lanes, scaled by each
+    plane's amp and summed over the planes, batched over
+    ``REFERENCE_CHUNK`` blocks at a time. Runs on any device, in the
+    dtype of ``grids``.
+    """
+    device = packed.device
+    G = w_g.shape[0]
+    PX, PY, B = plan.patch_x, plan.patch_y, plan.block
+    ny = plan.nalloc_y
+    k = _constants(plan)
+    flat_planes = grids.reshape(2 * G, -1)
+    blocks = blocks[blocks >= 0].to(torch.int64)
+    iota_x = torch.arange(PX, dtype=grids.dtype, device=device)
+    iota_y = torch.arange(PY, dtype=grids.dtype, device=device)
+    lane_iota = torch.arange(B, device=device)
+    cell = (
+        torch.arange(PX, device=device)[:, None] * ny
+        + torch.arange(PY, device=device)[None, :]
+    )
+    for start in range(0, blocks.shape[0], REFERENCE_CHUNK):
+        bs = blocks[start : start + REFERENCE_CHUNK]
+        slots = bs[:, None] * B + lane_iota[None, :]
+        xpos, ypos, ws = (packed[i][slots] for i in range(3))
+        ax = es_kernel(
+            (iota_x[None, :, None] - xpos[:, None, :]) * k["inv_half"],
+            k["beta"],
+        )
+        ay = es_kernel(
+            (iota_y[None, :, None] - ypos[:, None, :]) * k["inv_half"],
+            k["beta"],
+        )
+        lane = lane_iota[None, :] < block_len[bs].to(torch.int64)[:, None]
+        origin = (
+            block_ox[bs].to(torch.int64) * ny + block_oy[bs].to(torch.int64)
+        )
+        flat = origin[:, None, None] + cell[None]
+        con = torch.zeros((2,) + slots.shape, dtype=grids.dtype,
+                          device=device)
+        for p in range(G):
+            if plan.wstacking:
+                kw = es_kernel((w_g[p] - ws) * k["inv_whalf"], k["beta"])
+            else:
+                kw = torch.ones_like(ws)
+            amp = torch.where(lane, kw, torch.zeros_like(kw))
+            for q in range(2):
+                patch = flat_planes[2 * p + q][flat]  # (n, PX, PY)
+                tmp = torch.einsum("nrk,nrc->nck", ax, patch)
+                con[q] += (tmp * ay).sum(dim=1) * amp
+        acc.view(2, -1).index_add_(1, slots.reshape(-1),
+                                   con.reshape(2, -1).to(acc.dtype))
+    return acc

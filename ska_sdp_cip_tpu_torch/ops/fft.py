@@ -4,8 +4,9 @@ Four-step DFT axis passes on split (re, im) float32 tensors.
 Counterpart: ``ska_sdp_cip_tpu/ops/fft.py``. ``make_fft_plan`` (numpy
 factors) is copied unchanged; ``fft_last_axis`` and ``fft_first_axis``
 are plain torch ports of the counterparts with ``out_crop`` (the
-invert's image crop). They are the plain version of the fused CUDA
-pass (``ops/fft_cuda.py``) and the port's oracle for it. The factor
+invert's image crop) and ``in_crop`` (predict's zero-padded image).
+They are the plain version of the fused CUDA pass (``ops/fft_cuda.py``)
+and the port's oracle for it. The factor
 dict ``f`` holds the plan's factors as tensors under
 ``{prefix}_d1_cos`` etc. (see :func:`fft_plan_arrays`).
 """
@@ -131,12 +132,31 @@ def _crop_range(n1: int, out_crop):
     return k2a, k2b, (c0 - k2a * n1, size)
 
 
-def fft_last_axis(re, im, f, *, sign: int, prefix: str = "fft", out_crop=None):
+def _pad_range(n2: int, in_crop):
+    """Covering j1 range and the low pad of an in-cropped stage 1."""
+    c0, size = in_crop
+    j1a, j1b = c0 // n2, -(-(c0 + size) // n2)
+    return j1a, j1b, c0 - j1a * n2
+
+
+def _zero_pad(x, dim: int, width: int, pad_lo: int):
+    """``x`` placed at ``pad_lo`` of a zero tensor ``width`` long on ``dim``."""
+    shape = list(x.shape)
+    shape[dim] = width
+    out = x.new_zeros(shape)
+    out.narrow(dim, pad_lo, x.shape[dim]).copy_(x)
+    return out
+
+
+def fft_last_axis(re, im, f, *, sign: int, prefix: str = "fft",
+                  in_crop=None, out_crop=None):
     """
     DFT along the last axis of (..., n) split tensors (counterpart
     ``fft_last_axis``). ``sign=-1`` is the forward transform, ``+1``
-    the unnormalized inverse; ``out_crop=(start, size)`` computes only
-    those output columns.
+    the unnormalized inverse. ``in_crop=(start, size)``: the inputs hold
+    only logical columns ``[start, start + size)`` (the rest zero), and
+    stage 1 is pruned to the covering j1 rows; ``out_crop=(start,
+    size)`` computes only those output columns.
     """
     d1_cos, d1_sin, d2_cos, d2_sin, tw_cos, tw_sin, s = _factors(
         f, prefix, sign
@@ -144,8 +164,15 @@ def fft_last_axis(re, im, f, *, sign: int, prefix: str = "fft", out_crop=None):
     n1, n2 = d1_cos.shape[0], d2_cos.shape[0]
     n = n1 * n2
     batch = re.shape[:-1]
-    xr = re.reshape(-1, n1, n2)
-    xi = im.reshape(-1, n1, n2)
+    if in_crop is not None:
+        j1a, j1b, pad_lo = _pad_range(n2, in_crop)
+        width = (j1b - j1a) * n2
+        xr = _zero_pad(re, -1, width, pad_lo).reshape(-1, j1b - j1a, n2)
+        xi = _zero_pad(im, -1, width, pad_lo).reshape(-1, j1b - j1a, n2)
+        d1_cos, d1_sin = d1_cos[:, j1a:j1b], d1_sin[:, j1a:j1b]
+    else:
+        xr = re.reshape(-1, n1, n2)
+        xi = im.reshape(-1, n1, n2)
 
     x2 = torch.cat([xr, xi], dim=1)
     y = torch.einsum("kj,bjn->bkn", _stage1_block(d1_cos, d1_sin, s), x2)
@@ -173,11 +200,12 @@ def fft_last_axis(re, im, f, *, sign: int, prefix: str = "fft", out_crop=None):
 
 
 def fft_first_axis(
-    re, im, f, *, sign: int, prefix: str = "fft", out_crop=None
+    re, im, f, *, sign: int, prefix: str = "fft", in_crop=None,
+    out_crop=None,
 ):
     """
     DFT along the first axis of (n, m) split tensors, transpose-free
-    (counterpart ``fft_first_axis``); ``out_crop`` as in
+    (counterpart ``fft_first_axis``); ``in_crop``/``out_crop`` as in
     :func:`fft_last_axis`, applied to the first axis.
     """
     d1_cos, d1_sin, d2_cos, d2_sin, tw_cos, tw_sin, s = _factors(
@@ -186,8 +214,15 @@ def fft_first_axis(
     n1, n2 = d1_cos.shape[0], d2_cos.shape[0]
     n = n1 * n2
     m = re.shape[-1]
-    xr = re.reshape(n1, n2, m)
-    xi = im.reshape(n1, n2, m)
+    if in_crop is not None:
+        j1a, j1b, pad_lo = _pad_range(n2, in_crop)
+        width = (j1b - j1a) * n2
+        xr = _zero_pad(re, 0, width, pad_lo).reshape(j1b - j1a, n2, m)
+        xi = _zero_pad(im, 0, width, pad_lo).reshape(j1b - j1a, n2, m)
+        d1_cos, d1_sin = d1_cos[:, j1a:j1b], d1_sin[:, j1a:j1b]
+    else:
+        xr = re.reshape(n1, n2, m)
+        xi = im.reshape(n1, n2, m)
 
     x2 = torch.cat([xr, xi], dim=0)
     y = torch.einsum("kj,jnm->knm", _stage1_block(d1_cos, d1_sin, s), x2)

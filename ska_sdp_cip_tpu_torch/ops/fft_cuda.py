@@ -6,14 +6,20 @@ Counterpart: ``ska_sdp_cip_tpu/ops/fft_pallas.py`` —
 ``fused_pass_meta`` (copied with ``FusedPassMeta``),
 ``fused_pass_host_arrays`` (rewritten to emit float32 factors: the
 bf16 hi/lo split there fed the TPU's bf16 matrix unit, and the CUDA
-kernel multiplies in float32), and ``fft_first_axis_fused`` (the
-Pallas kernel, replaced by :func:`fft_first_axis_fused`).
+kernel multiplies in float32), ``fft_first_axis_fused`` (the Pallas
+kernel, replaced by :func:`fft_first_axis_fused`) and
+``fft2_from_image_fused`` (predict's forward 2-D transform).
+
+A pass is out-cropped (invert: ``meta.size`` output rows of the image
+crop, factors ``fftp_*`` at sign +1) or in-cropped (predict: the input
+holds only ``meta.in_size`` rows of the zero-padded image, stage 1
+runs over the covering ``n1i`` rows, factors ``fftq_*`` at sign -1).
 
 :func:`fft_first_axis_fused` dispatches on the device of its tensors:
 CUDA tensors go to the hand-written kernel (or raise), CPU tensors to
 :func:`fft_first_axis_reference`, the torch ``fft_first_axis`` with
-``out_crop`` (``ops/fft.py``). Nothing falls back from one to the
-other.
+``in_crop``/``out_crop`` (``ops/fft.py``). Nothing falls back from one
+to the other.
 """
 
 from __future__ import annotations
@@ -23,12 +29,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .fft import FFTPlan, fft_first_axis
+from .fft import FFTPlan, _zero_pad, fft_first_axis
 
 #: Launches of the B2 kernel (one per :func:`fft_first_axis_fused` call
-#: on CUDA tensors). Callers reset it to 0 and read it to show that a
-#: run went through the kernel.
+#: on CUDA tensors): out-cropped passes (invert) in ``LAUNCHES``,
+#: in-cropped passes (predict) in ``IN_CROP_LAUNCHES``. Callers reset
+#: them to 0 and read them to show that a run went through the kernel.
 LAUNCHES = 0
+IN_CROP_LAUNCHES = 0
 
 #: Column block of the counterpart's geometry (its ``MB``); the port
 #: keeps it so ``fused_pass_meta`` gives the same geometry.
@@ -194,51 +202,72 @@ def _out_crop(meta: FusedPassMeta) -> tuple:
     return (meta.k2a * meta.n1 + meta.trim0, meta.size)
 
 
+def _in_crop(meta: FusedPassMeta) -> tuple | None:
+    if not meta.in_size:
+        return None
+    return (meta.j1a * meta.n2 + meta.pad_lo, meta.in_size)
+
+
 def fft_first_axis_reference(re, im, f, *, meta: FusedPassMeta, sign: int):
     """
     Plain version of the fused pass: the torch four-step
-    ``fft_first_axis`` with ``out_crop``, from the plan factors
-    ``fft_d1_cos`` etc. (``ops/fft.py:fft_plan_arrays``).
+    ``fft_first_axis`` with the pass's ``in_crop``/``out_crop``, from
+    the plan factors ``fft_d1_cos`` etc. (``ops/fft.py:fft_plan_arrays``).
     """
-    if meta.in_size:
-        raise NotImplementedError(
-            "in-cropped fused passes (predict) are still to be ported "
-            "(ROADMAP.md, queue A)"
-        )
-    return fft_first_axis(re, im, f, sign=sign, out_crop=_out_crop(meta))
+    return fft_first_axis(
+        re, im, f, sign=sign, in_crop=_in_crop(meta),
+        out_crop=_out_crop(meta),
+    )
 
 
-def fft_first_axis_fused(re, im, f, *, meta: FusedPassMeta, sign: int):
+def fft_first_axis_fused(re, im, f, *, meta: FusedPassMeta, sign: int,
+                         prefix: str = "fftp"):
     """
-    DFT along the first axis of (n, m) split float32 tensors, cropped
-    to ``meta.size`` output rows. On CUDA tensors this launches the B2
-    kernel with the factors ``fftp_*`` of :func:`fused_pass_host_arrays`,
-    and raises unless they were built for ``sign``; on CPU tensors it
-    runs :func:`fft_first_axis_reference` on the plan factors ``fft_*``
-    of the same dict.
+    DFT along the first axis of (rows, m) split float32 tensors: ``n``
+    rows cropped to ``meta.size`` output rows, or (in-cropped)
+    ``meta.in_size`` rows of a zero-padded input to ``n`` output rows.
+    On CUDA tensors this launches the B2 kernel with the factors
+    ``{prefix}_*`` of :func:`fused_pass_host_arrays`, and raises unless
+    they were built for ``sign``; on CPU tensors it runs
+    :func:`fft_first_axis_reference` on the plan factors ``fft_*`` of
+    the same dict.
     """
     if re.device != im.device:
         raise ValueError("re and im must be on one device")
     if re.device.type == "cuda":
-        return _fft_first_axis_cuda(re, im, f, meta=meta, sign=sign)
+        return _fft_first_axis_cuda(re, im, f, meta=meta, sign=sign,
+                                    prefix=prefix)
     if re.device.type == "cpu":
         return fft_first_axis_reference(re, im, f, meta=meta, sign=sign)
     raise ValueError(f"unsupported device {re.device}")
 
 
-def _fft_first_axis_cuda(re, im, f, *, meta, sign):
-    global LAUNCHES
+def fft2_from_image_fused(f, img_re, img_im, *, meta: FusedPassMeta,
+                          prefix: str = "fftq"):
+    """
+    Centred forward 2-D DFT of an (npix, npix) image zero-padded to the
+    (n, n) grid: two in-cropped first-axis passes (sign -1) with one
+    transpose between them (counterpart ``fft2_from_image_fused``).
+    The (n, n) result is returned as transposed views.
+    """
+    a_re, a_im = fft_first_axis_fused(
+        img_re, img_im, f, meta=meta, sign=-1, prefix=prefix
+    )
+    b_re, b_im = fft_first_axis_fused(
+        a_re.t().contiguous(), a_im.t().contiguous(), f, meta=meta,
+        sign=-1, prefix=prefix,
+    )
+    return b_re.t(), b_im.t()
+
+
+def _fft_first_axis_cuda(re, im, f, *, meta, sign, prefix):
+    global LAUNCHES, IN_CROP_LAUNCHES
     from . import _build
 
-    if meta.in_size:
-        raise NotImplementedError(
-            "in-cropped fused passes (predict) are still to be ported "
-            "(ROADMAP.md, queue A)"
-        )
-    if f.get("fftp_sign") != sign:
+    if f.get(f"{prefix}_sign") != sign:
         raise ValueError(
-            f"the fftp_* factors were built for sign "
-            f"{f.get('fftp_sign')}, the pass asks for {sign}"
+            f"the {prefix}_* factors were built for sign "
+            f"{f.get(f'{prefix}_sign')}, the pass asks for {sign}"
         )
     n1, n2, n1i = meta.n1, meta.n2, meta.n1_in
     factors = {
@@ -249,24 +278,28 @@ def _fft_first_axis_cuda(re, im, f, *, meta, sign):
     }
     tensors = {}
     for name, shape in factors.items():
-        t = f[f"fftp_{name}"]
+        t = f[f"{prefix}_{name}"]
         if t.device != re.device or t.dtype != torch.float32:
-            raise TypeError(f"fftp_{name} must be float32 on {re.device}")
+            raise TypeError(f"{prefix}_{name} must be float32 on {re.device}")
         if tuple(t.shape) != shape:
             raise ValueError(
-                f"fftp_{name} has shape {tuple(t.shape)}, want {shape}"
+                f"{prefix}_{name} has shape {tuple(t.shape)}, want {shape}"
             )
         tensors[name] = t.contiguous()
+    rows = meta.in_size or n1i * n2
     for name, t in (("re", re), ("im", im)):
         if t.dtype != torch.float32 or t.dim() != 2:
             raise TypeError(f"{name} must be a 2-D float32 tensor")
-        if t.shape[0] != n1i * n2:
-            raise ValueError(
-                f"{name} has {t.shape[0]} rows, want {n1i * n2}"
-            )
+        if t.shape[0] != rows:
+            raise ValueError(f"{name} has {t.shape[0]} rows, want {rows}")
     if re.shape != im.shape:
         raise ValueError("re and im shapes differ")
     re, im = re.contiguous(), im.contiguous()
+    if rows != n1i * n2:
+        # Zero-pad the cropped rows into the covering j1 window, as the
+        # counterpart does before its kernel (stage-1 pruning).
+        re = _zero_pad(re, 0, n1i * n2, meta.pad_lo)
+        im = _zero_pad(im, 0, n1i * n2, meta.pad_lo)
     m = re.shape[1]
     z_re = torch.empty((n1 * n2, m), dtype=torch.float32, device=re.device)
     z_im = torch.empty_like(z_re)
@@ -285,5 +318,8 @@ def _fft_first_axis_cuda(re, im, f, *, meta, sign):
         int(meta.size), int(m), stream,
     )
     _build.check(err, "cip_fft_first_axis_fused")
-    LAUNCHES += 1
+    if meta.in_size:
+        IN_CROP_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out_re, out_im

@@ -1,27 +1,35 @@
 """
-Invert (visibilities -> dirty image) on the plane-group path.
+Invert (visibilities -> dirty image) and its adjoint, predict (image ->
+visibilities), on the plane-group path.
 
-Counterpart: ``ska_sdp_cip_tpu/ops/gridder.py``, the parts the invert
-slice runs:
+Counterpart: ``ska_sdp_cip_tpu/ops/gridder.py``:
 
 * ``_geometry_maps`` / ``_quad_arrays`` (image-domain correction maps);
 * ``plan_host_arrays`` — here only what the port reads;
+* ``plan_order_host``, ``stage_slot_vis``, ``stage_slot_weights`` and
+  ``slot_duplicate_pairs`` (numpy, copied without the native engine),
+  ``slot_group_sum`` and ``_prepare_sorted_vis`` as torch ops;
 * ``compact_plan_host_arrays`` (numpy, copied) and ``build_assemble``
   with its double-float helpers (``_two_sum`` ... ``_df_grid_coord``),
-  as torch ops;
-* ``_fold_wraps``;
+  as torch ops (positions formed at patch scale, ROADMAP.md C1);
+* ``_fold_wraps`` and its adjoint ``_unfold_wraps``;
 * the plane-group branch of ``build_invert``: per group of G planes,
   gridding (kernel B1, ``ops/cuda_gridder.py``) -> ``_fold_wraps`` ->
   two fused first-axis DFT passes per plane (kernel B2,
   ``ops/fft_cuda.py``; the counterpart's ``_fft2_to_image_fused_t``) ->
-  w-screen correction -> accumulate -> ``finalize_image``. The same
-  loop serves ``plane_group == 1``;
-* ``dirty_image`` on the compact staging path.
+  w-screen correction -> accumulate -> ``finalize_image``;
+* the plane-group branch of ``build_predict``, its adjoint: per group,
+  per plane w-screen -> two in-cropped fused DFT passes (B2,
+  ``fft2_from_image_fused``) -> ``_unfold_wraps``, then one degridding
+  launch for the group (kernel B3) into a slot accumulator ->
+  ``_finalize``. Both loops also serve ``plane_group == 1``;
+* ``dirty_image`` on the compact staging path and
+  ``predict_visibilities``.
 
 Everything runs eagerly on the device of the staged tensors; the
 kernels' plain versions run where the tensors lie on the CPU. The
-XLA-scan gridder, predict, the distributed FFT and the AOT cache are
-not part of this slice (ROADMAP.md, queue A).
+XLA-scan gridder, the distributed (``mesh_axis``) invert and predict
+and the AOT cache are not ported (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -31,9 +39,10 @@ import math
 import numpy as np
 import torch
 
-from .cuda_gridder import grid_planes
+from .cuda_gridder import degrid_planes, grid_planes, pack_plan_columns
 from .fft import fft_plan_arrays, make_fft_plan
 from .fft_cuda import (
+    fft2_from_image_fused,
     fft_first_axis_fused,
     fused_pass_host_arrays,
     fused_pass_meta,
@@ -119,6 +128,16 @@ def _fused_fft_meta(plan: GridderPlan):
     )
 
 
+def _fused_fft_meta_ic(plan: GridderPlan):
+    """Geometry of the fused predict FFT passes (in-cropped image)."""
+    npix = plan.num_pixels
+    crop0 = (plan.ngrid - npix) // 2
+    return fused_pass_meta(
+        make_fft_plan(plan.ngrid, shifted=True), None,
+        in_crop=(crop0, npix),
+    )
+
+
 def group_active_blocks(plan: GridderPlan) -> list:
     """
     Per plane group, the sorted ids of the blocks active on any of its
@@ -133,14 +152,16 @@ def group_active_blocks(plan: GridderPlan) -> list:
     return groups
 
 
-def plan_host_arrays(plan: GridderPlan, device) -> dict:
+def plan_host_arrays(plan: GridderPlan, device, *, invert: bool = True,
+                     predict: bool = False) -> dict:
     """
-    Host (numpy) arrays of a plan that the port's invert reads on
-    ``device``: the per-block tables, the (num_groups, G) plane w's,
-    the per-group active block lists (padded with -1), the quadrature
-    rule, and the first-axis DFT factors of the pass that runs there —
-    the fused kernel's (``fftp_*``) on a CUDA device, the plain
-    version's (``fft_*``) on the CPU.
+    Host (numpy) arrays of a plan that the port's invert and predict
+    read on ``device``: the per-block tables, the (num_groups, G) plane
+    w's, the per-group active block lists (padded with -1), the
+    quadrature rule, and the first-axis DFT factors of the passes that
+    run there — on a CUDA device the fused kernel's, ``fftp_*`` for the
+    ``invert`` and ``fftq_*`` for the ``predict``; on the CPU the plain
+    version's (``fft_*``), which serve both.
     """
     G = plan.plane_group
     wg = plan.w0 + plan.dw * np.arange(G * plan.num_groups, dtype=np.float64)
@@ -151,6 +172,7 @@ def plan_host_arrays(plan: GridderPlan, device) -> dict:
         group_blocks[k, : len(ids)] = ids
     arrays = {
         "block_len": plan.block_len.astype(np.int32),
+        "cblock_ox": plan.block_ox.astype(np.int32),
         "block_oy": plan.block_oy.astype(np.int32),
         # Ragged final groups are padded with would-be planes >= nplanes,
         # outside every block's ES window (zero contributions).
@@ -160,13 +182,157 @@ def plan_host_arrays(plan: GridderPlan, device) -> dict:
     arrays.update(_quad_arrays(plan))
     fft_plan = make_fft_plan(plan.ngrid, shifted=True)
     if resolve_device(device).type == "cuda":
-        arrays.update(
-            fused_pass_host_arrays(
-                fft_plan, _fused_fft_meta(plan), sign=+1, prefix="fftp"
+        if invert:
+            arrays.update(
+                fused_pass_host_arrays(
+                    fft_plan, _fused_fft_meta(plan), sign=+1, prefix="fftp"
+                )
             )
-        )
+        if predict:
+            arrays.update(
+                fused_pass_host_arrays(
+                    fft_plan, _fused_fft_meta_ic(plan), sign=-1,
+                    prefix="fftq",
+                )
+            )
     else:
         arrays.update(fft_plan_arrays(fft_plan, prefix="fft"))
+    return arrays
+
+
+def plan_order_host(plan: GridderPlan) -> dict:
+    """
+    Numpy (order, flip_sign, phase_cos, phase_sin) of a plan: the static
+    data-order -> slot-order transform (gather, conjugate flip, w-shift
+    pre-phase), shared by device staging and :func:`stage_slot_vis`
+    (counterpart copy, numpy branch).
+    """
+    if plan.phase_cos is not None:
+        phase_cos, phase_sin = plan.phase_cos, plan.phase_sin
+    elif not plan.wstacking:
+        # No w-stacking -> no w-shift pre-phase: identity factors, so
+        # psf()/slot-space consumers that read them unconditionally
+        # stay correct (staging skips the rotation in this mode).
+        phase_cos = np.ones(plan.num_vis, np.float32)
+        phase_sin = np.zeros(plan.num_vis, np.float32)
+    else:
+        factor = -2.0 * np.pi * plan.n_mid
+        phase = factor * plan.ws.astype(np.float64)
+        phase_cos = np.cos(phase).astype(np.float32)
+        phase_sin = np.sin(phase).astype(np.float32)
+    flip_sign = (
+        plan.flip_sign
+        if plan.flip_sign is not None
+        else np.where(plan.flip, -1.0, 1.0).astype(np.float32)
+    )
+    return {
+        "order": plan.order,
+        "flip_sign": flip_sign,
+        "phase_cos": phase_cos,
+        "phase_sin": phase_sin,
+    }
+
+
+def stage_slot_vis(plan: GridderPlan, vis_re, vis_im) -> tuple:
+    """
+    Host-side staging of flattened data-order visibilities into SLOT
+    order: gather by the plan's block-slot permutation (duplicating
+    lane straddlers), conjugate w-flipped samples, and apply the static
+    w-shift pre-phase. Returns float32 numpy ``(re, im)`` of length
+    ``plan.num_vis`` (counterpart copy, numpy branch): the input
+    convention of :func:`build_invert`.
+    """
+    host = plan_order_host(plan)
+    re = np.append(
+        np.asarray(vis_re, np.float32).ravel(), np.float32(0.0)
+    )
+    im = np.append(
+        np.asarray(vis_im, np.float32).ravel(), np.float32(0.0)
+    )
+    order = np.minimum(host["order"], len(re) - 1)
+    re_s = re[order]
+    im_s = im[order] * host["flip_sign"]
+    if plan.wstacking:
+        cos, sin = host["phase_cos"], host["phase_sin"]
+        re_s, im_s = re_s * cos - im_s * sin, re_s * sin + im_s * cos
+    return re_s, im_s
+
+
+def stage_slot_weights(plan: GridderPlan, weights) -> np.ndarray:
+    """
+    Host-side gather of per-sample (data-order) real weights into slot
+    order (no flip/phase — weights are real and positive). Padding
+    slots get weight 0 (counterpart copy).
+    """
+    w = np.append(
+        np.asarray(weights, np.float32).ravel(), np.float32(0.0)
+    )
+    order = plan.order
+    out = w[np.minimum(order, len(w) - 1)]
+    out[order >= len(w) - 1] = 0.0
+    return out
+
+
+def slot_duplicate_pairs(plan: GridderPlan) -> tuple:
+    """
+    The static (dup_a, dup_b) slot-index pairs sharing one source
+    sample (lane-straddler duplication, ops/plan.py). A model
+    visibility's full value is the sum over its slots — each slot's
+    kernel covers only its own 128-lane window — so slot-space
+    residuals need ``acc[dup_a] += acc_old[dup_b]`` and vice versa
+    (see :func:`slot_group_sum`). Pairs are returned as int32 arrays;
+    samples with a single slot don't appear (counterpart copy).
+    """
+    order = plan.order
+    perm = np.argsort(order, kind="stable")
+    sorted_order = order[perm]
+    eq = (sorted_order[1:] == sorted_order[:-1]) & (
+        sorted_order[1:] < plan.num_vis_data
+    )
+    # slot_group_sum assumes each source sample occupies at most TWO
+    # slots (single lane-straddle duplication today). A future plan
+    # change duplicating into 3+ slots would silently produce wrong
+    # pairwise group sums — fail loudly instead.
+    if eq.size and np.any(eq[1:] & eq[:-1]):
+        raise ValueError(
+            "slot plan duplicates a source sample into >2 slots; "
+            "slot_group_sum's pairwise model no longer applies"
+        )
+    dup_a = perm[:-1][eq].astype(np.int32)
+    dup_b = perm[1:][eq].astype(np.int32)
+    return dup_a, dup_b
+
+
+def slot_group_sum(acc_re, acc_im, dup_a, dup_b) -> tuple:
+    """
+    Sum duplicated-slot contributions so every slot carries its source
+    sample's FULL model value: ``out[i] = acc[i] + acc[partner(i)]``
+    for straddler pairs, identity elsewhere. ``dup_a``/``dup_b`` are
+    the in-range index tensors of :func:`slot_duplicate_pairs` (the
+    counterpart also accepts out-of-range padding; the port never pads
+    them).
+    """
+    if dup_a.shape[0] == 0:
+        return acc_re, acc_im
+    pair = torch.stack([acc_re, acc_im], dim=1)
+    va, vb = pair[dup_a], pair[dup_b]
+    out = pair.index_add(0, dup_a, vb).index_add(0, dup_b, va)
+    return out[:, 0], out[:, 1]
+
+
+def slot_plan_host_arrays(plan: GridderPlan, device, *, invert: bool = True,
+                          predict: bool = True) -> dict:
+    """
+    Host staging dict of the slot path for ``device``:
+    :func:`plan_host_arrays` plus the host-built packed rows
+    (``pack_plan_columns``, rows xpos, ypos, |w|) and the order
+    transform of :func:`plan_order_host`. Feeds :func:`build_invert`
+    (slot-order input staged with :func:`stage_slot_vis`) and
+    :func:`build_predict`.
+    """
+    arrays = plan_host_arrays(plan, device, invert=invert, predict=predict)
+    arrays["packed"] = np.ascontiguousarray(pack_plan_columns(plan)[:3])
+    arrays.update(plan_order_host(plan))
     return arrays
 
 
@@ -180,9 +346,8 @@ def compact_plan_host_arrays(
     Host staging dict of the compact path for ``device`` (counterpart
     copy): :func:`plan_host_arrays` plus the delta-compressed slot
     source-index map (``oe_first``/``oe_delta``/``oe_exc_pos``/
-    ``oe_exc_val``), hi/lo float32 splits of the f64 ``uvw`` and
-    ``freq / c``, and the per-block x origin ``cblock_ox``. Consumed by
-    :func:`build_assemble`.
+    ``oe_exc_val``) and hi/lo float32 splits of the f64 ``uvw`` and
+    ``freq / c``. Consumed by :func:`build_assemble`.
     """
     arrays = plan_host_arrays(plan, device)
     if plan.order_enc is not None:
@@ -220,7 +385,6 @@ def compact_plan_host_arrays(
     shi = scale.astype(np.float32)
     arrays["scale_hi"] = shi
     arrays["scale_lo"] = (scale - shi).astype(np.float32)
-    arrays["cblock_ox"] = plan.block_ox.astype(np.int32)
     return arrays
 
 
@@ -292,9 +456,15 @@ def build_assemble(plan: GridderPlan):
     ``packed`` rows (patch-relative x, y, |w|) and gather/conjugate/
     pre-phase the data-order visibilities into slot order. Returns
     ``assemble(arrays, re_data, im_data) -> (arrays_with_packed, re_s,
-    im_s)``. The double-float positions are collapsed to float32 at grid
-    scale before the block origin is subtracted, as in the counterpart
-    (one float32 ulp of the grid size; ROADMAP.md Queue C, C1).
+    im_s)``.
+
+    Unlike the counterpart, the hi and lo parts of the double-float
+    positions are gathered as separate slot columns and the block origin
+    is subtracted from the hi part first: ``(xh - origin) + xl`` is
+    exact up to one rounding at patch scale. The counterpart collapses
+    ``xh + xl`` to one float32 at grid scale first, which moves
+    positions by up to one float32 ulp of the grid size (2.4e-4 cells
+    at ngrid 4096; ROADMAP.md Queue C, C1).
     """
     num_data = plan.num_vis_data
     support = plan.support
@@ -321,8 +491,6 @@ def build_assemble(plan: GridderPlan):
             uh2[:, 1], ul2[:, 1], sgn_d, sh, sl, inv_du, ngrid, support
         )
         wh, wl = _df_mul(uh2[:, 2] * sgn_d, ul2[:, 2] * sgn_d, sh, sl)
-        xglob = (xh + xl).reshape(-1)
-        yglob = (yh + yl).reshape(-1)
         ws_d = (wh + wl).reshape(-1)
         sgn_d = sgn_d.reshape(-1)
         re_d = re_data
@@ -334,7 +502,7 @@ def build_assemble(plan: GridderPlan):
             re_d, im_d = re_d * cos - im_d * sin, re_d * sin + im_d * cos
 
         # Slot pass: expand the delta-compressed slot indices and
-        # gather one (N, 5) row table.
+        # gather one (N, 7) row table.
         deltas = arrays["oe_delta"].to(torch.int32, copy=True)
         deltas[arrays["oe_exc_pos"].to(torch.int64)] = arrays["oe_exc_val"]
         deltas = deltas.reshape(arrays["oe_first"].shape[0], block)
@@ -355,25 +523,29 @@ def build_assemble(plan: GridderPlan):
 
         box = per_block(arrays["cblock_ox"])
         boy = per_block(arrays["block_oy"])
-        table = torch.stack([xglob, yglob, ws_d, re_d, im_d], dim=1)
+        table = torch.stack(
+            [xh.reshape(-1), xl.reshape(-1), yh.reshape(-1),
+             yl.reshape(-1), ws_d, re_d, im_d],
+            dim=1,
+        )
         g = table[idx.clamp(0, table.shape[0] - 1)]
-
-        def col(k, fill):
-            return torch.where(mask, g[:, k], fill)
-
         pad_pos = torch.tensor(
             support + 0.5, dtype=torch.float32, device=device
         )
         zero_s = torch.zeros((), dtype=torch.float32, device=device)
+
+        def col(value, fill):
+            return torch.where(mask, value, fill)
+
         out = dict(arrays)
         out["packed"] = torch.stack(
             [
-                col(0, pad_pos + box) - box,
-                col(1, pad_pos + boy) - boy,
-                col(2, zero_s),
+                col((g[:, 0] - box) + g[:, 1], pad_pos),
+                col((g[:, 2] - boy) + g[:, 3], pad_pos),
+                col(g[:, 4], zero_s),
             ]
         )
-        return out, col(3, zero_s), col(4, zero_s)
+        return out, col(g[:, 5], zero_s), col(g[:, 6], zero_s)
 
     return assemble
 
@@ -407,6 +579,45 @@ def _fold_wraps(plan: GridderPlan, grid: torch.Tensor) -> torch.Tensor:
     return g2
 
 
+def _unfold_wraps(plan: GridderPlan, g: torch.Tensor,
+                  out: torch.Tensor) -> torch.Tensor:
+    """
+    Adjoint of :func:`_fold_wraps`: write the periodic N x N grid ``g``
+    into the alloc frame ``out`` (nalloc_x, nalloc_y) with its wrap
+    edges duplicated, rows first, then columns, as the counterpart does
+    (so the corners match). ``out`` is written in place only inside
+    [0, N + 2W)^2; the rest must already be zero.
+    """
+    N, W = plan.ngrid, plan.support
+    out[W : W + N, W : W + N] = g
+    out[W + N : N + 2 * W, W : W + N] = g[0:W, :]
+    out[0:W, W : W + N] = g[N - W : N, :]
+    out[: N + 2 * W, W + N : N + 2 * W] = out[: N + 2 * W, W : 2 * W]
+    out[: N + 2 * W, 0:W] = out[: N + 2 * W, N : N + W]
+    return out
+
+
+def _prepare_sorted_vis(plan: GridderPlan, arrays: dict, vis_re, vis_im):
+    """
+    Data-order visibilities -> slot order on the device: gather by the
+    plan's ``order`` (padding slots read zero), conjugate flipped
+    samples, apply the w-shift pre-phase (counterpart
+    ``_prepare_sorted_vis``).
+    """
+    pair = torch.zeros((plan.num_vis_data + 1, 2), dtype=torch.float32,
+                       device=vis_re.device)
+    n = min(vis_re.shape[0], plan.num_vis_data)
+    pair[:n, 0] = vis_re[:n]
+    pair[:n, 1] = vis_im[:n]
+    taken = pair[arrays["order"].to(torch.int64)]
+    re = taken[:, 0]
+    im = taken[:, 1] * arrays["flip_sign"]
+    if plan.wstacking:
+        cos, sin = arrays["phase_cos"], arrays["phase_sin"]
+        re, im = re * cos - im * sin, re * sin + im * cos
+    return re, im
+
+
 def _fft2_to_image_t(arrays, grid_re, grid_im, fmeta):
     """
     Centred inverse 2-D DFT of the (N, N) grid cropped to the image,
@@ -425,10 +636,13 @@ def _fft2_to_image_t(arrays, grid_re, grid_im, fmeta):
 def build_invert(plan: GridderPlan):
     """
     Returns ``invert(arrays, re_s, im_s) -> image``: the unnormalized
-    (npix, npix) float32 dirty image from slot-order visibilities
-    (``build_assemble``'s output), on the device of the tensors.
-    ``arrays`` must hold ``packed`` and the arrays of
-    :func:`compact_plan_host_arrays`.
+    (npix, npix) float32 dirty image from slot-order visibilities, on
+    the device of the tensors. Two stagings feed it: the compact one
+    (:func:`compact_plan_host_arrays` + :func:`build_assemble`, which
+    rebuilds ``packed`` and the slot visibilities on the device), and
+    the slot one (:func:`slot_plan_host_arrays`, host-built ``packed``
+    rows, with visibilities from :func:`stage_slot_vis`), which the
+    measurement operator uses.
     """
     G = plan.plane_group
     npix = plan.num_pixels
@@ -475,6 +689,107 @@ def build_invert(plan: GridderPlan):
     return invert
 
 
+def build_predict(plan: GridderPlan, *, slot_output: bool = False):
+    """
+    Returns ``predict(arrays, image) -> (vis_re, vis_im)``: the exact
+    adjoint of :func:`build_invert`'s operator (degridding, the
+    ``dirty2ms`` analog), producing data-order split visibilities
+    (``plan.num_vis_data`` each) from a real (npix, npix) image, on the
+    device of the staged tensors. ``arrays`` is a staged
+    :func:`slot_plan_host_arrays` dict.
+
+    With ``slot_output=True`` the per-slot contributions are returned
+    in the slot-input convention (pre-phase applied, flip not undone,
+    ``plan.num_vis`` each): the adjoint of :func:`build_invert` on
+    slot-order input. A slot's value covers only its own 128-lane
+    kernel window; sum straddler pairs with :func:`slot_group_sum`
+    before comparing against staged data.
+    """
+    G = plan.plane_group
+    fmeta = _fused_fft_meta_ic(plan)
+    counts = [len(ids) for ids in group_active_blocks(plan)]
+
+    def screened_alloc(arrays, img0, w_p, nm1s, out_re, out_im):
+        """Screen, pad, FFT and unfold one plane's grid into ``out_*``."""
+        if plan.wstacking:
+            theta = (2.0 * math.pi * w_p) * nm1s
+            img_re = img0 * torch.cos(theta)
+            img_im = img0 * torch.sin(theta)
+        else:
+            img_re = img0
+            img_im = torch.zeros_like(img0)
+        grid_re, grid_im = fft2_from_image_fused(
+            arrays, img_re, img_im, meta=fmeta
+        )
+        _unfold_wraps(plan, grid_re, out_re)
+        _unfold_wraps(plan, grid_im, out_im)
+
+    def predict(arrays, image):
+        inv_corr, nm1s = _geometry_maps(plan, arrays)
+        device = inv_corr.device
+        img0 = torch.as_tensor(
+            image, dtype=torch.float32, device=device
+        ) * inv_corr
+        # One (2G, nalloc_x, nalloc_y) stack for every group: each group
+        # rewrites the same [0, N + 2W)^2 window of each plane, so the
+        # margins stay zero.
+        grids = torch.zeros(
+            (2 * G, plan.nalloc_x, plan.nalloc_y), dtype=torch.float32,
+            device=device,
+        )
+        acc = torch.zeros((2, plan.num_vis), dtype=torch.float32,
+                          device=device)
+        for k in range(plan.num_groups):
+            w_g = arrays["plane_wg"][k]
+            num_real = min(G, plan.nplanes - k * G)
+            for i in range(num_real):
+                screened_alloc(arrays, img0, w_g[i], nm1s, grids[2 * i],
+                               grids[2 * i + 1])
+            # Pad planes of a ragged final group: their ES w-factor is
+            # zero for every block, so any grid works — reuse the last
+            # real plane's, as the counterpart does.
+            last = grids[2 * (num_real - 1) : 2 * num_real]
+            for i in range(num_real, G):
+                grids[2 * i : 2 * i + 2].copy_(last)
+            degrid_planes(
+                arrays["packed"],
+                arrays["block_len"],
+                arrays["cblock_ox"],
+                arrays["block_oy"],
+                grids,
+                w_g,
+                arrays["group_blocks"][k, : counts[k]],
+                acc,
+                plan=plan,
+            )
+        if slot_output:
+            return acc[0], acc[1]
+        return _finalize(plan, arrays, acc[0], acc[1])
+
+    return predict
+
+
+def _finalize(plan: GridderPlan, arrays: dict, acc_re, acc_im) -> tuple:
+    """Post-phase, conjugate flips, scatter-add back to data order."""
+    if plan.wstacking:
+        # Adjoint post-phase: conjugate of the staged pre-phase.
+        cos = arrays["phase_cos"]
+        sin = -arrays["phase_sin"]
+        acc_re, acc_im = (
+            acc_re * cos - acc_im * sin,
+            acc_re * sin + acc_im * cos,
+        )
+    acc_im = acc_im * arrays["flip_sign"]
+    # Scatter-ADD: duplicated lane straddlers carry two partial
+    # contributions per source sample; padding slots index num_vis_data,
+    # one past the end, and are dropped.
+    out = torch.zeros((2, plan.num_vis_data + 1), dtype=torch.float32,
+                      device=acc_re.device)
+    out.index_add_(1, arrays["order"].to(torch.int64),
+                   torch.stack([acc_re, acc_im]))
+    return out[0, : plan.num_vis_data], out[1, : plan.num_vis_data]
+
+
 def dirty_image(
     uvw,
     channel_frequencies,
@@ -513,3 +828,40 @@ def dirty_image(
     )
     image = build_invert(plan)(arrays, re_s, im_s)
     return image.cpu().numpy()
+
+
+def predict_visibilities(
+    uvw,
+    channel_frequencies,
+    image,
+    pixel_size_lm: float,
+    *,
+    epsilon: float = 1e-4,
+    do_wstacking: bool = True,
+    sigma: float | str = 2.0,
+    device,
+) -> np.ndarray:
+    """
+    Model visibilities from an image (``dirty2ms`` analog, the adjoint
+    of :func:`dirty_image`; counterpart ``predict_visibilities``). The
+    work runs on ``device``; returns complex64 (nrow, nchan) numpy.
+    """
+    device = resolve_device(device)
+    image = np.asarray(image)
+    plan = make_plan(
+        uvw,
+        channel_frequencies,
+        image.shape[0],
+        pixel_size_lm,
+        epsilon=epsilon,
+        do_wstacking=do_wstacking,
+        sigma=sigma,
+    )
+    arrays = stage_arrays(
+        slot_plan_host_arrays(plan, device, invert=False), device
+    )
+    out_re, out_im = build_predict(plan)(arrays, image)
+    vis = out_re.cpu().numpy() + 1j * out_im.cpu().numpy()
+    return vis.reshape(len(uvw), len(channel_frequencies)).astype(
+        np.complex64
+    )

@@ -1,16 +1,16 @@
 """
-ducc0.wgridder-compatible ``ms2dirty`` on the port's gridder.
+ducc0.wgridder-compatible ``ms2dirty`` and ``dirty2ms`` on the port's
+gridder.
 
-Counterpart: ``ska_sdp_cip_tpu/wgridder.py:ms2dirty``. ``nthreads`` is
-accepted and ignored; ``device`` is an extra keyword-only argument.
-``dirty2ms`` (predict) is still to be ported (ROADMAP.md, queue A).
+Counterpart: ``ska_sdp_cip_tpu/wgridder.py``. ``nthreads`` is accepted
+and ignored; ``device`` is an extra keyword-only argument.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .ops.gridder import dirty_image
+from .ops.gridder import dirty_image, predict_visibilities
 
 
 def ms2dirty(
@@ -50,3 +50,37 @@ def ms2dirty(
         do_wstacking=bool(do_wstacking),
         device=device,
     )
+
+
+def dirty2ms(
+    uvw,
+    freq,
+    dirty,
+    wgt=None,
+    pixsize_x=None,
+    pixsize_y=None,
+    epsilon=1e-4,
+    do_wstacking=True,
+    nthreads=None,
+    mask=None,
+    *,
+    device,
+    **_ignored,
+):
+    """Model visibilities from an image (ducc0 dirty2ms analog)."""
+    if pixsize_y is not None and pixsize_x != pixsize_y:
+        raise NotImplementedError("Anisotropic pixels are not supported")
+    vis = predict_visibilities(
+        uvw,
+        freq,
+        dirty,
+        float(pixsize_x),
+        epsilon=float(epsilon),
+        do_wstacking=bool(do_wstacking),
+        device=device,
+    )
+    if wgt is not None:
+        vis = vis * np.asarray(wgt)
+    if mask is not None:
+        vis = vis * np.asarray(mask)
+    return vis

@@ -19,7 +19,7 @@ from ska_sdp_cip_tpu_torch.io.synth import synthetic_uvw
 from ska_sdp_cip_tpu_torch.ops import cuda_gridder as tcg
 from ska_sdp_cip_tpu_torch.ops import fft_cuda as tfc
 from ska_sdp_cip_tpu_torch.ops import gridder as tg
-from ska_sdp_cip_tpu_torch.ops.dft import dirty_image_dft
+from ska_sdp_cip_tpu_torch.ops.dft import dirty_image_dft, predict_dft
 from ska_sdp_cip_tpu_torch.ops.fft import fft_plan_arrays, make_fft_plan
 from ska_sdp_cip_tpu_torch.ops.plan import make_plan
 
@@ -69,6 +69,75 @@ def test_grid_kernel_matches_plain(cuda, wstack):
         for p in range(ref.shape[0]):
             scale = ref[p].abs().max()
             assert float((got[p] - ref[p]).abs().max() / scale) <= 1e-5
+
+
+@pytest.mark.parametrize("wstack", [False, True], ids=["G1", "G2"])
+def test_degrid_kernel_matches_plain(cuda, wstack):
+    uvw, freqs, _, _ = _small()
+    plan = make_plan(uvw, freqs, 96, PIXEL, do_wstacking=wstack)
+    arrays = tg.stage_arrays(tg.slot_plan_host_arrays(plan, cuda), cuda)
+    G = plan.plane_group
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    grids = torch.randn((2 * G, plan.nalloc_x, plan.nalloc_y),
+                        generator=gen, device=cuda)
+    for k, ids in enumerate(tg.group_active_blocks(plan)):
+        args = (
+            arrays["packed"], arrays["block_len"], arrays["cblock_ox"],
+            arrays["block_oy"], grids, arrays["plane_wg"][k],
+            arrays["group_blocks"][k, : len(ids)],
+        )
+        acc = torch.zeros((2, plan.num_vis), device=cuda)
+        before = tcg.DEGRID_LAUNCHES
+        got = tcg.degrid_planes(*args, acc, plan=plan)
+        torch.cuda.synchronize()
+        assert tcg.DEGRID_LAUNCHES == before + 1
+        ref = tcg.degrid_planes_reference(
+            *args, torch.zeros_like(acc), plan=plan
+        )
+        scale = ref.abs().max()
+        assert float((got - ref).abs().max() / scale) <= 1e-5
+
+
+@pytest.mark.parametrize("n,in_crop,m", [(96, (24, 48), 128),
+                                         (96, (30, 40), 96),
+                                         (512, (128, 256), 384)])
+def test_in_crop_fft_kernel_matches_plain(cuda, n, in_crop, m):
+    plan = make_fft_plan(n, shifted=True)
+    meta = tfc.fused_pass_meta(plan, None, in_crop=in_crop)
+    host = fft_plan_arrays(plan, prefix="fft")
+    host.update(tfc.fused_pass_host_arrays(plan, meta, sign=-1,
+                                           prefix="fftq"))
+    f = tg.stage_arrays(host, cuda)
+    rng = np.random.default_rng(n + m)
+    size = in_crop[1]
+    re = torch.from_numpy(rng.normal(size=(size, m)).astype(np.float32))
+    im = torch.from_numpy(rng.normal(size=(size, m)).astype(np.float32))
+    re, im = re.to(cuda), im.to(cuda)
+    before = tfc.IN_CROP_LAUNCHES
+    got = tfc.fft_first_axis_fused(re, im, f, meta=meta, sign=-1,
+                                   prefix="fftq")
+    torch.cuda.synchronize()
+    assert tfc.IN_CROP_LAUNCHES == before + 1
+    ref = tfc.fft_first_axis_reference(re, im, f, meta=meta, sign=-1)
+    scale = max(float(r.abs().max()) for r in ref)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape == (n, m)
+        assert float((g - r).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("wstack", [False, True])
+def test_predict_on_card_matches_dft(cuda, wstack):
+    uvw, _ = synthetic_uvw(2, 6, max_baseline_m=2000.0, seed=3)
+    freqs = np.array([1.2e9])
+    image = np.zeros((64, 64), np.float32)
+    image[37, 29], image[23, 40] = 1.7, 0.8
+    ref = predict_dft(uvw, freqs, image, PIXEL, apply_w=wstack)
+    before = (tcg.DEGRID_LAUNCHES, tfc.IN_CROP_LAUNCHES)
+    got = tg.predict_visibilities(uvw, freqs, image, PIXEL, epsilon=1e-5,
+                                  do_wstacking=wstack, device=cuda)
+    assert tcg.DEGRID_LAUNCHES > before[0]
+    assert tfc.IN_CROP_LAUNCHES > before[1]
+    assert np.abs(got - ref).max() / np.abs(ref).max() <= 1e-4
 
 
 @pytest.mark.parametrize("n,crop,m", [(96, (24, 48), 128), (256, None, 200),

@@ -4,8 +4,9 @@ The torch port's DFT axis passes against the JAX package's.
 ``fft_first_axis_reference`` (the plain version of the fused CUDA pass,
 kernel B2) must match the Pallas fused pass in interpret mode
 (bf16x3, ~1e-6) and the XLA four-step ``fft_first_axis`` to 1e-5
-relative; the port's float32 factors must equal the JAX hi/lo factor
-pairs to bf16x3 precision.
+relative, out-cropped (invert) and in-cropped at sign -1 (predict);
+the port's float32 factors (``fftp_*``, ``fftq_*``) must equal the JAX
+hi/lo factor pairs to bf16x3 precision.
 """
 
 import dataclasses
@@ -25,9 +26,9 @@ torch.set_num_threads(1)
 RTOL = 1e-5
 
 
-def _setup(n, crop, sign):
+def _setup(n, crop, sign, in_crop=None, prefix="fftp"):
     plan = jfft.make_fft_plan(n, shifted=True)
-    meta = jfp.fused_pass_meta(plan, crop)
+    meta = jfp.fused_pass_meta(plan, crop, in_crop=in_crop)
     jax_f = {
         k: jnp.asarray(v)
         for k, v in jfp.fused_pass_host_arrays(
@@ -36,10 +37,10 @@ def _setup(n, crop, sign):
     }
     jax_f.update(jfft.fft_plan_arrays(plan))
     tplan = tfft.make_fft_plan(n, shifted=True)
-    tmeta = tfc.fused_pass_meta(tplan, crop)
+    tmeta = tfc.fused_pass_meta(tplan, crop, in_crop=in_crop)
     host = tfft.fft_plan_arrays(tplan, prefix="fft")
     host.update(
-        tfc.fused_pass_host_arrays(tplan, tmeta, sign=sign, prefix="fftp")
+        tfc.fused_pass_host_arrays(tplan, tmeta, sign=sign, prefix=prefix)
     )
     torch_f = {
         k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
@@ -159,3 +160,98 @@ def test_cpu_tensors_take_the_plain_version():
     assert tfc.LAUNCHES == before
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+#: In-cropped geometries: (n, in_crop) with the crop centred (predict's
+#: image in the 2x grid) and off-centre with a low pad (pad_lo > 0).
+IN_CROPS = [(96, (24, 48)), (256, (64, 128)), (96, (30, 40))]
+
+
+@pytest.mark.parametrize("n,in_crop", IN_CROPS)
+def test_in_crop_meta_and_factors_match_jax(n, in_crop):
+    """The predict pass's geometry and its ``fftq_*`` factors (sign -1)
+    are the JAX ones; the factors are float32 twins of hi + lo."""
+    _, meta, jax_f, _, tmeta, _, host = _setup(
+        n, None, -1, in_crop=in_crop, prefix="fftq"
+    )
+    assert dataclasses.asdict(tmeta) == dataclasses.asdict(meta)
+    assert tmeta.in_size == in_crop[1] and tmeta.n1_in < tmeta.n1
+    assert host["fftq_sign"] == -1
+    for name in ("m1", "m2"):
+        hi = np.asarray(jax_f[f"fp_{name}_hi"]).astype(np.float32)
+        lo = np.asarray(jax_f[f"fp_{name}_lo"]).astype(np.float32)
+        np.testing.assert_allclose(host[f"fftq_{name}"], hi + lo, atol=2e-5)
+    for name in ("twc", "tws"):
+        np.testing.assert_array_equal(
+            host[f"fftq_{name}"], np.asarray(jax_f[f"fp_{name}"])
+        )
+
+
+@pytest.mark.parametrize("n,in_crop", IN_CROPS)
+def test_in_crop_axis_passes_match_jax(n, in_crop):
+    """``in_crop`` of both plain axis passes against the JAX XLA ones."""
+    _, _, jax_f, _, _, torch_f, _ = _setup(n, None, -1)
+    size = in_crop[1]
+    re, im = _inputs(size, 128, seed=13)
+    ours = tfft.fft_first_axis(
+        torch.from_numpy(re), torch.from_numpy(im), torch_f, sign=-1,
+        in_crop=in_crop,
+    )
+    ref = jfft.fft_first_axis(
+        jnp.asarray(re), jnp.asarray(im), jax_f, sign=-1, in_crop=in_crop
+    )
+    assert ours[0].shape == (n, 128)
+    _assert_close([o.numpy() for o in ours], ref)
+    ours = tfft.fft_last_axis(
+        torch.from_numpy(re.T.copy()), torch.from_numpy(im.T.copy()),
+        torch_f, sign=-1, in_crop=in_crop,
+    )
+    ref = jfft.fft_last_axis(
+        jnp.asarray(re.T), jnp.asarray(im.T), jax_f, sign=-1,
+        in_crop=in_crop,
+    )
+    assert ours[0].shape == (128, n)
+    _assert_close([o.numpy() for o in ours], ref)
+
+
+@pytest.mark.parametrize("n,in_crop", IN_CROPS)
+def test_fused_in_crop_pass_matches_pallas(n, in_crop):
+    """
+    The port's fused in-cropped pass (its plain version on CPU tensors)
+    against the Pallas pass in interpret mode, sign -1, to 1e-5 of max;
+    no kernel launch is counted.
+    """
+    _, meta, jax_f, _, tmeta, torch_f, _ = _setup(
+        n, None, -1, in_crop=in_crop, prefix="fftq"
+    )
+    re, im = _inputs(in_crop[1], 128, seed=17)
+    before = tfc.IN_CROP_LAUNCHES
+    ours = tfc.fft_first_axis_fused(
+        torch.from_numpy(re), torch.from_numpy(im), torch_f,
+        meta=tmeta, sign=-1, prefix="fftq",
+    )
+    assert tfc.IN_CROP_LAUNCHES == before
+    fused = jfp.fft_first_axis_fused(
+        jnp.asarray(re), jnp.asarray(im), jax_f, meta=meta, prefix="fp",
+        interpret=True,
+    )
+    assert ours[0].shape == (n, 128)
+    _assert_close([o.numpy() for o in ours], fused)
+
+
+def test_fft2_from_image_matches_jax():
+    """Predict's forward 2-D transform of a zero-padded image."""
+    n, in_crop = 256, (64, 128)
+    _, meta, jax_f, _, tmeta, torch_f, _ = _setup(
+        n, None, -1, in_crop=in_crop, prefix="fftq"
+    )
+    re, im = _inputs(128, 128, seed=19)
+    ours = tfc.fft2_from_image_fused(
+        torch_f, torch.from_numpy(re), torch.from_numpy(im), meta=tmeta
+    )
+    ref = jfp.fft2_from_image_fused(
+        jax_f, jnp.asarray(re), jnp.asarray(im), meta=meta, prefix="fp",
+        interpret=True,
+    )
+    assert ours[0].shape == (n, n)
+    _assert_close([o.numpy() for o in ours], ref)

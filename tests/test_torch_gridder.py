@@ -7,8 +7,10 @@ prologue against the JAX package's.
   each plane's max: the group kernel (G = 2) and the single-plane
   kernel (G = 1); the w-stacked G = 1 case is held as its test says.
   The JAX side contracts in bf16x3, the port in float32.
-* ``build_assemble`` must rebuild the JAX prologue's packed rows and
-  slot-order visibilities (same double-float arithmetic in float32).
+* ``build_assemble`` must rebuild the JAX prologue's |w| row and
+  slot-order visibilities (same double-float arithmetic in float32),
+  and the host planner's positions, which the JAX prologue rounds at
+  grid scale (ROADMAP.md C1).
 """
 
 import dataclasses
@@ -30,6 +32,33 @@ torch.set_num_threads(1)
 
 PLANE_RTOL = 1e-5
 PIXEL = float(np.sin(np.radians(40.0 / 3600)))
+#: Prologue positions against the float64 planner's, in cells: one
+#: float32 rounding at patch scale (x < 48, y < 128 cells) is at most
+#: 7.6e-6.
+C1_CELLS = 1e-5
+#: ... and against the host-staged rows (``pack_plan_columns``), which
+#: round once at patch scale themselves: one float32 ulp at 128 cells.
+HOST_ROWS_CELLS = 2.0 ** -16
+
+
+def _planner_positions(plan, uvw, freqs):
+    """
+    Float64 patch-relative (x, y) of the data slots, computed as the
+    planner computes them (``ops/plan.py:make_plan``), and the mask of
+    data slots.
+    """
+    scale = np.asarray(freqs, np.float64) / tplan.SPEED_OF_LIGHT
+    u, v, w = (np.multiply.outer(uvw[:, i], scale).ravel() for i in range(3))
+    sign = np.where(w < 0, -1.0, 1.0)
+    half = plan.ngrid / 2.0
+    x = np.mod(sign * u / plan.du + half, plan.ngrid) + plan.support
+    y = np.mod(sign * v / plan.du + half, plan.ngrid) + plan.support
+    data = plan.order < plan.num_vis_data
+    blk = (np.arange(plan.num_vis) // plan.block)[data]
+    src = plan.order[data]
+    return data, np.stack(
+        [x[src] - plan.block_ox[blk], y[src] - plan.block_oy[blk]]
+    )
 
 
 def _problem(do_wstacking, seed=23):
@@ -152,9 +181,14 @@ def test_single_plane_wstacked_matches_pallas_kernel(monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def assembled():
+def assembled_inputs():
     uvw, _ = synthetic_uvw(4, 24, max_baseline_m=6000.0, seed=11)
-    freqs = np.linspace(1.40e9, 1.46e9, 5)
+    return uvw, np.linspace(1.40e9, 1.46e9, 5)
+
+
+@pytest.fixture(scope="module")
+def assembled(assembled_inputs):
+    uvw, freqs = assembled_inputs
     pixel = float(np.sin(np.radians(8.0 / 3600.0)))
     plan = jplan.make_plan(uvw, freqs, 512, pixel, export_packed=False)
     port_plan = tplan.make_plan(uvw, freqs, 512, pixel, export_packed=False)
@@ -176,17 +210,18 @@ def assembled():
         torch.from_numpy(np.ascontiguousarray(weighted.real)),
         torch.from_numpy(np.ascontiguousarray(weighted.imag)),
     )
-    return plan, jax_host, host, jax_out, ours
+    return port_plan, jax_host, host, jax_out, ours
 
 
 def test_host_arrays_carry_only_the_cpu_pass_factors():
-    """On the CPU the plain DFT pass runs: no fused-kernel factors."""
+    """On the CPU the plain DFT passes run (invert and predict): no
+    fused-kernel factors."""
     uvw, _ = synthetic_uvw(3, 10, max_baseline_m=5000.0, seed=23)
     freqs = np.array([1.0e9, 1.07e9])
     port_plan = tplan.make_plan(uvw, freqs, 96, PIXEL, export_packed=False)
-    host = tg.plan_host_arrays(port_plan, "cpu")
+    host = tg.plan_host_arrays(port_plan, "cpu", predict=True)
     assert "fft_d1_cos" in host
-    assert not [k for k in host if k.startswith("fftp_")]
+    assert not [k for k in host if k.startswith(("fftp_", "fftq_"))]
 
 
 def test_compact_host_arrays_match_jax(assembled):
@@ -197,15 +232,26 @@ def test_compact_host_arrays_match_jax(assembled):
         np.testing.assert_array_equal(host[key], jax_host[key], err_msg=key)
 
 
-def test_assemble_matches_jax(assembled):
+def test_assemble_matches_jax(assembled, assembled_inputs):
+    """
+    Positions are held to the host-staged rows (``pack_plan_columns``
+    of the float64 planner), not to the JAX prologue, which rounds them
+    at grid scale (ROADMAP.md C1); |w| and the slot visibilities are
+    held to the JAX prologue.
+    """
     plan, _, _, (jax_arrays, jre, jim), ours = assembled
     arrays, re_s, im_s = ours
     packed = arrays["packed"].numpy()
     jax_packed = np.asarray(jax_arrays["packed"])
     assert packed.shape == jax_packed.shape == (3, plan.num_vis)
-    # Positions in cells: the same double-float float32 arithmetic on
-    # both sides.
-    np.testing.assert_allclose(packed[:2], jax_packed[:2], rtol=0, atol=1e-6)
+    # Padding slots carry different fillers on the two sides; the
+    # kernels mask them by block length.
+    data, truth = _planner_positions(plan, *assembled_inputs)
+    np.testing.assert_allclose(packed[:2, data], truth, rtol=0, atol=C1_CELLS)
+    host_rows = tcg.pack_plan_columns(plan)[:2, data]
+    np.testing.assert_allclose(
+        packed[:2, data], host_rows, rtol=0, atol=HOST_ROWS_CELLS
+    )
     ws_scale = max(np.abs(jax_packed[2]).max(), 1.0)
     np.testing.assert_allclose(
         packed[2], jax_packed[2], rtol=0, atol=1e-6 * ws_scale
@@ -216,3 +262,30 @@ def test_assemble_matches_jax(assembled):
         np.testing.assert_allclose(
             got.numpy(), np.asarray(ref), rtol=0, atol=1e-5 * scale
         )
+
+
+def test_assemble_positions_hold_at_the_bench_grid():
+    """
+    ROADMAP.md C1: at ngrid 4096 (2048 px at 5 asec, the bench
+    geometry) the prologue's patch-relative positions stay within
+    ``C1_CELLS`` of the host-staged rows. Collapsing ``xh + xl`` at grid
+    scale first, as the JAX prologue does, misses by up to one float32
+    ulp of 4096 (2.4e-4 cells). Held against the float64 planner's
+    positions and against the host-staged rows. Only the prologue runs.
+    """
+    uvw, _ = synthetic_uvw(2, 40, max_baseline_m=7700.0, seed=42)
+    freqs = np.linspace(1.40e9, 1.507e9, 4)
+    pixel = float(np.sin(np.radians(5.0 / 3600.0)))
+    plan = tplan.make_plan(uvw, freqs, 2048, pixel, export_packed=False)
+    assert plan.ngrid == 4096 and plan.num_vis_data == len(uvw) * 4
+    host = tg.compact_plan_host_arrays(plan, uvw, freqs, "cpu")
+    zeros = torch.zeros(plan.num_vis_data, dtype=torch.float32)
+    arrays, _, _ = tg.build_assemble(plan)(
+        tg.stage_arrays(host, "cpu"), zeros, zeros.clone()
+    )
+    data, truth = _planner_positions(plan, uvw, freqs)
+    packed = arrays["packed"][:2].numpy()[:, data]
+    err = np.abs(packed - truth).max()
+    assert err <= C1_CELLS, err
+    host_rows = tcg.pack_plan_columns(plan)[:2, data]
+    assert np.abs(packed - host_rows).max() <= HOST_ROWS_CELLS

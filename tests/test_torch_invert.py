@@ -144,6 +144,10 @@ wgt = np.ones(vis.shape, np.float32)
 pix = float(np.sin(np.radians(40.0 / 3600)))
 img = dirty_image(uvw, freqs, vis, wgt, 64, pix, device="cpu")
 ref = dirty_image_dft(uvw, freqs, vis, wgt, 64, pix)
+from ska_sdp_cip_tpu_torch.models import MeasurementOperator, major_cycle_clean
+op = MeasurementOperator.build(uvw, freqs, wgt, 64, pix, device="cpu")
+model, res = major_cycle_clean(op, vis.ravel(), num_major=1, minor_iter=5)
+assert np.isfinite(res.numpy()).all()
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                 ("jax", "jaxlib", "ml_dtypes", "ska_sdp_cip_tpu")
                 and sys.modules[m] is not None)
