@@ -7,7 +7,7 @@ NVIDIA card.
 
 Builds the CUDA kernels from ``ska_sdp_cip_tpu_torch/csrc`` with nvcc
 (one nvcc per source, started together, into ``build/torch_kernels/``),
-then runs nine phases and prints one JSON object per phase:
+then runs these phases and prints one JSON object per phase:
 
 1. ``device``: card name, ``nvidia-smi`` name and power limit, build time;
 2. ``b1``: the gridding kernel against its plain version, on small
@@ -18,7 +18,9 @@ then runs nine phases and prints one JSON object per phase:
 3. ``b2``: the fused first-axis DFT kernel against its plain version at
    the bench transform: out-cropped (invert: 4096 rows -> 2048-row
    crop, m = 4096 and 2048) and in-cropped at sign -1 (predict: 2048
-   image rows -> 4096, m = 2048 and 4096);
+   image rows -> 4096, m = 2048 and 4096); then at the production
+   transform (15360 rows -> 10240 and 10240 -> 15360, m = 15360;
+   n1 = 120, the kernel's ragged tiles);
 4. ``b3``: the degridding kernel against its plain version, on small
    plans (G = 1 without w-stacking, G = 2) and on one bench-size plane
    group;
@@ -39,7 +41,28 @@ then runs nine phases and prints one JSON object per phase:
    residual (below 0.6 x the dirty peak) and on the brightest CLEAN
    component (at the brightest source's pixel), with the plan and
    staging seconds, the seconds of each major cycle, the kernels'
-   launch counts and a profile of one cycle.
+   launch counts and a profile of one cycle;
+9. ``b6``: the tiled-input probe (``probes/fft_tiled.py``) at 15360^2
+   and 4096^2: B6 (``pretile_first_axis``) against its plain version
+   and B2 on tiled input against B2 on row-major input, both exact,
+   with the times of the baseline pass, pretile, the tiled pass and
+   pretile + tiled pass;
+10. ``fft_probes``: at 15360^2, P1 (stage 1 through an S-deep
+    ``cp.async`` ring, S = 1, 2, 4; each output equal to B2's) and P2
+    (B2's stage ablation, each variant against its plain piece); P3,
+    the largest dynamic shared memory per block against the device
+    attribute;
+11. ``production`` (three parts): ``scripts/production_bench.py``'s
+    configuration (258,048 visibilities, 10240 px at 1.1 asec,
+    ``sigma="auto"`` = 1.5, a 15360^2 grid, support 8): ``dirty_image``
+    (float64 DFT at 256 pixels, B1 against its plain version on the
+    largest plane group, median wall of 3 calls, breakdown, launch
+    counts, profile), ``predict_visibilities`` (the adjoint identity,
+    five point sources against a float64 DFT at 4096 visibilities, B3
+    against its plain version on the largest plane group, median wall,
+    breakdown) and the major cycle on the Clark minor
+    cycle (``psf_patch`` 2048) on visibilities of five point sources,
+    with the ``major_cycle`` gates.
 
 Then a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -68,6 +91,14 @@ DFT_RTOL = 1e-4  # gridder vs explicit DFT: the epsilon=1e-4 contract
 BENCH_TIMES, BENCH_ANTENNAS, BENCH_CHANNELS = 20, 96, 64
 BENCH_FREQS = (1.40e9, 1.507e9)
 BENCH_NPIX, BENCH_ASEC = 2048, 5.0
+BENCH_NGRID = 4096
+
+#: The production configuration (scripts/production_bench.py, the CSD3
+#: deployment of the reference): 4 times x 2016 baselines x 32
+#: channels = 258,048 visibilities, 10240 px at 1.1 asec, epsilon 1e-4,
+#: sigma "auto" (resolves to 1.5: a 15360^2 grid, support 8).
+PROD_TIMES, PROD_ANTENNAS, PROD_CHANNELS = 4, 64, 32
+PROD_NPIX, PROD_ASEC, PROD_NGRID = 10240, 1.1, 15360
 
 
 class PhaseError(RuntimeError):
@@ -89,23 +120,6 @@ def rel_err(got, ref) -> tuple[float, float]:
     return err, err / scale if scale else err
 
 
-def cuda_ms(fn, *, iters: int, warmup: int = 1) -> float:
-    """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         [
@@ -121,13 +135,15 @@ def nvidia_smi_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def bench_visibilities(num_times, num_antennas, num_channels):
-    """bench.py's workload: uvw, freqs, random vis and weights."""
+def bench_visibilities(num_times, num_antennas, num_channels, *,
+                       seed=2024, uvw_seed=42):
+    """bench.py's workload (and, with ``seed=7, uvw_seed=11``,
+    production_bench.py's): uvw, freqs, random vis and weights."""
     from ska_sdp_cip_tpu_torch.io.synth import synthetic_uvw
 
-    rng = np.random.default_rng(2024)
+    rng = np.random.default_rng(seed)
     uvw, _ = synthetic_uvw(
-        num_times, num_antennas, max_baseline_m=7700.0, seed=42
+        num_times, num_antennas, max_baseline_m=7700.0, seed=uvw_seed
     )
     freqs = np.linspace(*BENCH_FREQS, num_channels)
     shape = (len(uvw), num_channels)
@@ -167,6 +183,7 @@ def group_args(plan, arrays, re_s, im_s, k):
 def compare_group(plan, args, *, time_it: bool, iters: int = 3) -> dict:
     """B1 kernel vs plain version on one plane group, plane by plane."""
     from ska_sdp_cip_tpu_torch.ops import cuda_gridder as cg
+    from ska_sdp_cip_tpu_torch.probes.common import cuda_ms
 
     got = cg.grid_planes(*args, plan=plan)
     ref = cg.grid_planes_reference(*args, plan=plan)
@@ -300,42 +317,40 @@ def bench_dft_check(plan, arrays, re_s, im_s, uvw, freqs, wvis, device,
     return out
 
 
-def phase_b2(device, n=4096, npix=2048) -> dict:
+def phase_b2(device, n=4096, npix=2048, width=None, iters=10) -> dict:
     """
-    B2 against its plain version at the bench transform: the invert's
-    out-cropped pass (n rows -> npix, sign +1, ``fftp_*``) at m = n and
-    npix, then predict's in-cropped pass (npix rows of the zero-padded
-    image -> n, sign -1, ``fftq_*``) at m = npix and n.
+    B2 against its plain version: the invert's out-cropped pass (n rows
+    -> npix, sign +1, ``fftp_*``) at m = n and npix, then predict's
+    in-cropped pass (npix rows of the zero-padded image -> n, sign -1,
+    ``fftq_*``) at m = npix and n; with ``width``, both at m = width
+    only. Inputs are standard normal, made on the device.
     """
     import torch
 
     from ska_sdp_cip_tpu_torch.ops import fft_cuda
     from ska_sdp_cip_tpu_torch.ops.fft import fft_plan_arrays, make_fft_plan
     from ska_sdp_cip_tpu_torch.ops.gridder import stage_arrays
+    from ska_sdp_cip_tpu_torch.probes.common import cuda_ms, max_err
 
     fplan = make_fft_plan(n, shifted=True)
     crop = ((n - npix) // 2, npix)
     passes = {
         "out_crop": (fft_cuda.fused_pass_meta(fplan, crop), +1, "fftp", n,
-                     (n, npix)),
+                     (width,) if width else (n, npix)),
         "in_crop": (fft_cuda.fused_pass_meta(fplan, None, in_crop=crop), -1,
-                    "fftq", npix, (npix, n)),
+                    "fftq", npix, (width,) if width else (npix, n)),
     }
     host = fft_plan_arrays(fplan, prefix="fft")
     for meta, sign, prefix, _, _ in passes.values():
         host.update(fft_cuda.fused_pass_host_arrays(fplan, meta, sign=sign,
                                                     prefix=prefix))
     f = stage_arrays(host, device)
-    rng = np.random.default_rng(3)
+    gen = torch.Generator(device=device).manual_seed(3)
     results = {"phase": "b2", "n": n, "crop": npix, "cases": []}
     for name, (meta, sign, prefix, rows, widths) in passes.items():
         for m in widths:
-            re = torch.from_numpy(
-                rng.normal(size=(rows, m)).astype(np.float32)
-            ).to(device)
-            im = torch.from_numpy(
-                rng.normal(size=(rows, m)).astype(np.float32)
-            ).to(device)
+            re = torch.randn((rows, m), generator=gen, device=device)
+            im = torch.randn((rows, m), generator=gen, device=device)
 
             def kernel():
                 return fft_cuda.fft_first_axis_fused(
@@ -347,23 +362,25 @@ def phase_b2(device, n=4096, npix=2048) -> dict:
                     re, im, f, meta=meta, sign=sign
                 )
 
-            got, ref = kernel(), plain()
-            errs = [rel_err(g, r) for g, r in zip(got, ref)]
+            err, rel = max_err(kernel(), plain())
             case = {
                 "pass": name,
+                "n": n,
+                "n1": meta.n1,
                 "rows_in": rows,
                 "m": m,
-                "max_abs_err": max(e[0] for e in errs),
-                "max_rel_err": max(e[1] for e in errs),
+                "max_abs_err": err,
+                "max_rel_err": rel,
             }
             if device.type == "cuda":
-                case["ms"] = cuda_ms(kernel, iters=10)
-                case["plain_ms"] = cuda_ms(plain, iters=10)
+                case["ms"] = cuda_ms(kernel, iters=iters)
+                case["plain_ms"] = cuda_ms(plain, iters=iters)
             results["cases"].append(case)
+            del re, im
             if not case["max_rel_err"] <= KERNEL_RTOL:
                 raise PhaseError(
-                    f"B2 ({name}) vs plain {case['max_rel_err']:.3e} > "
-                    f"{KERNEL_RTOL}"
+                    f"B2 ({name}, n={n}) vs plain {case['max_rel_err']:.3e}"
+                    f" > {KERNEL_RTOL}"
                 )
     return results
 
@@ -375,6 +392,7 @@ def compare_degrid(plan, arrays, grids, k, *, time_it: bool,
 
     from ska_sdp_cip_tpu_torch.ops import cuda_gridder as cg
     from ska_sdp_cip_tpu_torch.ops.gridder import group_active_blocks
+    from ska_sdp_cip_tpu_torch.probes.common import cuda_ms
 
     count = len(group_active_blocks(plan)[k])
     args = (
@@ -477,21 +495,40 @@ def phase_e2e_small(device, npix=256) -> dict:
     return results
 
 
+def _launch_counters():
+    from ska_sdp_cip_tpu_torch.ops import cuda_gridder, fft_cuda
+    from ska_sdp_cip_tpu_torch.probes import fft_ablation, fft_async_fetch
+
+    return cuda_gridder, fft_cuda, fft_async_fetch, fft_ablation
+
+
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from ska_sdp_cip_tpu_torch.ops import cuda_gridder, fft_cuda
+    from ska_sdp_cip_tpu_torch.probes import smem
 
+    cuda_gridder, fft_cuda, p1, p2 = _launch_counters()
     cuda_gridder.LAUNCHES = cuda_gridder.DEGRID_LAUNCHES = 0
     fft_cuda.LAUNCHES = fft_cuda.IN_CROP_LAUNCHES = 0
+    fft_cuda.TILED_LAUNCHES = fft_cuda.PRETILE_LAUNCHES = 0
+    for counts in (p1.LAUNCHES, p2.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    smem.LAUNCHES = 0
 
 
 def read_launches() -> dict:
     """Every kernel's launch count since :func:`reset_launches`."""
-    from ska_sdp_cip_tpu_torch.ops import cuda_gridder, fft_cuda
+    from ska_sdp_cip_tpu_torch.probes import smem
 
-    return {"b1": cuda_gridder.LAUNCHES, "b2_out_crop": fft_cuda.LAUNCHES,
-            "b2_in_crop": fft_cuda.IN_CROP_LAUNCHES,
-            "b3": cuda_gridder.DEGRID_LAUNCHES}
+    cuda_gridder, fft_cuda, p1, p2 = _launch_counters()
+    out = {"b1": cuda_gridder.LAUNCHES, "b2_out_crop": fft_cuda.LAUNCHES,
+           "b2_in_crop": fft_cuda.IN_CROP_LAUNCHES,
+           "b2_tiled": fft_cuda.TILED_LAUNCHES,
+           "b3": cuda_gridder.DEGRID_LAUNCHES,
+           "b6": fft_cuda.PRETILE_LAUNCHES, "p3": smem.LAUNCHES}
+    out.update({f"p1_S{k}": v for k, v in p1.LAUNCHES.items()})
+    out.update({f"p2_{k}": v for k, v in p2.LAUNCHES.items()})
+    return out
 
 
 def require_launches(launches: dict, kernels, device, where: str) -> None:
@@ -507,8 +544,6 @@ def phase_predict(device, bench: dict, npix=256, repeats=3) -> dict:
     float64 dot products on the host, the median wall of ``repeats``
     calls after a warm one, and the launch counts of one call.
     """
-    import torch
-
     from ska_sdp_cip_tpu_torch import predict_visibilities
     from ska_sdp_cip_tpu_torch.io.synth import synthetic_uvw
     from ska_sdp_cip_tpu_torch.ops.dft import predict_dft
@@ -540,29 +575,12 @@ def phase_predict(device, bench: dict, npix=256, repeats=3) -> dict:
         size=(bench_npix, bench_npix)
     ).astype(np.float32)
 
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-
     def run():
         return predict_visibilities(uvw, freqs, image, pix, device=device)
 
     dirty = dirty_image(uvw, freqs, vis, wgt, bench_npix, pix, device=device)
-    reset_launches()
-    sync()
-    t0 = time.perf_counter()
-    model = run()
-    sync()
-    first = time.perf_counter() - t0
-    launches = read_launches()
+    model, first, launches, walls = timed_calls(run, device, repeats)
     require_launches(launches, ("b3", "b2_in_crop"), device, "predict")
-    walls = []
-    for _ in range(repeats):
-        sync()
-        t0 = time.perf_counter()
-        run()
-        sync()
-        walls.append(time.perf_counter() - t0)
     weighted = (vis * wgt).astype(np.complex128)
     lhs = float(np.vdot(image.astype(np.float64), dirty.astype(np.float64)))
     rhs = float(np.real(np.vdot(model.astype(np.complex128), weighted)))
@@ -585,7 +603,7 @@ def phase_predict(device, bench: dict, npix=256, repeats=3) -> dict:
     return results
 
 
-def predict_breakdown(uvw, freqs, image, pix, device) -> dict:
+def predict_breakdown(uvw, freqs, image, pix, device, **plan_kw) -> dict:
     """Seconds per stage of one predict_visibilities call, synchronized,
     and a profile of its device part."""
     import torch
@@ -603,7 +621,7 @@ def predict_breakdown(uvw, freqs, image, pix, device) -> dict:
 
     out = {}
     t = time.perf_counter()
-    plan = make_plan(uvw, freqs, image.shape[0], pix)
+    plan = make_plan(uvw, freqs, image.shape[0], pix, **plan_kw)
     out["plan_seconds"] = time.perf_counter() - t
     t = time.perf_counter()
     host = slot_plan_host_arrays(plan, device, invert=False)
@@ -676,8 +694,6 @@ def source_truth(seed: int, num_sources: int = 5, fov_deg: float = 1.0):
 
 def phase_slice(device, path: Path, dataset_seconds: float, seed=1234,
                 npix=BENCH_NPIX, asec=BENCH_ASEC, repeats=3) -> dict:
-    import torch
-
     from ska_sdp_cip_tpu_torch import VisibilityReader, invert_dataset
 
     reader = VisibilityReader(path)
@@ -686,25 +702,8 @@ def phase_slice(device, path: Path, dataset_seconds: float, seed=1234,
     def run():
         return invert_dataset(reader, npix, asec, device=device)
 
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-
-    reset_launches()
-    sync()
-    t0 = time.perf_counter()
-    image = run()
-    sync()
-    first_seconds = time.perf_counter() - t0
-    launches = read_launches()
-
-    walls = []
-    for _ in range(repeats):
-        sync()
-        t0 = time.perf_counter()
-        run()
-        sync()
-        walls.append(time.perf_counter() - t0)
+    image, first_seconds, launches, walls = timed_calls(run, device,
+                                                        repeats)
     wall = statistics.median(walls)
 
     lm, flux = source_truth(seed)
@@ -847,12 +846,27 @@ def dft_spot_check(reader, image, centre, pix, device, seed=0) -> dict:
 
 def slice_breakdown(reader, npix, asec, device) -> dict:
     """Seconds per stage of one invert_dataset call, synchronized."""
-    import torch
-
     from ska_sdp_cip_tpu_torch.invert import (
         StokesIGridderInput,
         pixel_size_lm_from_asec,
     )
+
+    t = time.perf_counter()
+    gi = StokesIGridderInput.from_reader(reader)
+    weighted = (gi.visibilities.astype(np.complex64)
+                * gi.effective_weights().astype(np.float32)).ravel()
+    out = {"read_stokes_seconds": time.perf_counter() - t}
+    out.update(invert_breakdown(gi.uvw, gi.channel_frequencies, weighted,
+                                npix, pixel_size_lm_from_asec(asec), device))
+    return out
+
+
+def invert_breakdown(uvw, freqs, weighted, npix, pix, device,
+                     **plan_kw) -> dict:
+    """Seconds per stage of one invert of weighted visibilities
+    (``dirty_image``'s steps), synchronized."""
+    import torch
+
     from ska_sdp_cip_tpu_torch.ops.gridder import (
         build_assemble,
         build_invert,
@@ -865,20 +879,13 @@ def slice_breakdown(reader, npix, asec, device) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize()
 
+    weighted = np.asarray(weighted, np.complex64).ravel()
     out = {}
     t = time.perf_counter()
-    gi = StokesIGridderInput.from_reader(reader)
-    weighted = (gi.visibilities.astype(np.complex64)
-                * gi.effective_weights().astype(np.float32)).ravel()
-    out["read_stokes_seconds"] = time.perf_counter() - t
-    t = time.perf_counter()
-    plan = make_plan(gi.uvw, gi.channel_frequencies, npix,
-                     pixel_size_lm_from_asec(asec), export_packed=False)
+    plan = make_plan(uvw, freqs, npix, pix, export_packed=False, **plan_kw)
     out["plan_seconds"] = time.perf_counter() - t
     t = time.perf_counter()
-    host = compact_plan_host_arrays(
-        plan, gi.uvw, gi.channel_frequencies, device
-    )
+    host = compact_plan_host_arrays(plan, uvw, freqs, device)
     out["host_arrays_seconds"] = time.perf_counter() - t
     sync()
     t = time.perf_counter()
@@ -908,45 +915,71 @@ def phase_major_cycle(device, path: Path, seed=1234, npix=BENCH_NPIX,
                       asec=BENCH_ASEC, num_major=3, minor_iter=100) -> dict:
     """
     ``MeasurementOperator.build`` + ``major_cycle_clean`` on the slice's
-    dataset, gated on the residual and on the brightest component; then
-    the same cycles again step by step (``hogbom_clean`` +
-    ``residual_gradient``, each synchronized) for per-cycle seconds, and
-    a profile of one cycle.
+    dataset (:func:`run_major_cycle`).
     """
-    import torch
-
     from ska_sdp_cip_tpu_torch import VisibilityReader
     from ska_sdp_cip_tpu_torch.invert import (
         StokesIGridderInput,
         pixel_size_lm_from_asec,
     )
+
+    t = time.perf_counter()
+    gi = StokesIGridderInput.from_reader(VisibilityReader(path))
+    weights = gi.effective_weights()
+    vis = gi.visibilities.ravel()
+    read_seconds = time.perf_counter() - t
+    # The dataset's two brightest sources differ in flux by 1.3e-4
+    # (seed 1234: 2.65939 and 2.65905), so which of them collects the
+    # largest single component depends on their sub-pixel positions:
+    # the brightest component must sit at one of the sources within 1%
+    # of the brightest flux, and each of those must hold CLEAN flux.
+    sources = brightest_pixels(seed, npix, asec, within=0.01)
+    out = {"phase": "major_cycle", "read_stokes_seconds": read_seconds}
+    out.update(run_major_cycle(
+        device, gi.uvw, gi.channel_frequencies, weights, vis, npix,
+        pixel_size_lm_from_asec(asec), sources, num_major=num_major,
+        minor_iter=minor_iter,
+    ))
+    return out
+
+
+def run_major_cycle(device, uvw, freqs, weights, vis, npix, pix, sources,
+                    *, num_major=3, minor_iter=100, **plan_kw) -> dict:
+    """
+    ``MeasurementOperator.build`` + ``major_cycle_clean(num_major,
+    minor_iter)`` (the minor cycle ``pick_psf_patch(npix)`` picks),
+    gated on the residual (below 0.6 x the dirty peak) and on the
+    brightest CLEAN component (at one of ``sources``, pixels (row, col)
+    of the sources within 1% of the brightest flux, each holding CLEAN
+    flux); then the same cycles again step by step (``hogbom_clean`` +
+    ``residual_gradient``, each synchronized) for per-cycle seconds,
+    and a profile of one cycle.
+    """
+    import torch
+
     from ska_sdp_cip_tpu_torch.models import (
         MeasurementOperator,
         hogbom_clean,
         major_cycle_clean,
     )
+    from ska_sdp_cip_tpu_torch.models.clean import pick_psf_patch
     from ska_sdp_cip_tpu_torch.ops.plan import make_plan
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize()
 
-    out = {"phase": "major_cycle", "npix": npix, "num_major": num_major,
-           "minor_iter": minor_iter}
-    t = time.perf_counter()
-    gi = StokesIGridderInput.from_reader(VisibilityReader(path))
-    weights = gi.effective_weights()
-    vis = gi.visibilities.ravel()
-    out["read_stokes_seconds"] = time.perf_counter() - t
-    pix = pixel_size_lm_from_asec(asec)
+    psf_patch = pick_psf_patch(npix)
+    out = {"npix": npix, "num_major": num_major, "minor_iter": minor_iter,
+           "psf_patch": psf_patch}
     sync()
     t = time.perf_counter()
-    op = MeasurementOperator.build(gi.uvw, gi.channel_frequencies, weights,
-                                   npix, pix, device=device)
+    op = MeasurementOperator.build(uvw, freqs, weights, npix, pix,
+                                   device=device, **plan_kw)
     sync()
     out["build_seconds"] = time.perf_counter() - t
     t = time.perf_counter()
-    make_plan(gi.uvw, gi.channel_frequencies, npix, pix)
+    make_plan(uvw, freqs, npix, pix, **plan_kw)
     out["plan_seconds"] = time.perf_counter() - t
     out["staging_seconds"] = out["build_seconds"] - out["plan_seconds"]
     t = time.perf_counter()
@@ -971,12 +1004,7 @@ def phase_major_cycle(device, path: Path, seed=1234, npix=BENCH_NPIX,
     res_max = float(residual.abs().max())
     model_np = model.cpu().numpy()
     brightest = np.unravel_index(int(np.argmax(model_np)), model_np.shape)
-    # The dataset's two brightest sources differ in flux by 1.3e-4
-    # (seed 1234: 2.65939 and 2.65905), so which of them collects the
-    # largest single component depends on their sub-pixel positions:
-    # the brightest component must sit at one of the sources within 1%
-    # of the brightest flux, and each of those must hold CLEAN flux.
-    sources = brightest_pixels(seed, npix, asec, within=0.01)
+    sources = np.asarray(sources)
     window_flux = [
         float(model_np[max(r - 1, 0) : r + 2, max(c - 1, 0) : c + 2].sum())
         for r, c in sources
@@ -994,6 +1022,7 @@ def phase_major_cycle(device, path: Path, seed=1234, npix=BENCH_NPIX,
         "finite": bool(np.isfinite(model_np).all()
                        and torch.isfinite(residual).all()),
     })
+    del model_np
     if not out["finite"]:
         raise PhaseError("major cycle gave non-finite values")
     if not res_max < 0.6 * dirty_peak:
@@ -1006,7 +1035,7 @@ def phase_major_cycle(device, path: Path, seed=1234, npix=BENCH_NPIX,
 
     def cycle(state):
         delta, _ = hogbom_clean(state["res"], psf, gain=0.1,
-                                max_iter=minor_iter)
+                                max_iter=minor_iter, psf_patch=psf_patch)
         sync()
         state["minor"].append(time.perf_counter() - state["t"])
         state["model"] = state["model"] + delta
@@ -1031,6 +1060,384 @@ def phase_major_cycle(device, path: Path, seed=1234, npix=BENCH_NPIX,
     if device.type == "cuda":
         out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return out
+
+
+def phase_b6(device, grids=(PROD_NGRID, BENCH_NGRID)) -> dict:
+    """
+    The tiled-input probe (``probes/fft_tiled.py``) at each grid: B6
+    against its plain version (exact), B2 on tiled input against B2 on
+    row-major input (exact), and the four times of the counterpart
+    ``scripts/fft_tiled_probe.py``.
+    """
+    from ska_sdp_cip_tpu_torch.probes import fft_tiled
+
+    reset_launches()
+    runs = [fft_tiled.run(n, device=device, iters=3) for n in grids]
+    launches = read_launches()
+    require_launches(launches, ("b6", "b2_tiled"), device, "b6")
+    return {"phase": "b6", "runs": runs, "launches": launches}
+
+
+def phase_fft_probes(device, ngrid=PROD_NGRID) -> dict:
+    """
+    P1 (``cp.async`` ring depths), P2 (stage ablation) at ``ngrid`` and
+    P3 (the shared-memory maximum), each checked against its plain
+    version inside the probe.
+    """
+    from ska_sdp_cip_tpu_torch.probes import (
+        fft_ablation,
+        fft_async_fetch,
+        smem,
+    )
+
+    reset_launches()
+    out = {"phase": "fft_probes",
+           "p1": fft_async_fetch.run(ngrid, device=device, iters=3),
+           "p2": fft_ablation.run(ngrid, device=device, iters=3)}
+    if device.type == "cuda":
+        out["p3"] = smem.run(device=device)
+    out["launches"] = read_launches()
+    require_launches(out["launches"],
+                     [f"p1_S{k}" for k in fft_async_fetch.STAGES]
+                     + [f"p2_{v}" for v in fft_ablation.VARIANTS] + ["p3"],
+                     device, "fft_probes")
+    return out
+
+
+def production_visibilities(num_times=PROD_TIMES, num_antennas=PROD_ANTENNAS,
+                            num_channels=PROD_CHANNELS):
+    """production_bench.py's inputs: uvw, freqs, noise vis and weights."""
+    return bench_visibilities(num_times, num_antennas, num_channels, seed=7,
+                              uvw_seed=11)
+
+
+def point_sources(npix: int, seed: int = 5, num: int = 5):
+    """Seeded point sources in the field's central half: pixels
+    (row, col) and fluxes."""
+    rng = np.random.default_rng(seed)
+    pixels = rng.integers(npix // 4, 3 * npix // 4, size=(num, 2))
+    return pixels, rng.uniform(0.5, 3.0, size=num)
+
+
+def sparse_predict_dft(uvw, freqs, pixels, flux, pix, npix, rows=None,
+                       chans=None) -> np.ndarray:
+    """
+    ``ops/dft.py:predict_dft`` (float64) of an image that is zero but at
+    ``pixels``: all (nrow, nchan) visibilities, or the samples
+    (``rows``, ``chans``) only.
+    """
+    from ska_sdp_cip_tpu_torch.ops.dft import SPEED_OF_LIGHT
+
+    x = (pixels[:, 0] - npix // 2) * pix
+    y = (pixels[:, 1] - npix // 2) * pix
+    r2 = x * x + y * y
+    nm1 = -r2 / (1.0 + np.sqrt(1.0 - r2))
+    lf = np.asarray(freqs, np.float64) / SPEED_OF_LIGHT
+    uvw = np.asarray(uvw, np.float64)
+    if rows is None:
+        u, v, w = (uvw[:, None, :] * lf[None, :, None]).transpose(2, 0, 1)
+    else:
+        u, v, w = (uvw[rows] * lf[chans, None]).T
+    phase = u[..., None] * x + v[..., None] * y - w[..., None] * nm1
+    return (flux / (nm1 + 1.0) * np.exp(-2j * np.pi * phase)).sum(-1)
+
+
+def plan_summary(plan) -> dict:
+    return {"sigma": plan.sigma, "ngrid": plan.ngrid,
+            "support": plan.support, "nplanes": plan.nplanes,
+            "plane_group": plan.plane_group, "num_groups": plan.num_groups,
+            "nalloc": [plan.nalloc_x, plan.nalloc_y],
+            "num_blocks": plan.num_blocks, "num_vis_slots": plan.num_vis,
+            "num_vis_data": plan.num_vis_data}
+
+
+def timed_calls(fn, device, repeats: int) -> tuple:
+    """(first result, first seconds, launches of the first call, walls of
+    ``repeats`` more calls), each call synchronized."""
+    import torch
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    first = fn()
+    sync()
+    first_seconds = time.perf_counter() - t0
+    launches = read_launches()
+    walls = []
+    for _ in range(repeats):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        walls.append(time.perf_counter() - t0)
+    return first, first_seconds, launches, walls
+
+
+def phase_production_invert(device, problem, npix=PROD_NPIX,
+                            asec=PROD_ASEC, repeats=3,
+                            dft_pixels=256) -> tuple:
+    """
+    ``dirty_image`` at the production configuration: launch counts of
+    one call, the median wall of ``repeats`` calls after it, a float64
+    DFT check at ``dft_pixels`` random pixels (1e-4 of the sampled
+    max), B1 against its plain version on the plan's largest plane
+    group, a per-stage breakdown and a profile of one call. Returns the
+    phase's results and the image (for predict's adjoint identity).
+    """
+    from ska_sdp_cip_tpu_torch.ops.gridder import dirty_image
+
+    uvw, freqs, vis, wgt = problem
+    pix = float(np.sin(np.radians(asec / 3600.0)))
+
+    def run():
+        return dirty_image(uvw, freqs, vis, wgt, npix, pix, sigma="auto",
+                           device=device)
+
+    image, first, launches, walls = timed_calls(run, device, repeats)
+    require_launches(launches, ("b1", "b2_out_crop"), device,
+                     "production invert")
+    pts = np.random.default_rng(1).integers(0, npix, size=(dft_pixels, 2))
+    ref = dft_at_pixels(uvw, freqs, vis * wgt, pts, pix, npix, device)
+    err = float(np.abs(image[pts[:, 0], pts[:, 1]] - ref).max())
+    plan, arrays, re_s, im_s = staged_problem(uvw, freqs, vis, wgt, npix,
+                                              asec, device, sigma="auto")
+    k = largest_group(plan)
+    b1_check = {"group": k, **compare_group(
+        plan, group_args(plan, arrays, re_s, im_s, k), time_it=True)}
+    del arrays, re_s, im_s
+    out = {
+        "phase": "production", "part": "invert", "npix": npix,
+        "pixel_asec": asec, "num_vis": int(vis.size),
+        "plan": plan_summary(plan),
+        "first_call_seconds": first, "wall_seconds": walls,
+        "median_wall_seconds": statistics.median(walls),
+        "launches": launches,
+        "dft_check": {"pixels": dft_pixels, "max_abs_err": err,
+                      "rel_to_sampled_max": err / float(np.abs(ref).max())},
+        "b1_check": b1_check,
+        "finite": bool(np.isfinite(image).all()),
+        "shape": list(image.shape),
+    }
+    if image.shape != (npix, npix) or not out["finite"]:
+        raise PhaseError("production image has the wrong shape or "
+                         "non-finite values")
+    if not out["dft_check"]["rel_to_sampled_max"] <= DFT_RTOL:
+        raise PhaseError(f"production image vs DFT "
+                         f"{out['dft_check']['rel_to_sampled_max']:.3e}")
+    out["breakdown"] = invert_breakdown(uvw, freqs, vis * wgt, npix, pix,
+                                        device, sigma="auto")
+    out["profile"] = profile_call(run, device)
+    return out, image
+
+
+def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
+                             asec=PROD_ASEC, repeats=3,
+                             samples=4096) -> dict:
+    """
+    ``predict_visibilities`` at the production configuration: the
+    adjoint identity <dirty_image(v), I> = Re <v, predict(I)> for a
+    noise image I (float64 dot products on the host, rel 1e-4); a
+    sparse image of five seeded point sources against a float64 DFT of
+    its nonzero pixels at ``samples`` random visibilities (1e-4 of the
+    max); B3 against its plain version on the plan's largest plane
+    group of random planes; the median wall of ``repeats`` calls,
+    launch counts, a breakdown and a profile of the device part.
+    """
+    import torch
+
+    from ska_sdp_cip_tpu_torch.ops.gridder import (
+        predict_visibilities,
+        slot_plan_host_arrays,
+        stage_arrays,
+    )
+    from ska_sdp_cip_tpu_torch.ops.plan import make_plan
+
+    uvw, freqs, vis, wgt = problem
+    pix = float(np.sin(np.radians(asec / 3600.0)))
+    gen = torch.Generator().manual_seed(79)
+    image = torch.randn((npix, npix), generator=gen).numpy()
+
+    def run(img=image):
+        return predict_visibilities(uvw, freqs, img, pix, sigma="auto",
+                                    device=device)
+
+    model, first, launches, walls = timed_calls(run, device, repeats)
+    require_launches(launches, ("b3", "b2_in_crop"), device,
+                     "production predict")
+    weighted = (vis * wgt).astype(np.complex128)
+    lhs = float(np.vdot(image.astype(np.float64), dirty.astype(np.float64)))
+    rhs = float(np.real(np.vdot(model.astype(np.complex128), weighted)))
+    pixels, flux = point_sources(npix)
+    sparse = np.zeros((npix, npix), np.float32)
+    sparse[pixels[:, 0], pixels[:, 1]] = flux
+    got = run(sparse)
+    rng = np.random.default_rng(2)
+    rows = rng.integers(0, len(uvw), size=samples)
+    chans = rng.integers(0, len(freqs), size=samples)
+    ref = sparse_predict_dft(uvw, freqs, pixels, flux, pix, npix, rows,
+                             chans)
+    err = float(np.abs(got[rows, chans] - ref).max())
+    plan = make_plan(uvw, freqs, npix, pix, sigma="auto")
+    arrays = stage_arrays(slot_plan_host_arrays(plan, device), device)
+    grids = random_grids(plan, device, seed=6)
+    k = largest_group(plan)
+    b3_check = {"group": k, **compare_degrid(plan, arrays, grids, k,
+                                              time_it=True)}
+    del arrays, grids
+    out = {
+        "phase": "production", "part": "predict", "npix": npix,
+        "num_vis": int(model.size),
+        "adjoint_lhs": lhs, "adjoint_rhs": rhs,
+        "adjoint_rel": abs(lhs - rhs) / abs(lhs),
+        "sparse_dft_check": {"samples": samples, "max_abs_err": err,
+                             "rel_to_max": err / float(np.abs(ref).max())},
+        "b3_check": b3_check,
+        "first_call_seconds": first, "wall_seconds": walls,
+        "median_wall_seconds": statistics.median(walls),
+        "launches": launches,
+        "finite": bool(np.isfinite(model).all() and np.isfinite(got).all()),
+    }
+    if not (out["finite"] and out["adjoint_rel"] <= DFT_RTOL):
+        raise PhaseError(f"production adjoint identity "
+                         f"{out['adjoint_rel']:.3e} > {DFT_RTOL}")
+    if not out["sparse_dft_check"]["rel_to_max"] <= DFT_RTOL:
+        raise PhaseError(f"production predict vs DFT "
+                         f"{out['sparse_dft_check']['rel_to_max']:.3e}")
+    out["breakdown"] = predict_breakdown(uvw, freqs, image, pix, device,
+                                         sigma="auto")
+    return out
+
+
+def phase_production_major_cycle(device, problem, npix=PROD_NPIX,
+                                 asec=PROD_ASEC, num_major=3,
+                                 minor_iter=100) -> dict:
+    """
+    ``MeasurementOperator.build`` + ``major_cycle_clean`` at the
+    production configuration (the Clark minor cycle: ``psf_patch``
+    2048 at 10240 px) on visibilities of five seeded point sources at
+    pixel centres (:func:`run_major_cycle`'s gates).
+    """
+    uvw, freqs, _, wgt = problem
+    pix = float(np.sin(np.radians(asec / 3600.0)))
+    pixels, flux = point_sources(npix)
+    vis = sparse_predict_dft(uvw, freqs, pixels, flux, pix, npix)
+    order = np.argsort(-flux)
+    sources = pixels[order[flux[order] >= 0.99 * flux.max()]]
+    out = {"phase": "production", "part": "major_cycle",
+           "source_pixels": pixels.tolist(), "source_flux": flux.tolist()}
+    out.update(run_major_cycle(
+        device, uvw, freqs, wgt, vis.astype(np.complex64).ravel(), npix,
+        pix, sources, num_major=num_major, minor_iter=minor_iter,
+        sigma="auto",
+    ))
+    return out
+
+
+def kernel_entry(name, source, replaces, launches, by_path=None, **nums):
+    """One row of the ``kernels`` line."""
+    entry = {"name": name, "route": "cuda",
+             "source": f"ska_sdp_cip_tpu_torch/csrc/{source}",
+             "replaces": replaces, "launches": launches}
+    if by_path is not None:
+        entry["launches_by_path"] = by_path
+    entry.update(nums)
+    return entry
+
+
+def kernels_line(b1, b2, b3, b6, probes, production, by_path) -> list:
+    """
+    One entry per kernel of the port: launches on its path (the main
+    paths for B1-B3, the probe phases for B6, tiled B2 and P1-P3), its
+    error against its plain version and both times, all from this run;
+    B1-B3 also at the production shapes (``production``: the B1 and B3
+    checks of the production phase, B2's from the b2 phase).
+    """
+    prod_keys = ("max_abs_err", "max_rel_err", "ms", "plain_ms")
+
+    def count(key, path):
+        return by_path[path][key]
+
+    def paths(key):
+        return {k: v[key] for k, v in by_path.items()}
+
+    b2_cases = {(c["pass"], c["m"]): c for c in b2["cases"]}
+    b2_prod = {c["pass"]: c for c in b2["production"]}
+    tiled = b6["runs"][0]
+    p1, p2 = probes["p1"], probes["p2"]
+    fused = "ska_sdp_cip_tpu/ops/fft_pallas.py"
+    entries = [
+        kernel_entry(
+            "grid_planes", "grid.cu",
+            "ska_sdp_cip_tpu/ops/pallas_gridder.py:298",
+            count("b1", "slice"), paths("b1"),
+            max_abs_err=b1["bench"]["max_abs_err"], ms=b1["bench"]["ms"],
+            plain_ms=b1["bench"]["plain_ms"],
+            production={k: production["b1"][k]
+                        for k in ("group", "G", "active_blocks", *prod_keys)},
+        ),
+    ]
+    for crop, path in (("out_crop", "slice"), ("in_crop", "major_cycle")):
+        bench, prod = b2_cases[(crop, BENCH_NGRID)], b2_prod[crop]
+        entries.append(kernel_entry(
+            f"fft_first_axis_fused[{crop}]", "fft_fused.cu", f"{fused}:238",
+            count(f"b2_{crop}", path), paths(f"b2_{crop}"),
+            max_abs_err=bench["max_abs_err"], ms=bench["ms"],
+            plain_ms=bench["plain_ms"],
+            production={k: prod[k] for k in ("n", "m", *prod_keys)},
+        ))
+    entries += [
+        kernel_entry(
+            "fft_first_axis_fused[tiled]", "fft_fused.cu", f"{fused}:263",
+            b6["launches"]["b2_tiled"], exact=tiled["tiled_exact"],
+            max_abs_err=tiled["tiled_max_abs_err"], ms=tiled["tiled_ms"],
+            plain_ms=tiled["tiled_plain_ms"], ngrid=tiled["ngrid"],
+        ),
+        kernel_entry(
+            "degrid_planes", "degrid.cu",
+            "ska_sdp_cip_tpu/ops/pallas_gridder.py:458",
+            count("b3", "major_cycle"), paths("b3"),
+            max_abs_err=b3["bench"]["max_abs_err"], ms=b3["bench"]["ms"],
+            plain_ms=b3["bench"]["plain_ms"],
+            production={k: production["b3"][k]
+                        for k in ("group", "G", "active_blocks", *prod_keys)},
+        ),
+        kernel_entry(
+            "pretile_first_axis", "pretile.cu", f"{fused}:310",
+            b6["launches"]["b6"], exact=tiled["pretile_exact"],
+            max_abs_err=tiled["pretile_max_abs_err"], ms=tiled["pretile_ms"],
+            plain_ms=tiled["pretile_plain_ms"], ngrid=tiled["ngrid"],
+        ),
+    ]
+    for stages, case in p1["stages"].items():
+        entries.append(kernel_entry(
+            f"fft_async_fetch[{stages}]", "fft_probes.cu",
+            "scripts/fft_split_fetch_probe.py:71",
+            probes["launches"][f"p1_S{stages}"],
+            exact=case["exact_vs_b2"], max_abs_err=case["max_abs_err"],
+            ms=case["ms"], plain_ms=p1["plain_ms"], ngrid=p1["ngrid"],
+        ))
+    for variant, case in p2["variants"].items():
+        entries.append(kernel_entry(
+            f"fft_ablation[{variant}]", "fft_probes.cu",
+            "scripts/fft_ablation_probe.py:63",
+            probes["launches"][f"p2_{variant}"],
+            **({"exact": case["exact"]} if "exact" in case else {}),
+            max_abs_err=case["max_abs_err"], ms=case["ms"],
+            plain_ms=case["plain_ms"], ngrid=p2["ngrid"],
+        ))
+    p3 = probes["p3"]
+    entries.append(kernel_entry(
+        "smem_probe", "smem_probe.cu", "scripts/vmem_probe.py:17",
+        probes["launches"]["p3"], exact=p3["read_back_exact"],
+        max_abs_err=p3["max_abs_err"],
+        ms=p3["ms"], plain_ms=p3["plain_ms"], max_bytes=p3["max_bytes"],
+        optin_attribute_bytes=p3["optin_attribute_bytes"],
+    ))
+    return entries
 
 
 def main() -> int:
@@ -1074,6 +1481,8 @@ def main() -> int:
     b1 = phase_b1(device, bench)
     emit(b1)
     b2 = phase_b2(device)
+    b2["production"] = phase_b2(device, PROD_NGRID, PROD_NPIX,
+                                width=PROD_NGRID, iters=5)["cases"]
     emit(b2)
     b3 = phase_b3(device, bench)
     emit(b3)
@@ -1087,58 +1496,26 @@ def main() -> int:
         emit(sl)
         mc = phase_major_cycle(device, path)
         emit(mc)
-    b2_cases = {(c["pass"], c["m"]): c for c in b2["cases"]}
-    b2_out, b2_in = b2_cases[("out_crop", 4096)], b2_cases[("in_crop", 4096)]
-    by_path = {"slice": sl["launches"], "predict": pred["bench"]["launches"],
-               "major_cycle": mc["launches"]}
-    emit({"kernels": [
-        {
-            "name": "grid_planes",
-            "route": "cuda",
-            "source": "ska_sdp_cip_tpu_torch/csrc/grid.cu",
-            "replaces": "ska_sdp_cip_tpu/ops/pallas_gridder.py:298",
-            "launches": sl["launches"]["b1"],
-            "launches_by_path": {k: v["b1"] for k, v in by_path.items()},
-            "max_abs_err": b1["bench"]["max_abs_err"],
-            "ms": b1["bench"]["ms"],
-            "plain_ms": b1["bench"]["plain_ms"],
-        },
-        {
-            "name": "fft_first_axis_fused[out_crop]",
-            "route": "cuda",
-            "source": "ska_sdp_cip_tpu_torch/csrc/fft_fused.cu",
-            "replaces": "ska_sdp_cip_tpu/ops/fft_pallas.py:238",
-            "launches": sl["launches"]["b2_out_crop"],
-            "launches_by_path": {k: v["b2_out_crop"]
-                                 for k, v in by_path.items()},
-            "max_abs_err": b2_out["max_abs_err"],
-            "ms": b2_out["ms"],
-            "plain_ms": b2_out["plain_ms"],
-        },
-        {
-            "name": "fft_first_axis_fused[in_crop]",
-            "route": "cuda",
-            "source": "ska_sdp_cip_tpu_torch/csrc/fft_fused.cu",
-            "replaces": "ska_sdp_cip_tpu/ops/fft_pallas.py:238",
-            "launches": mc["launches"]["b2_in_crop"],
-            "launches_by_path": {k: v["b2_in_crop"]
-                                 for k, v in by_path.items()},
-            "max_abs_err": b2_in["max_abs_err"],
-            "ms": b2_in["ms"],
-            "plain_ms": b2_in["plain_ms"],
-        },
-        {
-            "name": "degrid_planes",
-            "route": "cuda",
-            "source": "ska_sdp_cip_tpu_torch/csrc/degrid.cu",
-            "replaces": "ska_sdp_cip_tpu/ops/pallas_gridder.py:458",
-            "launches": mc["launches"]["b3"],
-            "launches_by_path": {k: v["b3"] for k, v in by_path.items()},
-            "max_abs_err": b3["bench"]["max_abs_err"],
-            "ms": b3["bench"]["ms"],
-            "plain_ms": b3["bench"]["plain_ms"],
-        },
-    ]})
+    b6 = phase_b6(device)
+    emit(b6)
+    probes = phase_fft_probes(device)
+    emit(probes)
+    problem = production_visibilities()
+    p_inv, dirty = phase_production_invert(device, problem)
+    emit(p_inv)
+    p_pred = phase_production_predict(device, problem, dirty)
+    emit(p_pred)
+    del dirty
+    p_mc = phase_production_major_cycle(device, problem)
+    emit(p_mc)
+    production = {"b1": p_inv["b1_check"], "b3": p_pred["b3_check"]}
+    emit({"kernels": kernels_line(b1, b2, b3, b6, probes, production, {
+        "slice": sl["launches"], "predict": pred["bench"]["launches"],
+        "major_cycle": mc["launches"],
+        "production_invert": p_inv["launches"],
+        "production_predict": p_pred["launches"],
+        "production_major_cycle": p_mc["launches"],
+    })})
     print(smi, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu",

@@ -2,7 +2,9 @@
 // arrays, as a four-step transform (kernel B2).
 //
 // Replaces the Pallas TPU kernel
-//   ska_sdp_cip_tpu/ops/fft_pallas.py:_kernel (fft_first_axis_fused).
+//   ska_sdp_cip_tpu/ops/fft_pallas.py:_kernel (fft_first_axis_fused),
+// including its tiled input mode (tiled=True, the layout that
+// pretile_first_axis writes; here csrc/pretile.cu).
 // For n = n1 * n2 rows viewed as x[j1, j2, col] (row j1 * n2 + j2):
 //   stage 1  y[k1, j2] = sum_j1 D1[k1, j1] x[j1, j2]      (complex)
 //   twiddle  z[k1, j2] = y[k1, j2] * T[k1, j2]
@@ -26,15 +28,24 @@
 // 4096^2 bench pass, 0.47 GB moved in all).
 //
 // What bounds it on Hopper: arithmetic. Each stage is a complex
-// matrix product with a small (n1 or n2 = 64) contraction, batched over
-// n2 (or n1) and over the columns: 4 real FMAs per complex MAC, 6.4 G
-// FMAs for the first pass of a 4096^2 grid cropped to 2048 rows.
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W: 0.79 ms for that pass,
-// ~24% of the card's float32 FMA peak. The design: plain float32 FMA
-// in a register-tiled product (64 x 64 output tile per block, 4 x 4
-// complex outputs per thread, operands staged through shared memory).
-// Tensor cores (wgmma with TMA) are later work; plain TF32 would not
-// hold the float32 accuracy this pass needs.
+// matrix product with a small (n1 or n2, 64 to 128) contraction,
+// batched over n2 (or n1) and over the columns: 4 real FMAs per complex
+// MAC, 6.4 G FMAs for the first pass of a 4096^2 grid cropped to 2048
+// rows. The design: plain float32 FMA in a register-tiled product
+// (64 x 64 output tile per block, 4 x 4 complex outputs per thread,
+// operands staged through shared memory; ragged row and depth edges,
+// e.g. n1 = 120 at the 15360-point production grid, are masked to
+// zero). Tensor cores (wgmma with TMA) are later work; plain TF32 would
+// not hold the float32 accuracy this pass needs. PERF.md has the
+// measured times and the stage split (probes/fft_ablation.py).
+//
+// Tiled input: stage 1 reads the same values from B6's layout
+// (NC, m / MB, n1i, C, MB), MB = 128, through Stage1Tiled::in_offset;
+// the loads, the arithmetic and its order are those of the row-major
+// pass, so the two give equal results bit for bit.
+//
+// csrc/fft_probes.cu includes this file (with CIP_FFT_FUSED_NO_ENTRY)
+// to build its probe variants from the same helpers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,6 +56,9 @@ constexpr int kTM = 64;  // output rows per block
 constexpr int kTN = 64;  // output columns per block
 constexpr int kTK = 16;  // contraction chunk
 constexpr int kThreads = 256;
+
+using ATile = float[kTM + 1];  // one k row of the factor tile
+using BTile = float[kTN];      // one k row of the input tile
 
 struct Stage1 {
   // y = M1 x over j1, then * twiddle; batch index = j2.
@@ -58,8 +72,9 @@ struct Stage1 {
   __device__ float f_im(int i, int j) const {
     return m1[(n1 + i) * 2 * n1i + j];
   }
-  __device__ int64_t in_row(int b, int j) const {
-    return static_cast<int64_t>(j) * n2 + b;
+  // Input element (row j * n2 + b, col) of the row-major (n1i n2, m).
+  __device__ int64_t in_offset(int b, int j, int64_t col, int64_t m) const {
+    return (static_cast<int64_t>(j) * n2 + b) * m + col;
   }
   __device__ void post(int i, int b, float& re, float& im) const {
     const int ci = b / c;
@@ -72,6 +87,25 @@ struct Stage1 {
   }
   __device__ int64_t out_row(int i, int b) const {
     return static_cast<int64_t>(i) * n2 + b;
+  }
+};
+
+// Column block of the tiled layout: the counterpart's fixed MB, a
+// compile-time power of two so the per-element split of a column into
+// (block, lane) is a shift and a mask.
+constexpr int kTiledMB = 128;
+
+struct Stage1Tiled : Stage1 {
+  // The same element in the tiled (NC, m / MB, n1i, C, MB) layout.
+  int num_mb;  // m / MB
+  __device__ int64_t in_offset(int b, int j, int64_t col, int64_t) const {
+    const int ci = b / c;  // b is the block's batch: loop-invariant
+    const int col32 = static_cast<int>(col);
+    const int bm = col32 / kTiledMB;
+    return (((static_cast<int64_t>(ci) * num_mb + bm) * n1i + j) * c +
+            (b - ci * c)) *
+               kTiledMB +
+           (col32 - bm * kTiledMB);
   }
 };
 
@@ -93,8 +127,8 @@ struct Stage2 {
   }
   __device__ float f_re(int i, int j) const { return m2[m2_index(i, j, 0)]; }
   __device__ float f_im(int i, int j) const { return m2[m2_index(i, j, 1)]; }
-  __device__ int64_t in_row(int b, int j) const {
-    return static_cast<int64_t>(b) * n2 + j;
+  __device__ int64_t in_offset(int b, int j, int64_t col, int64_t m) const {
+    return (static_cast<int64_t>(b) * n2 + j) * m + col;
   }
   __device__ void post(int, int, float&, float&) const {}
   __device__ int64_t out_row(int i, int b) const {
@@ -103,26 +137,70 @@ struct Stage2 {
   }
 };
 
-// out[out_row(i, b), col] = post(sum_j F[i, j] * in[in_row(b, j), col])
-// for i < rows(), col < m; grid = (col tiles, row tiles, batch).
+// Factor tile (kTM x kTK, stored k-major) and input tile (kTK x kTN,
+// coalesced along columns) of contraction chunk k0, zero outside.
 template <class Stage>
-__global__ void __launch_bounds__(kThreads)
-cgemm_rows(Stage st, const float* __restrict__ in_re,
-           const float* __restrict__ in_im, float* __restrict__ out_re,
-           float* __restrict__ out_im, int64_t m) {
-  __shared__ float a_re[kTK][kTM + 1], a_im[kTK][kTM + 1];
-  __shared__ float b_re[kTK][kTN], b_im[kTK][kTN];
-
+__device__ __forceinline__ void load_chunk(
+    const Stage& st, const float* __restrict__ in_re,
+    const float* __restrict__ in_im, int64_t m, int64_t col0, int row0,
+    int batch, int k0, ATile* a_re, ATile* a_im, BTile* b_re, BTile* b_im) {
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // column group: cols tx + 16 * u
-  const int ty = tid / 16;  // row group: rows ty + 16 * v
-  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * kTN;
-  const int row0 = blockIdx.y * kTM;
-  const int batch = blockIdx.z;
   const int rows = st.rows();
   const int depth = st.depth();
+#pragma unroll
+  for (int l = 0; l < (kTM * kTK) / kThreads; ++l) {
+    const int e = tid + l * kThreads;
+    const int i = e / kTK;
+    const int k = e - i * kTK;
+    const bool ok = (row0 + i < rows) && (k0 + k < depth);
+    a_re[k][i] = ok ? st.f_re(row0 + i, k0 + k) : 0.0f;
+    a_im[k][i] = ok ? st.f_im(row0 + i, k0 + k) : 0.0f;
+  }
+#pragma unroll
+  for (int l = 0; l < (kTK * kTN) / kThreads; ++l) {
+    const int e = tid + l * kThreads;
+    const int k = e / kTN;
+    const int cc = e - k * kTN;
+    const bool ok = (k0 + k < depth) && (col0 + cc < m);
+    const int64_t off = ok ? st.in_offset(batch, k0 + k, col0 + cc, m) : 0;
+    b_re[k][cc] = ok ? in_re[off] : 0.0f;
+    b_im[k][cc] = ok ? in_im[off] : 0.0f;
+  }
+}
 
-  float acc_re[4][4], acc_im[4][4];
+// acc += A^T B over one chunk (complex), 4 x 4 outputs per thread.
+__device__ __forceinline__ void mac_chunk(ATile* a_re, ATile* a_im,
+                                          BTile* b_re, BTile* b_im,
+                                          float (&acc_re)[4][4],
+                                          float (&acc_im)[4][4]) {
+  const int tx = threadIdx.x % 16;  // column group: cols tx + 16 * u
+  const int ty = threadIdx.x / 16;  // row group: rows ty + 16 * v
+#pragma unroll
+  for (int k = 0; k < kTK; ++k) {
+    float ar[4], ai[4], br[4], bi[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      ar[v] = a_re[k][ty + 16 * v];
+      ai[v] = a_im[k][ty + 16 * v];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      br[u] = b_re[k][tx + 16 * u];
+      bi[u] = b_im[k][tx + 16 * u];
+    }
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        acc_re[v][u] += ar[v] * br[u] - ai[v] * bi[u];
+        acc_im[v][u] += ar[v] * bi[u] + ai[v] * br[u];
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc_re)[4][4],
+                                         float (&acc_im)[4][4]) {
 #pragma unroll
   for (int v = 0; v < 4; ++v) {
 #pragma unroll
@@ -131,55 +209,19 @@ cgemm_rows(Stage st, const float* __restrict__ in_re,
       acc_im[v][u] = 0.0f;
     }
   }
+}
 
-  for (int k0 = 0; k0 < depth; k0 += kTK) {
-    // Factor tile (kTM x kTK), stored k-major.
-#pragma unroll
-    for (int l = 0; l < (kTM * kTK) / kThreads; ++l) {
-      const int e = tid + l * kThreads;
-      const int i = e / kTK;
-      const int k = e - i * kTK;
-      const bool ok = (row0 + i < rows) && (k0 + k < depth);
-      a_re[k][i] = ok ? st.f_re(row0 + i, k0 + k) : 0.0f;
-      a_im[k][i] = ok ? st.f_im(row0 + i, k0 + k) : 0.0f;
-    }
-    // Input tile (kTK x kTN): row-gathered, coalesced along columns.
-#pragma unroll
-    for (int l = 0; l < (kTK * kTN) / kThreads; ++l) {
-      const int e = tid + l * kThreads;
-      const int k = e / kTN;
-      const int cc = e - k * kTN;
-      const bool ok = (k0 + k < depth) && (col0 + cc < m);
-      const int64_t off = ok ? st.in_row(batch, k0 + k) * m + col0 + cc : 0;
-      b_re[k][cc] = ok ? in_re[off] : 0.0f;
-      b_im[k][cc] = ok ? in_im[off] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kTK; ++k) {
-      float ar[4], ai[4], br[4], bi[4];
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        ar[v] = a_re[k][ty + 16 * v];
-        ai[v] = a_im[k][ty + 16 * v];
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        br[u] = b_re[k][tx + 16 * u];
-        bi[u] = b_im[k][tx + 16 * u];
-      }
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          acc_re[v][u] += ar[v] * br[u] - ai[v] * bi[u];
-          acc_im[v][u] += ar[v] * bi[u] + ai[v] * br[u];
-        }
-      }
-    }
-    __syncthreads();
-  }
-
+// out[out_row(i, batch), col] = post(acc) for the thread's outputs.
+template <class Stage>
+__device__ __forceinline__ void store_tile(const Stage& st,
+                                           float* __restrict__ out_re,
+                                           float* __restrict__ out_im,
+                                           int64_t m, int64_t col0, int row0,
+                                           int batch, float (&acc_re)[4][4],
+                                           float (&acc_im)[4][4]) {
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int rows = st.rows();
 #pragma unroll
   for (int v = 0; v < 4; ++v) {
     const int i = row0 + ty + 16 * v;
@@ -199,34 +241,96 @@ cgemm_rows(Stage st, const float* __restrict__ in_re,
   }
 }
 
+// out[out_row(i, b), col] = post(sum_j F[i, j] * in[(b, j), col])
+// for i < rows(), col < m; grid = (col tiles, row tiles, batch).
+template <class Stage>
+__global__ void __launch_bounds__(kThreads)
+cgemm_rows(Stage st, const float* __restrict__ in_re,
+           const float* __restrict__ in_im, float* __restrict__ out_re,
+           float* __restrict__ out_im, int64_t m) {
+  __shared__ float a_re[kTK][kTM + 1], a_im[kTK][kTM + 1];
+  __shared__ float b_re[kTK][kTN], b_im[kTK][kTN];
+
+  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * kTN;
+  const int row0 = blockIdx.y * kTM;
+  const int batch = blockIdx.z;
+  float acc_re[4][4], acc_im[4][4];
+  zero_acc(acc_re, acc_im);
+  for (int k0 = 0; k0 < st.depth(); k0 += kTK) {
+    load_chunk(st, in_re, in_im, m, col0, row0, batch, k0, a_re, a_im, b_re,
+               b_im);
+    __syncthreads();
+    mac_chunk(a_re, a_im, b_re, b_im, acc_re, acc_im);
+    __syncthreads();
+  }
+  store_tile(st, out_re, out_im, m, col0, row0, batch, acc_re, acc_im);
+}
+
+inline dim3 gemm_grid(int rows, int batch, int64_t m) {
+  return dim3(static_cast<unsigned>((m + kTN - 1) / kTN),
+              static_cast<unsigned>((rows + kTM - 1) / kTM),
+              static_cast<unsigned>(batch));
+}
+
 template <class Stage>
 cudaError_t launch(const Stage& st, int rows, int batch,
                    const float* in_re, const float* in_im, float* out_re,
                    float* out_im, int64_t m, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((m + kTN - 1) / kTN),
-                  static_cast<unsigned>((rows + kTM - 1) / kTM),
-                  static_cast<unsigned>(batch));
-  cgemm_rows<Stage><<<grid, kThreads, 0, stream>>>(st, in_re, in_im,
-                                                   out_re, out_im, m);
+  cgemm_rows<Stage><<<gemm_grid(rows, batch, m), kThreads, 0, stream>>>(
+      st, in_re, in_im, out_re, out_im, m);
   return cudaGetLastError();
+}
+
+// The whole pass: stage1() launches stage 1 of the geometry s1 (it
+// writes z), then stage 2 + crop reads z. The probes pass their own
+// stage-1 launches.
+template <class Launch1>
+cudaError_t launch_pass(Launch1 stage1, const Stage1& s1, const float* m2,
+                        const float* z_re, const float* z_im, float* out_re,
+                        float* out_im, int qb, int qs, int trim0, int size,
+                        int64_t m, cudaStream_t s) {
+  const cudaError_t err = stage1();
+  if (err != cudaSuccess) return err;
+  const Stage2 s2{m2, s1.n1, s1.n2, s1.c, qb, qs, trim0, size};
+  return launch(s2, qb * qs, s1.n1, z_re, z_im, out_re, out_im, m, s);
 }
 
 }  // namespace
 
-// C entry (bound with ctypes by ops/fft_cuda.py). Inputs re/im are
-// (n1i * n2, m) row-major float32; z_re/z_im are (n1 * n2, m) scratch;
-// out_re/out_im are (size, m). Returns the CUDA error code (0 = ok).
+#ifndef CIP_FFT_FUSED_NO_ENTRY
+
+// C entries (bound with ctypes by ops/fft_cuda.py). Inputs re/im are
+// (n1i * n2, m) row-major float32 (or, for the tiled entry, B6's
+// (NC, m / mb, n1i, C, mb) layout); z_re/z_im are (n1 * n2, m)
+// scratch; out_re/out_im are (size, m). Return the CUDA error code
+// (0 = ok).
 extern "C" int cip_fft_first_axis_fused(
     const float* re, const float* im, const float* m1, const float* twc,
     const float* tws, const float* m2, float* z_re, float* z_im,
     float* out_re, float* out_im, int n1, int n1i, int n2, int c, int qb,
     int qs, int trim0, int size, int64_t m, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (c <= 0 || n2 % c != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Stage1 s1{m1, twc, tws, n1, n1i, n2, c};
-  cudaError_t err = launch(s1, n1, n2, re, im, z_re, z_im, m, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Stage2 s2{m2, n1, n2, c, qb, qs, trim0, size};
-  return static_cast<int>(
-      launch(s2, qb * qs, n1, z_re, z_im, out_re, out_im, m, s));
+  return static_cast<int>(launch_pass(
+      [&] { return launch(s1, n1, n2, re, im, z_re, z_im, m, s); }, s1, m2,
+      z_re, z_im, out_re, out_im, qb, qs, trim0, size, m, s));
 }
+
+extern "C" int cip_fft_first_axis_fused_tiled(
+    const float* re, const float* im, const float* m1, const float* twc,
+    const float* tws, const float* m2, float* z_re, float* z_im,
+    float* out_re, float* out_im, int n1, int n1i, int n2, int c, int qb,
+    int qs, int trim0, int size, int mb, int64_t m, void* stream) {
+  if (c <= 0 || n2 % c != 0 || mb != kTiledMB || m % mb != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Stage1Tiled s1{{m1, twc, tws, n1, n1i, n2, c},
+                       static_cast<int>(m / mb)};
+  return static_cast<int>(launch_pass(
+      [&] { return launch(s1, n1, n2, re, im, z_re, z_im, m, s); }, s1, m2,
+      z_re, z_im, out_re, out_im, qb, qs, trim0, size, m, s));
+}
+
+#endif  // CIP_FFT_FUSED_NO_ENTRY

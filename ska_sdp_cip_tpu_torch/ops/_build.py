@@ -9,8 +9,10 @@ first use, and loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/torch_kernels/<stem>_<hash>.so csrc/<stem>.cu
 
-A library's name carries a hash of its source and the flags, so an
-edited source never loads a stale build. The build directory is
+A library's name carries a hash of the flags, its source and the
+sources that includes (``fft_probes.cu`` includes ``fft_fused.cu``), so
+an edited source never loads a stale build and rebuilds only the
+libraries made from it. The build directory is
 ``build/torch_kernels/`` beside the package. ``nvcc`` is taken from
 ``CUDA_HOME``/``CUDA_PATH``, then ``PATH``, then ``/usr/local/cuda``.
 Nothing here runs at import time.
@@ -21,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -76,10 +79,26 @@ def _sources() -> list[Path]:
     return sources
 
 
+_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _with_includes(source: Path) -> list[Path]:
+    """``source`` and the sources it includes with ``#include "..."``,
+    transitively, each once."""
+    seen = [source]
+    for path in seen:
+        for name in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / name.decode()
+            if dep not in seen:
+                seen.append(dep)
+    return seen
+
+
 def library_path(source: Path) -> Path:
     """Where the library built from ``source`` with the flags lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    digest.update(source.read_bytes())
+    for path in _with_includes(source):
+        digest.update(path.name.encode() + path.read_bytes())
     return BUILD_DIR / f"{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
@@ -124,6 +143,22 @@ def _declare(lib) -> None:
         c_i64, ptr,
     ]
     lib.cip_fft_first_axis_fused.restype = c_int
+    lib.cip_fft_first_axis_fused_tiled.argtypes = [ptr] * 10 + [c_int] * 9 + [
+        c_i64, ptr,
+    ]
+    lib.cip_fft_first_axis_fused_tiled.restype = c_int
+    lib.cip_pretile_first_axis.argtypes = [ptr] * 4 + [c_int] * 4 + [
+        c_i64, ptr,
+    ]
+    lib.cip_pretile_first_axis.restype = c_int
+    for name in ("cip_fft_async_fetch", "cip_fft_ablation"):
+        entry = getattr(lib, name)
+        entry.argtypes = [c_int] + [ptr] * 10 + [c_int] * 8 + [c_i64, ptr]
+        entry.restype = c_int
+    lib.cip_smem_probe.argtypes = [c_int, ptr, ptr]
+    lib.cip_smem_probe.restype = c_int
+    lib.cip_smem_optin_bytes.argtypes = [c_int, ctypes.POINTER(c_int)]
+    lib.cip_smem_optin_bytes.restype = c_int
 
 
 def _compile(sources: list[Path]) -> None:

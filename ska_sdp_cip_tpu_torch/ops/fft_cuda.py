@@ -1,14 +1,18 @@
 """
 Fused four-step DFT along the first axis: kernel B2
-(``csrc/fft_fused.cu``) and its plain PyTorch version.
+(``csrc/fft_fused.cu``), the input re-lay B6 (``csrc/pretile.cu``) and
+their plain PyTorch versions.
 
 Counterpart: ``ska_sdp_cip_tpu/ops/fft_pallas.py`` —
 ``fused_pass_meta`` (copied with ``FusedPassMeta``),
 ``fused_pass_host_arrays`` (rewritten to emit float32 factors: the
 bf16 hi/lo split there fed the TPU's bf16 matrix unit, and the CUDA
 kernel multiplies in float32), ``fft_first_axis_fused`` (the Pallas
-kernel, replaced by :func:`fft_first_axis_fused`) and
-``fft2_from_image_fused`` (predict's forward 2-D transform).
+kernel, replaced by :func:`fft_first_axis_fused`, with its ``tiled``
+input mode), ``pretile_first_axis`` (replaced by
+:func:`pretile_first_axis`) and ``fft2_from_image_fused`` (predict's
+forward 2-D transform). As in the counterpart, nothing on the invert
+or predict path uses the tiled mode: ``probes/fft_tiled.py`` measures it.
 
 A pass is out-cropped (invert: ``meta.size`` output rows of the image
 crop, factors ``fftp_*`` at sign +1) or in-cropped (predict: the input
@@ -33,10 +37,14 @@ from .fft import FFTPlan, _zero_pad, fft_first_axis
 
 #: Launches of the B2 kernel (one per :func:`fft_first_axis_fused` call
 #: on CUDA tensors): out-cropped passes (invert) in ``LAUNCHES``,
-#: in-cropped passes (predict) in ``IN_CROP_LAUNCHES``. Callers reset
+#: in-cropped passes (predict) in ``IN_CROP_LAUNCHES``, passes on tiled
+#: input (either crop) in ``TILED_LAUNCHES``; launches of the B6 kernel
+#: (:func:`pretile_first_axis`) in ``PRETILE_LAUNCHES``. Callers reset
 #: them to 0 and read them to show that a run went through the kernel.
 LAUNCHES = 0
 IN_CROP_LAUNCHES = 0
+TILED_LAUNCHES = 0
+PRETILE_LAUNCHES = 0
 
 #: Column block of the counterpart's geometry (its ``MB``); the port
 #: keeps it so ``fused_pass_meta`` gives the same geometry.
@@ -220,8 +228,92 @@ def fft_first_axis_reference(re, im, f, *, meta: FusedPassMeta, sign: int):
     )
 
 
+def tiled_shape(meta: FusedPassMeta, m: int) -> tuple:
+    """Shape (NC, m / MB, n1i, C, MB) of a pass's tiled input."""
+    return (meta.nc, m // meta.mb, meta.n1_in, meta.c, meta.mb)
+
+
+def pretile_first_axis_reference(re, im, *, meta: FusedPassMeta):
+    """Plain version of :func:`pretile_first_axis`: a reshape and a
+    permute of each (n1i * n2, m) input into (NC, m/MB, n1i, C, MB)."""
+    n1i, nc, c, mb = meta.n1_in, meta.nc, meta.c, meta.mb
+    return tuple(
+        x.reshape(n1i, nc, c, x.shape[1] // mb, mb)
+        .permute(1, 3, 0, 2, 4)
+        .contiguous()
+        for x in (re, im)
+    )
+
+
+def _untile(x, meta: FusedPassMeta):
+    """Inverse of the tiled layout: (n1i * n2, m) row-major."""
+    return x.permute(2, 0, 3, 1, 4).reshape(
+        meta.n1_in * meta.n2, x.shape[1] * meta.mb
+    )
+
+
+def pretile_first_axis(re, im, *, meta: FusedPassMeta):
+    """
+    Re-lay the fused pass's input (n1i * n2, m) into contiguous (n1i,
+    C, MB) tiles, layout (NC, m/MB, n1i, C, MB) (counterpart
+    ``pretile_first_axis``), for :func:`fft_first_axis_fused` with
+    ``tiled=True``. ``m`` must be a multiple of MB. CUDA tensors go to
+    the B6 kernel (or raise), CPU tensors to
+    :func:`pretile_first_axis_reference`.
+    """
+    global PRETILE_LAUNCHES
+    rows = meta.n1_in * meta.n2
+    if re.dim() != 2 or re.shape[0] != rows:
+        raise ValueError(
+            f"pretile input shape {tuple(re.shape)} != ({rows}, m)"
+        )
+    if re.shape != im.shape or re.device != im.device:
+        raise ValueError("re and im must have one shape and one device")
+    m = re.shape[1]
+    if m % meta.mb:
+        raise ValueError(f"m={m} is not a multiple of MB={meta.mb}")
+    if re.device.type == "cpu":
+        return pretile_first_axis_reference(re, im, meta=meta)
+    if re.device.type != "cuda":
+        raise ValueError(f"unsupported device {re.device}")
+    from . import _build
+
+    for name, t in (("re", re), ("im", im)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32")
+    re, im = re.contiguous(), im.contiguous()
+    out_re = torch.empty(tiled_shape(meta, m), dtype=torch.float32,
+                         device=re.device)
+    out_im = torch.empty_like(out_re)
+    lib = _build.load_library()
+    err = lib.cip_pretile_first_axis(
+        re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+        int(meta.n1_in), int(meta.n2), int(meta.c), int(meta.mb), int(m),
+        torch.cuda.current_stream(re.device).cuda_stream,
+    )
+    _build.check(err, "cip_pretile_first_axis")
+    PRETILE_LAUNCHES += 1
+    return out_re, out_im
+
+
+def fft_first_axis_tiled_reference(re, im, f, *, meta: FusedPassMeta,
+                                   sign: int):
+    """
+    Plain version of the pass on tiled input: un-tile, then the torch
+    four-step pass over all n1i * n2 rows of the covering window (as the
+    counterpart's tiled pass, which reads them as given).
+    """
+    in_crop = None
+    if meta.in_size:
+        in_crop = (meta.j1a * meta.n2, meta.n1_in * meta.n2)
+    return fft_first_axis(
+        _untile(re, meta), _untile(im, meta), f, sign=sign,
+        in_crop=in_crop, out_crop=_out_crop(meta),
+    )
+
+
 def fft_first_axis_fused(re, im, f, *, meta: FusedPassMeta, sign: int,
-                         prefix: str = "fftp"):
+                         prefix: str = "fftp", tiled: bool = False):
     """
     DFT along the first axis of (rows, m) split float32 tensors: ``n``
     rows cropped to ``meta.size`` output rows, or (in-cropped)
@@ -231,13 +323,30 @@ def fft_first_axis_fused(re, im, f, *, meta: FusedPassMeta, sign: int,
     they were built for ``sign``; on CPU tensors it runs
     :func:`fft_first_axis_reference` on the plan factors ``fft_*`` of
     the same dict.
+
+    With ``tiled=True`` the input is :func:`pretile_first_axis`'s
+    (NC, m/MB, n1i, C, MB) layout of all n1i * n2 covered rows (the
+    counterpart's ``tiled`` flag); the result equals the row-major
+    pass's bit for bit.
     """
     if re.device != im.device:
         raise ValueError("re and im must be on one device")
+    if tiled:
+        tile = (meta.n1_in, meta.c, meta.mb)
+        if (re.dim() != 5 or re.shape[0] != meta.nc
+                or tuple(re.shape[2:]) != tile or re.shape != im.shape):
+            raise ValueError(
+                f"bad tiled input shape {tuple(re.shape)} (want "
+                f"({meta.nc}, m/{meta.mb}, {meta.n1_in}, {meta.c}, "
+                f"{meta.mb}))"
+            )
     if re.device.type == "cuda":
         return _fft_first_axis_cuda(re, im, f, meta=meta, sign=sign,
-                                    prefix=prefix)
+                                    prefix=prefix, tiled=tiled)
     if re.device.type == "cpu":
+        if tiled:
+            return fft_first_axis_tiled_reference(re, im, f, meta=meta,
+                                                  sign=sign)
         return fft_first_axis_reference(re, im, f, meta=meta, sign=sign)
     raise ValueError(f"unsupported device {re.device}")
 
@@ -260,47 +369,84 @@ def fft2_from_image_fused(f, img_re, img_im, *, meta: FusedPassMeta,
     return b_re.t(), b_im.t()
 
 
-def _fft_first_axis_cuda(re, im, f, *, meta, sign, prefix):
-    global LAUNCHES, IN_CROP_LAUNCHES
-    from . import _build
-
+def pass_factors(f, meta: FusedPassMeta, *, sign: int, prefix: str,
+                 device) -> dict:
+    """
+    The ``{prefix}_*`` factor tensors of one pass (``m1``, ``twc``,
+    ``tws``, ``m2``) as the kernels read them: float32 on ``device`` in
+    the shapes of :func:`fused_pass_host_arrays`, built for ``sign``
+    (raises otherwise).
+    """
     if f.get(f"{prefix}_sign") != sign:
         raise ValueError(
             f"the {prefix}_* factors were built for sign "
             f"{f.get(f'{prefix}_sign')}, the pass asks for {sign}"
         )
-    n1, n2, n1i = meta.n1, meta.n2, meta.n1_in
-    factors = {
+    n1, n1i = meta.n1, meta.n1_in
+    shapes = {
         "m1": (2 * n1, 2 * n1i),
         "twc": (meta.nc, n1, meta.c, 1),
         "tws": (meta.nc, n1, meta.c, 1),
         "m2": (meta.qb, meta.nc, 2 * meta.qs, 2 * meta.c),
     }
     tensors = {}
-    for name, shape in factors.items():
+    for name, shape in shapes.items():
         t = f[f"{prefix}_{name}"]
-        if t.device != re.device or t.dtype != torch.float32:
-            raise TypeError(f"{prefix}_{name} must be float32 on {re.device}")
+        if t.device != device or t.dtype != torch.float32:
+            raise TypeError(f"{prefix}_{name} must be float32 on {device}")
         if tuple(t.shape) != shape:
             raise ValueError(
                 f"{prefix}_{name} has shape {tuple(t.shape)}, want {shape}"
             )
         tensors[name] = t.contiguous()
-    rows = meta.in_size or n1i * n2
+    return tensors
+
+
+def pass_args(re, im, factors: dict, z_re, z_im, out_re, out_im,
+              meta: FusedPassMeta) -> list:
+    """The leading arguments of the pass's C entries (csrc/fft_fused.cu):
+    pointers, then n1, n1i, n2, C, QB, QS, trim0, size."""
+    return [
+        re.data_ptr(), im.data_ptr(), factors["m1"].data_ptr(),
+        factors["twc"].data_ptr(), factors["tws"].data_ptr(),
+        factors["m2"].data_ptr(), z_re.data_ptr(), z_im.data_ptr(),
+        out_re.data_ptr(), out_im.data_ptr(), int(meta.n1),
+        int(meta.n1_in), int(meta.n2), int(meta.c), int(meta.qb),
+        int(meta.qs), int(meta.trim0), int(meta.size),
+    ]
+
+
+def _fft_first_axis_cuda(re, im, f, *, meta, sign, prefix, tiled):
+    global LAUNCHES, IN_CROP_LAUNCHES, TILED_LAUNCHES
+    from . import _build
+
+    factors = pass_factors(f, meta, sign=sign, prefix=prefix,
+                           device=re.device)
+    n1, n2, n1i = meta.n1, meta.n2, meta.n1_in
     for name, t in (("re", re), ("im", im)):
-        if t.dtype != torch.float32 or t.dim() != 2:
-            raise TypeError(f"{name} must be a 2-D float32 tensor")
-        if t.shape[0] != rows:
-            raise ValueError(f"{name} has {t.shape[0]} rows, want {rows}")
-    if re.shape != im.shape:
-        raise ValueError("re and im shapes differ")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be a float32 tensor")
     re, im = re.contiguous(), im.contiguous()
-    if rows != n1i * n2:
-        # Zero-pad the cropped rows into the covering j1 window, as the
-        # counterpart does before its kernel (stage-1 pruning).
-        re = _zero_pad(re, 0, n1i * n2, meta.pad_lo)
-        im = _zero_pad(im, 0, n1i * n2, meta.pad_lo)
-    m = re.shape[1]
+    if tiled:
+        if meta.mb != MB:
+            raise ValueError(f"the tiled kernel takes MB = {MB}, "
+                             f"not {meta.mb}")
+        m = re.shape[1] * meta.mb
+    else:
+        rows = meta.in_size or n1i * n2
+        for name, t in (("re", re), ("im", im)):
+            if t.dim() != 2:
+                raise TypeError(f"{name} must be a 2-D float32 tensor")
+            if t.shape[0] != rows:
+                raise ValueError(f"{name} has {t.shape[0]} rows, want {rows}")
+        if re.shape != im.shape:
+            raise ValueError("re and im shapes differ")
+        if rows != n1i * n2:
+            # Zero-pad the cropped rows into the covering j1 window, as
+            # the counterpart does before its kernel (stage-1 pruning).
+            re = _zero_pad(re, 0, n1i * n2, meta.pad_lo)
+            im = _zero_pad(im, 0, n1i * n2, meta.pad_lo)
+        m = re.shape[1]
     z_re = torch.empty((n1 * n2, m), dtype=torch.float32, device=re.device)
     z_im = torch.empty_like(z_re)
     out_re = torch.empty(
@@ -308,18 +454,18 @@ def _fft_first_axis_cuda(re, im, f, *, meta, sign, prefix):
     )
     out_im = torch.empty_like(out_re)
     lib = _build.load_library()
+    args = pass_args(re, im, factors, z_re, z_im, out_re, out_im, meta)
     stream = torch.cuda.current_stream(re.device).cuda_stream
-    err = lib.cip_fft_first_axis_fused(
-        re.data_ptr(), im.data_ptr(), tensors["m1"].data_ptr(),
-        tensors["twc"].data_ptr(), tensors["tws"].data_ptr(),
-        tensors["m2"].data_ptr(), z_re.data_ptr(), z_im.data_ptr(),
-        out_re.data_ptr(), out_im.data_ptr(), int(n1), int(n1i), int(n2),
-        int(meta.c), int(meta.qb), int(meta.qs), int(meta.trim0),
-        int(meta.size), int(m), stream,
-    )
-    _build.check(err, "cip_fft_first_axis_fused")
-    if meta.in_size:
-        IN_CROP_LAUNCHES += 1
+    if tiled:
+        err = lib.cip_fft_first_axis_fused_tiled(*args, int(meta.mb), int(m),
+                                                 stream)
+        _build.check(err, "cip_fft_first_axis_fused_tiled")
+        TILED_LAUNCHES += 1
     else:
-        LAUNCHES += 1
+        err = lib.cip_fft_first_axis_fused(*args, int(m), stream)
+        _build.check(err, "cip_fft_first_axis_fused")
+        if meta.in_size:
+            IN_CROP_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
     return out_re, out_im

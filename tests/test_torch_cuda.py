@@ -8,7 +8,9 @@ tests/test_torch_cuda.py`` (``--noconftest``: the suite's conftest
 imports jax, which such a machine need not have).
 Tolerances: 1e-5 of the reference's max between a float32 kernel and
 its float32 plain version (summation order differs; the gridding
-kernel adds with atomics), 1e-4 against the explicit DFT.
+kernel adds with atomics), 1e-4 against the explicit DFT; exact where
+a kernel only moves data (B6, P2's ``load``) or sums B2's values in
+B2's order (tiled B2, P1, P2's ``full``).
 """
 
 import numpy as np
@@ -183,3 +185,138 @@ def test_dirty_image_on_card_matches_dft(cuda, wstack):
     got = tg.dirty_image(uvw, freqs, vis, wgt, 128, PIXEL,
                          do_wstacking=wstack, device=cuda)
     assert np.abs(got - ref).max() / np.abs(ref).max() <= 1e-4
+
+
+def _pass(cuda, n, m, *, in_crop=None, seed=0):
+    """Geometry, staged factors and (rows, m) normal input of one pass:
+    out-cropped to the counterpart probes' rows, or in-cropped at -1."""
+    from ska_sdp_cip_tpu_torch.probes.common import crop_rows
+
+    plan = make_fft_plan(n, shifted=True)
+    host = fft_plan_arrays(plan, prefix="fft")
+    if in_crop is None:
+        npix = crop_rows(n)
+        meta = tfc.fused_pass_meta(plan, ((n - npix) // 2, npix))
+        sign, prefix, rows = +1, "fftp", n
+    else:
+        meta = tfc.fused_pass_meta(plan, None, in_crop=in_crop)
+        sign, prefix, rows = -1, "fftq", meta.in_size
+    host.update(tfc.fused_pass_host_arrays(plan, meta, sign=sign,
+                                           prefix=prefix))
+    f = tg.stage_arrays(host, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    re = torch.randn((rows, m), generator=gen, device=cuda)
+    im = torch.randn((rows, m), generator=gen, device=cuda)
+    return meta, f, sign, prefix, re, im
+
+
+def _rel_close(got, ref, rtol=1e-5):
+    scale = max(float(r.abs().max()) for r in ref)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert float((g - r).abs().max()) <= rtol * scale
+
+
+@pytest.mark.parametrize("n,m,in_crop", [(512, 512, None), (960, 1024, None),
+                                         (512, 256, (128, 256))],
+                         ids=["512", "960", "in_crop"])
+def test_pretile_kernel_equals_plain(cuda, n, m, in_crop):
+    meta, _, _, _, re, im = _pass(cuda, n, m, in_crop=in_crop)
+    before = tfc.PRETILE_LAUNCHES
+    got = tfc.pretile_first_axis(re, im, meta=meta)
+    torch.cuda.synchronize()
+    assert tfc.PRETILE_LAUNCHES == before + 1
+    ref = tfc.pretile_first_axis_reference(re, im, meta=meta)
+    for g, r in zip(got, ref):
+        assert g.shape == tfc.tiled_shape(meta, m)
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("n,m,in_crop", [(512, 512, None), (960, 1024, None),
+                                         (512, 256, (128, 256))],
+                         ids=["512", "960", "in_crop"])
+def test_tiled_pass_equals_untiled_kernel(cuda, n, m, in_crop):
+    meta, f, sign, prefix, re, im = _pass(cuda, n, m, in_crop=in_crop)
+    base = tfc.fft_first_axis_fused(re, im, f, meta=meta, sign=sign,
+                                    prefix=prefix)
+    tiles = tfc.pretile_first_axis(re, im, meta=meta)
+    before = tfc.TILED_LAUNCHES
+    got = tfc.fft_first_axis_fused(*tiles, f, meta=meta, sign=sign,
+                                   prefix=prefix, tiled=True)
+    torch.cuda.synchronize()
+    assert tfc.TILED_LAUNCHES == before + 1
+    for g, b in zip(got, base):
+        assert torch.equal(g, b)
+    _rel_close(got, tfc.fft_first_axis_tiled_reference(
+        *tiles, f, meta=meta, sign=sign))
+
+
+@pytest.mark.parametrize("in_crop", [None, (240, 480)], ids=["out", "in"])
+def test_fft_kernel_ragged_n1_matches_plain(cuda, in_crop):
+    """B2 at n = 960 (n1 = 30: not a multiple of the kernel's 16-deep
+    chunk or 64-row tile), m = 1024."""
+    meta, f, sign, prefix, re, im = _pass(cuda, 960, 1024, in_crop=in_crop)
+    assert meta.n1 == 30
+    got = tfc.fft_first_axis_fused(re, im, f, meta=meta, sign=sign,
+                                   prefix=prefix)
+    _rel_close(got, tfc.fft_first_axis_reference(re, im, f, meta=meta,
+                                                 sign=sign))
+
+
+@pytest.mark.parametrize("n", [512, 960])
+def test_async_fetch_probe_equals_b2(cuda, n):
+    from ska_sdp_cip_tpu_torch.probes import fft_async_fetch as p1
+
+    meta, f, _, _, re, im = _pass(cuda, n, 1024)
+    base = tfc.fft_first_axis_fused(re, im, f, meta=meta, sign=+1)
+    ref = tfc.fft_first_axis_reference(re, im, f, meta=meta, sign=+1)
+    for stages in p1.STAGES:
+        before = p1.LAUNCHES[stages]
+        got = p1.async_fetch_pass(re, im, f, meta=meta, stages=stages)
+        torch.cuda.synchronize()
+        assert p1.LAUNCHES[stages] == before + 1
+        for g, b in zip(got, base):
+            assert torch.equal(g, b)
+        _rel_close(got, ref)
+
+
+@pytest.mark.parametrize("n", [512, 960])
+def test_ablation_variants_match_plain(cuda, n):
+    from ska_sdp_cip_tpu_torch.probes import fft_ablation as p2
+
+    meta, f, _, _, re, im = _pass(cuda, n, 1024)
+    z = p2.ablation_reference("s1tw", re, im, f, meta=meta)
+    for variant in p2.VARIANTS:
+        x = z if variant == "s2" else (re, im)
+        before = p2.LAUNCHES[variant]
+        got = p2.ablation(variant, *x, f, meta=meta)
+        torch.cuda.synchronize()
+        assert p2.LAUNCHES[variant] == before + 1
+        if variant == "load":
+            assert all(torch.equal(g, r) for g, r in zip(got, x))
+        _rel_close(got, p2.ablation_reference(variant, *x, f, meta=meta))
+    full = p2.ablation("full", re, im, f, meta=meta)
+    base = tfc.fft_first_axis_fused(re, im, f, meta=meta, sign=+1)
+    assert all(torch.equal(g, b) for g, b in zip(full, base))
+
+
+@pytest.mark.parametrize("probe", ["fft_tiled", "fft_async_fetch",
+                                   "fft_ablation"])
+def test_fft_probes_run_on_card(cuda, probe):
+    import importlib
+
+    mod = importlib.import_module(f"ska_sdp_cip_tpu_torch.probes.{probe}")
+    out = mod.run(512, device=cuda, iters=2)
+    assert out["ngrid"] == 512 and out["device"] != "cpu"
+
+
+def test_smem_probe_maximum_is_the_device_attribute(cuda):
+    from ska_sdp_cip_tpu_torch.probes import smem
+
+    before = smem.LAUNCHES
+    out = smem.run(device=cuda, iters=2)
+    assert smem.LAUNCHES > before
+    assert out["max_bytes"] == out["optin_attribute_bytes"]
+    assert out["matches_attribute"]
+    assert out["read_back_exact"] and out["max_abs_err"] == 0
+    assert smem.smem_probe(out["max_bytes"] + 1, cuda) is None
