@@ -17,10 +17,15 @@ then runs these phases and prints one JSON object per phase:
    the 1e-4 contract);
 3. ``b2``: the fused first-axis DFT kernel against its plain version at
    the bench transform: out-cropped (invert: 4096 rows -> 2048-row
-   crop, m = 4096 and 2048) and in-cropped at sign -1 (predict: 2048
-   image rows -> 4096, m = 2048 and 4096); then at the production
-   transform (15360 rows -> 10240 and 10240 -> 15360, m = 15360;
-   n1 = 120, the kernel's ragged tiles);
+   crop) and in-cropped at sign -1 (predict: 2048 image rows -> 4096),
+   each at m = 4096 and 2048, the widths of a 2-D transform's two
+   passes, and at m = 2046 (an image width that is not a multiple of
+   4: the kernel's 4-byte staging); then at the production transform (15360 rows -> 10240 and
+   10240 -> 15360, m = 15360 and 10240; n1 = 120). Each case also times
+   one uncentred, uncropped ``torch.fft`` call along dim 0 of the
+   complex64 input (``library_ms``) and the first design of B2, the
+   dense pass P2 ``full`` (out-cropped), and gives the bound and the
+   achieved GB/s;
 4. ``b3``: the degridding kernel against its plain version, on small
    plans (G = 1 without w-stacking, G = 2) and on one bench-size plane
    group;
@@ -47,18 +52,21 @@ then runs these phases and prints one JSON object per phase:
    and B2 on tiled input against B2 on row-major input, both exact,
    with the times of the baseline pass, pretile, the tiled pass and
    pretile + tiled pass;
-10. ``fft_probes``: at 15360^2, P1 (stage 1 through an S-deep
-    ``cp.async`` ring, S = 1, 2, 4; each output equal to B2's) and P2
-    (B2's stage ablation, each variant against its plain piece); P3,
-    the largest dynamic shared memory per block against the device
-    attribute;
+10. ``fft_probes``: at 15360^2, P1 (stage 1 of B2's first design, the
+    dense pass, through an S-deep ``cp.async`` ring, S = 1, 2, 4; each
+    output equal to the dense pass P2 ``full``) and P2 (the dense pass's
+    stage ablation, each variant against its plain piece); P3, the
+    largest dynamic shared memory per block against the device
+    attribute; and ``library_ms`` of the probes' pass;
 11. ``production`` (three parts): ``scripts/production_bench.py``'s
     configuration (258,048 visibilities, 10240 px at 1.1 asec,
     ``sigma="auto"`` = 1.5, a 15360^2 grid, support 8): ``dirty_image``
     (float64 DFT at 256 pixels, B1 against its plain version on the
     largest plane group, median wall of 3 calls, breakdown, launch
     counts, profile), ``predict_visibilities`` (the adjoint identity,
-    five point sources against a float64 DFT at 4096 visibilities, B3
+    with a witness that replaces B2 by its plain version and by the
+    exact transform, and for the dirty image as I; five point sources
+    against a float64 DFT at 4096 visibilities, B3
     against its plain version on the largest plane group, median wall,
     breakdown) and the major cycle on the Clark minor
     cycle (``psf_patch`` 2048) on visibilities of five point sources,
@@ -72,7 +80,9 @@ directory without the package. Imports neither jax nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -101,8 +111,115 @@ PROD_TIMES, PROD_ANTENNAS, PROD_CHANNELS = 4, 64, 32
 PROD_NPIX, PROD_ASEC, PROD_NGRID = 10240, 1.1, 15360
 
 
+#: Published peaks of one NVIDIA H100 SXM at 700 W (NVIDIA's data
+#: sheet): a kernel's least time (``bound_ms``) is its bytes at the HBM
+#: rate or its float32 operations at the FP32 rate, whichever is longer.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+
 class PhaseError(RuntimeError):
     """A phase's check failed."""
+
+
+def bound(nbytes: float, flops: float = 0.0) -> dict:
+    """``bound_ms`` and ``bound_by`` of ``nbytes`` moved (each input
+    read once, each output written once) and ``flops`` float32
+    operations."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def b2_work(meta, m: int, rows_in: int) -> tuple:
+    """A B2 pass's bytes (input read once, output written once), the
+    two-launch floor's bytes (plus z written and read back) and its
+    flops (an FFT's 5 n log2 n per column)."""
+    n = meta.n1 * meta.n2
+    io = 8 * m * (rows_in + meta.size)
+    return io, io + 2 * 8 * m * n, 5 * n * math.log2(n) * m
+
+
+def centred_dft64(re, im, meta, n: int, sign: int, cols: int = 256):
+    """The pass's exact result on the first ``cols`` columns: the
+    centred length-n DFT (``fftshift o DFT o ifftshift``) at sign
+    ``sign`` in complex128 (``torch.fft``), of the input zero-padded
+    (in-cropped) or cropped (out-cropped) as the pass's geometry says."""
+    import torch
+
+    x = torch.complex(re[:, :cols].double(), im[:, :cols].double())
+    if meta.in_size:
+        c0 = meta.j1a * meta.n2 + meta.pad_lo
+        full = x.new_zeros((n, x.shape[1]))
+        full[c0 : c0 + meta.in_size] = x
+        x = full
+    x = torch.fft.ifftshift(x, dim=0)
+    y = torch.fft.fft(x, dim=0) if sign < 0 else torch.fft.ifft(x, dim=0) * n
+    c0 = meta.k2a * meta.n1 + meta.trim0
+    return torch.fft.fftshift(y, dim=0)[c0 : c0 + meta.size]
+
+
+def exact_b2(re, im, f, *, meta, sign, **_):
+    """B2's pass done exactly: :func:`centred_dft64` (complex128
+    ``torch.fft``) over blocks of 2048 columns, rounded to float32. A
+    witness for the adjoint identity, not a pass of the port."""
+    import torch
+
+    n, m = meta.n1 * meta.n2, re.shape[1]
+    out_re = re.new_empty((meta.size, m))
+    out_im = torch.empty_like(out_re)
+    for c0 in range(0, m, 2048):
+        y = centred_dft64(re[:, c0:], im[:, c0:], meta, n, sign, cols=2048)
+        out_re[:, c0 : c0 + y.shape[1]] = y.real
+        out_im[:, c0 : c0 + y.shape[1]] = y.imag
+    return out_re, out_im
+
+
+def plain_b2(ngrid: int, device):
+    """B2's pass done by its plain version on ``device`` (the plan
+    factors ``fft_*`` of the ``ngrid`` transform, staged here)."""
+    from ska_sdp_cip_tpu_torch.ops import fft_cuda
+    from ska_sdp_cip_tpu_torch.ops.fft import fft_plan_arrays, make_fft_plan
+    from ska_sdp_cip_tpu_torch.ops.gridder import stage_arrays
+
+    factors = stage_arrays(
+        fft_plan_arrays(make_fft_plan(ngrid, shifted=True), prefix="fft"),
+        device)
+
+    def run(re, im, f, *, meta, sign, **_):
+        return fft_cuda.fft_first_axis_reference(re, im, factors, meta=meta,
+                                                 sign=sign)
+
+    return run
+
+
+@contextlib.contextmanager
+def b2_replaced(pass_fn):
+    """Run ``dirty_image`` and ``predict_visibilities`` with every B2
+    pass replaced by ``pass_fn`` (same signature): a witness that
+    separates B2's share of the adjoint identity's offset from the rest
+    of the operators'."""
+    from ska_sdp_cip_tpu_torch.ops import fft_cuda, gridder
+
+    saved = gridder.fft_first_axis_fused, fft_cuda.fft_first_axis_fused
+    gridder.fft_first_axis_fused = fft_cuda.fft_first_axis_fused = pass_fn
+    try:
+        yield
+    finally:
+        gridder.fft_first_axis_fused, fft_cuda.fft_first_axis_fused = saved
+
+
+def gridding_work(plan, G: int, active: int, *, degrid: bool) -> tuple:
+    """Bytes and flops of one B1 (``degrid=False``) or B3 launch over
+    ``active`` blocks: every slot's three packed floats, its visibility
+    (B1) or accumulator read and written (B3), and each block's 2G
+    patch_x x patch_y float32 patches written (B1) or windows read (B3);
+    two FMAs (re, im) per footprint cell and plane."""
+    slots = active * plan.block
+    patches = active * 2 * G * plan.patch_x * plan.patch_y * 4
+    nbytes = slots * (12 + (16 if degrid else 8)) + patches
+    return nbytes, 4.0 * slots * G * plan.support ** 2
 
 
 def emit(obj: dict) -> None:
@@ -191,11 +308,14 @@ def compare_group(plan, args, *, time_it: bool, iters: int = 3) -> dict:
     for p in range(ref.shape[0]):
         err, rel = rel_err(got[p], ref[p])
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+    G, active = int(args[6].shape[0]), int(args[7].shape[0])
     out = {
-        "G": int(args[6].shape[0]),
-        "active_blocks": int(args[7].shape[0]),
+        "G": G,
+        "active_blocks": active,
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
+        **bound(*gridding_work(plan, G, active, degrid=False)),
+        "library_ms": None,
     }
     if time_it and args[0].device.type == "cuda":
         out["ms"] = cuda_ms(lambda: cg.grid_planes(*args, plan=plan),
@@ -317,13 +437,26 @@ def bench_dft_check(plan, arrays, re_s, im_s, uvw, freqs, wvis, device,
     return out
 
 
-def phase_b2(device, n=4096, npix=2048, width=None, iters=10) -> dict:
+def phase_b2(device, n=4096, npix=2048, iters=10, widths=None) -> dict:
     """
     B2 against its plain version: the invert's out-cropped pass (n rows
-    -> npix, sign +1, ``fftp_*``) at m = n and npix, then predict's
-    in-cropped pass (npix rows of the zero-padded image -> n, sign -1,
-    ``fftq_*``) at m = npix and n; with ``width``, both at m = width
-    only. Inputs are standard normal, made on the device.
+    -> npix, sign +1, ``fftp_*``) and predict's in-cropped pass (npix
+    rows of the zero-padded image -> n, sign -1, ``fftq_*``), each at
+    the widths m of ``widths``, by default n and npix (a 2-D transform's
+    two passes; a width that is not a multiple of 4 runs the kernel's
+    4-byte staging of an image of such a width). Inputs are standard
+    normal, made on the device. Each case gives the bound (input read
+    once, output written once at 3.35 TB/s; the two-launch floor adds
+    z written and read back), and on the card the kernel's, the plain
+    version's and the library call's times (``library_ms``: one
+    ``torch.fft.ifft`` at sign +1, ``fft`` at -1, along dim 0 of the
+    complex64 input packed outside the timing, zero-padded to n,
+    uncentred and uncropped), the achieved GB/s and, out-cropped, the
+    first design's time (P2 ``full``, the dense pass, on the same
+    input; P2 runs the out-cropped pass only). It also holds the kernel
+    and the plain version against the exact transform (complex128) on
+    the first 256 columns, and checks that two runs of the kernel are
+    equal bit for bit.
     """
     import torch
 
@@ -331,24 +464,27 @@ def phase_b2(device, n=4096, npix=2048, width=None, iters=10) -> dict:
     from ska_sdp_cip_tpu_torch.ops.fft import fft_plan_arrays, make_fft_plan
     from ska_sdp_cip_tpu_torch.ops.gridder import stage_arrays
     from ska_sdp_cip_tpu_torch.probes.common import cuda_ms, max_err
+    from ska_sdp_cip_tpu_torch.probes.fft_ablation import ablation
 
     fplan = make_fft_plan(n, shifted=True)
     crop = ((n - npix) // 2, npix)
     passes = {
-        "out_crop": (fft_cuda.fused_pass_meta(fplan, crop), +1, "fftp", n,
-                     (width,) if width else (n, npix)),
+        "out_crop": (fft_cuda.fused_pass_meta(fplan, crop), +1, "fftp", n),
         "in_crop": (fft_cuda.fused_pass_meta(fplan, None, in_crop=crop), -1,
-                    "fftq", npix, (width,) if width else (npix, n)),
+                    "fftq", npix),
     }
     host = fft_plan_arrays(fplan, prefix="fft")
-    for meta, sign, prefix, _, _ in passes.values():
-        host.update(fft_cuda.fused_pass_host_arrays(fplan, meta, sign=sign,
-                                                    prefix=prefix))
+    for meta, sign, prefix, _ in passes.values():
+        host.update(fft_cuda.fused_pass_kernel_arrays(fplan, meta, sign=sign,
+                                                      prefix=prefix))
+    # P2 ``full`` (the first design) reads the dense factors.
+    host.update(fft_cuda.fused_pass_host_arrays(
+        fplan, passes["out_crop"][0], sign=+1, prefix="fftp"))
     f = stage_arrays(host, device)
     gen = torch.Generator(device=device).manual_seed(3)
     results = {"phase": "b2", "n": n, "crop": npix, "cases": []}
-    for name, (meta, sign, prefix, rows, widths) in passes.items():
-        for m in widths:
+    for name, (meta, sign, prefix, rows) in passes.items():
+        for m in widths or (n, npix):
             re = torch.randn((rows, m), generator=gen, device=device)
             im = torch.randn((rows, m), generator=gen, device=device)
 
@@ -362,7 +498,20 @@ def phase_b2(device, n=4096, npix=2048, width=None, iters=10) -> dict:
                     re, im, f, meta=meta, sign=sign
                 )
 
-            err, rel = max_err(kernel(), plain())
+            got, ref = kernel(), plain()
+            err, rel = max_err(got, ref)
+            exact = centred_dft64(re, im, meta, n, sign)
+            scale = float(exact.abs().max())
+            dft64 = {
+                name_: float((torch.complex(*pair)[:, :256]
+                              .to(torch.complex128) - exact)
+                             .abs().max()) / scale
+                for name_, pair in (("kernel", got), ("plain", ref))
+            }
+            again = kernel()
+            repeat_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+            del got, ref, again, exact
+            io, floor, flops = b2_work(meta, m, rows)
             case = {
                 "pass": name,
                 "n": n,
@@ -371,16 +520,39 @@ def phase_b2(device, n=4096, npix=2048, width=None, iters=10) -> dict:
                 "m": m,
                 "max_abs_err": err,
                 "max_rel_err": rel,
+                "dft64_rel_err": dft64["kernel"],
+                "plain_dft64_rel_err": dft64["plain"],
+                "repeat_equal": repeat_equal,
+                **bound(io, flops),
+                "two_launch_floor_ms": bound(floor, flops)["bound_ms"],
             }
             if device.type == "cuda":
                 case["ms"] = cuda_ms(kernel, iters=iters)
                 case["plain_ms"] = cuda_ms(plain, iters=iters)
+                x = torch.complex(re, im)
+                lib = torch.fft.ifft if sign > 0 else torch.fft.fft
+                case["library_ms"] = cuda_ms(lambda: lib(x, n=n, dim=0),
+                                             iters=iters)
+                case["library_call"] = (
+                    f"torch.fft.{lib.__name__}(complex64 ({rows}, {m}), "
+                    f"n={n}, dim=0): uncentred, uncropped"
+                )
+                del x
+                case["gb_per_s"] = io / case["ms"] / 1e6
+                case["gb_per_s_with_z"] = floor / case["ms"] / 1e6
+                case["first_design_ms"] = None
+                if name == "out_crop":
+                    case["first_design_ms"] = cuda_ms(
+                        lambda: ablation("full", re, im, f, meta=meta),
+                        iters=iters,
+                    )
             results["cases"].append(case)
             del re, im
-            if not case["max_rel_err"] <= KERNEL_RTOL:
+            if not (case["max_rel_err"] <= KERNEL_RTOL and repeat_equal):
                 raise PhaseError(
-                    f"B2 ({name}, n={n}) vs plain {case['max_rel_err']:.3e}"
-                    f" > {KERNEL_RTOL}"
+                    f"B2 ({name}, n={n}, m={m}) vs plain "
+                    f"{case['max_rel_err']:.3e} > {KERNEL_RTOL}, or two "
+                    f"runs differ"
                 )
     return results
 
@@ -408,8 +580,11 @@ def compare_degrid(plan, arrays, grids, k, *, time_it: bool,
     got = cg.degrid_planes(*args, acc(), plan=plan)
     ref = cg.degrid_planes_reference(*args, acc(), plan=plan)
     err, rel = rel_err(got, ref)
-    out = {"G": int(args[5].shape[0]), "active_blocks": count,
-           "max_abs_err": err, "max_rel_err": rel}
+    G = int(args[5].shape[0])
+    out = {"G": G, "active_blocks": count,
+           "max_abs_err": err, "max_rel_err": rel,
+           **bound(*gridding_work(plan, G, count, degrid=True)),
+           "library_ms": None}
     if time_it and grids.device.type == "cuda":
         out["ms"] = cuda_ms(lambda: cg.degrid_planes(*args, acc(), plan=plan),
                             iters=iters)
@@ -1078,6 +1253,41 @@ def phase_b6(device, grids=(PROD_NGRID, BENCH_NGRID)) -> dict:
     return {"phase": "b6", "runs": runs, "launches": launches}
 
 
+def library_fft(ngrid: int, device, iters: int = 3) -> dict:
+    """``library_ms`` of the probes' pass (``probes/common.py:
+    out_crop_pass``, the same seeded input as P1, P2 and the tiled
+    probe): one ``torch.fft.ifft`` along dim 0 of the complex64 input,
+    packed outside the timing, uncentred and uncropped."""
+    import torch
+
+    from ska_sdp_cip_tpu_torch.probes.common import cuda_ms, out_crop_pass
+
+    s = out_crop_pass(ngrid, device)
+    x = torch.complex(s.re, s.im)
+    del s
+    return {"library_ms": cuda_ms(lambda: torch.fft.ifft(x, dim=0),
+                                  iters=iters),
+            "library_call": f"torch.fft.ifft(complex64 ({ngrid}, {ngrid}), "
+                            "dim=0): uncentred, uncropped"}
+
+
+def probe_work(g: dict, m: int) -> dict:
+    """(bytes, flops) of the function each P2 variant computes at a
+    probe's geometry ``g`` and width ``m`` (P1 and ``full``: the
+    out-cropped pass, B2's function): each input read once, each output
+    written once, 5 n log2 n flops a length-n transform and 6 a twiddled
+    element. The dense design's n1 + n2 complex MACs a point are its
+    cost, not the function's."""
+    n1, n2, n1i = g["n1"], g["n2"], g["n1i"]
+    n = n1 * n2
+    x, z, out = (8 * m * r for r in (n1i * n2, n, g["rows_out"]))
+    s1 = 5.0 * n * math.log2(n1) * m
+    tw = 6.0 * n * m
+    s2 = 5.0 * n * math.log2(n2) * m
+    return {"load": (2 * x, 0.0), "s1": (x + z, s1), "s1tw": (x + z, s1 + tw),
+            "s2": (z + out, s2), "full": (x + out, 5.0 * n * math.log2(n) * m)}
+
+
 def phase_fft_probes(device, ngrid=PROD_NGRID) -> dict:
     """
     P1 (``cp.async`` ring depths), P2 (stage ablation) at ``ngrid`` and
@@ -1097,6 +1307,8 @@ def phase_fft_probes(device, ngrid=PROD_NGRID) -> dict:
     if device.type == "cuda":
         out["p3"] = smem.run(device=device)
     out["launches"] = read_launches()
+    if device.type == "cuda":
+        out.update(library_fft(ngrid, device))
     require_launches(out["launches"],
                      [f"p1_S{k}" for k in fft_async_fetch.STAGES]
                      + [f"p2_{v}" for v in fft_ablation.VARIANTS] + ["p3"],
@@ -1236,11 +1448,16 @@ def phase_production_invert(device, problem, npix=PROD_NPIX,
 
 def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
                              asec=PROD_ASEC, repeats=3,
-                             samples=4096) -> dict:
+                             samples=4096, spread=2) -> dict:
     """
     ``predict_visibilities`` at the production configuration: the
     adjoint identity <dirty_image(v), I> = Re <v, predict(I)> for a
-    noise image I (float64 dot products on the host, rel 1e-4); a
+    noise image I (float64 dot products on the host, rel 1e-4), also
+    read on ``spread`` more dirty images (B1's atomics move the
+    image's last bits from run to run), with both operators' B2 passes
+    replaced by the plain version and by the exact transform
+    (:func:`adjoint_witness`), and for I = the dirty image itself
+    (no cancellation; rel 1e-4); a
     sparse image of five seeded point sources against a float64 DFT of
     its nonzero pixels at ``samples`` random visibilities (1e-4 of the
     max); B3 against its plain version on the plan's largest plane
@@ -1250,6 +1467,7 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
     import torch
 
     from ska_sdp_cip_tpu_torch.ops.gridder import (
+        dirty_image,
         predict_visibilities,
         slot_plan_host_arrays,
         stage_arrays,
@@ -1271,6 +1489,25 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
     weighted = (vis * wgt).astype(np.complex128)
     lhs = float(np.vdot(image.astype(np.float64), dirty.astype(np.float64)))
     rhs = float(np.real(np.vdot(model.astype(np.complex128), weighted)))
+    # B1 adds with atomics, so the dirty image changes in its last bits
+    # from run to run, and the noise image's dot product cancels: the
+    # identity read on ``spread`` more dirty images shows that spread.
+    lhs_more = [
+        float(np.vdot(image.astype(np.float64),
+                      dirty_image(uvw, freqs, vis, wgt, npix, pix,
+                                  sigma="auto", device=device)
+                      .astype(np.float64)))
+        for _ in range(spread)
+    ]
+    # I = the dirty image: <D, D> has no cancellation, so this reading
+    # is the operators' float32 mismatch itself.
+    d64 = dirty.astype(np.float64)
+    unit = (d64 / np.linalg.norm(d64)).astype(np.float32)
+    lhs_d = float(np.vdot(unit.astype(np.float64), d64))
+    rhs_d = float(np.real(np.vdot(run(unit).astype(np.complex128),
+                                  weighted)))
+    plan = make_plan(uvw, freqs, npix, pix, sigma="auto")
+    witness = adjoint_witness(problem, image, plan.ngrid, pix, device)
     pixels, flux = point_sources(npix)
     sparse = np.zeros((npix, npix), np.float32)
     sparse[pixels[:, 0], pixels[:, 1]] = flux
@@ -1281,7 +1518,6 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
     ref = sparse_predict_dft(uvw, freqs, pixels, flux, pix, npix, rows,
                              chans)
     err = float(np.abs(got[rows, chans] - ref).max())
-    plan = make_plan(uvw, freqs, npix, pix, sigma="auto")
     arrays = stage_arrays(slot_plan_host_arrays(plan, device), device)
     grids = random_grids(plan, device, seed=6)
     k = largest_group(plan)
@@ -1293,6 +1529,15 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
         "num_vis": int(model.size),
         "adjoint_lhs": lhs, "adjoint_rhs": rhs,
         "adjoint_rel": abs(lhs - rhs) / abs(lhs),
+        "adjoint_rel_other_dirty_images": [abs(x - rhs) / abs(x)
+                                           for x in lhs_more],
+        # |lhs| / (|I| |D|): how far the noise image's dot product
+        # cancels, which scales every float32 error in D up to the
+        # identity's reading.
+        "adjoint_cancellation": abs(lhs) / float(
+            np.linalg.norm(image.astype(np.float64)) * np.linalg.norm(d64)),
+        "adjoint_witness": witness,
+        "adjoint_rel_dirty_image": abs(lhs_d - rhs_d) / abs(lhs_d),
         "sparse_dft_check": {"samples": samples, "max_abs_err": err,
                              "rel_to_max": err / float(np.abs(ref).max())},
         "b3_check": b3_check,
@@ -1301,14 +1546,50 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
         "launches": launches,
         "finite": bool(np.isfinite(model).all() and np.isfinite(got).all()),
     }
-    if not (out["finite"] and out["adjoint_rel"] <= DFT_RTOL):
+    if not (out["finite"] and out["adjoint_rel"] <= DFT_RTOL
+            and out["adjoint_rel_dirty_image"] <= DFT_RTOL):
         raise PhaseError(f"production adjoint identity "
-                         f"{out['adjoint_rel']:.3e} > {DFT_RTOL}")
+                         f"{out['adjoint_rel']:.3e} (I = the dirty image: "
+                         f"{out['adjoint_rel_dirty_image']:.3e}) > "
+                         f"{DFT_RTOL}")
     if not out["sparse_dft_check"]["rel_to_max"] <= DFT_RTOL:
         raise PhaseError(f"production predict vs DFT "
                          f"{out['sparse_dft_check']['rel_to_max']:.3e}")
     out["breakdown"] = predict_breakdown(uvw, freqs, image, pix, device,
                                          sigma="auto")
+    return out
+
+
+def adjoint_witness(problem, image, ngrid: int, pix: float, device) -> dict:
+    """
+    The production adjoint identity for the noise image ``image`` with
+    every B2 pass of both operators replaced (:func:`b2_replaced`) by
+    B2's plain version (``plain_b2``) and by the exact transform
+    (``exact_b2``): a fresh dirty image and a fresh predict each. If
+    the reading stays where the kernel's is, B2 does not carry the
+    offset.
+    """
+    from ska_sdp_cip_tpu_torch.ops.gridder import (
+        dirty_image,
+        predict_visibilities,
+    )
+
+    uvw, freqs, vis, wgt = problem
+    npix = image.shape[0]
+    weighted = (vis * wgt).astype(np.complex128)
+    out = {}
+    for name, pass_fn in (("plain_b2", plain_b2(ngrid, device)),
+                          ("exact_b2", exact_b2)):
+        with b2_replaced(pass_fn):
+            dirty = dirty_image(uvw, freqs, vis, wgt, npix, pix,
+                                sigma="auto", device=device)
+            model = predict_visibilities(uvw, freqs, image, pix,
+                                         sigma="auto", device=device)
+        lhs = float(np.vdot(image.astype(np.float64),
+                            dirty.astype(np.float64)))
+        rhs = float(np.real(np.vdot(model.astype(np.complex128), weighted)))
+        out[name] = {"adjoint_lhs": lhs, "adjoint_rhs": rhs,
+                     "adjoint_rel": abs(lhs - rhs) / abs(lhs)}
     return out
 
 
@@ -1352,11 +1633,18 @@ def kernels_line(b1, b2, b3, b6, probes, production, by_path) -> list:
     """
     One entry per kernel of the port: launches on its path (the main
     paths for B1-B3, the probe phases for B6, tiled B2 and P1-P3), its
-    error against its plain version and both times, all from this run;
-    B1-B3 also at the production shapes (``production``: the B1 and B3
-    checks of the production phase, B2's from the b2 phase).
+    error against its plain version, its time, the plain version's, the
+    bound and the library call's time (null where no PyTorch call
+    computes the same function), all from this run; B1-B3 also at the
+    production shapes (``production``: the B1 and B3 checks of the
+    production phase, B2's production cases of the b2 phase).
     """
-    prod_keys = ("max_abs_err", "max_rel_err", "ms", "plain_ms")
+    row_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
+    prod_keys = ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")
+    b2_keys = ("n", "m", "rows_in", *prod_keys, "two_launch_floor_ms",
+               "gb_per_s", "gb_per_s_with_z", "first_design_ms")
 
     def count(key, path):
         return by_path[path][key]
@@ -1365,43 +1653,47 @@ def kernels_line(b1, b2, b3, b6, probes, production, by_path) -> list:
         return {k: v[key] for k, v in by_path.items()}
 
     b2_cases = {(c["pass"], c["m"]): c for c in b2["cases"]}
-    b2_prod = {c["pass"]: c for c in b2["production"]}
     tiled = b6["runs"][0]
     p1, p2 = probes["p1"], probes["p2"]
+    library = probes["library_ms"]
+    work = probe_work(p2, p2["ngrid"])
     fused = "ska_sdp_cip_tpu/ops/fft_pallas.py"
     entries = [
         kernel_entry(
             "grid_planes", "grid.cu",
             "ska_sdp_cip_tpu/ops/pallas_gridder.py:298",
             count("b1", "slice"), paths("b1"),
-            max_abs_err=b1["bench"]["max_abs_err"], ms=b1["bench"]["ms"],
-            plain_ms=b1["bench"]["plain_ms"],
+            **{k: b1["bench"][k] for k in row_keys},
             production={k: production["b1"][k]
                         for k in ("group", "G", "active_blocks", *prod_keys)},
         ),
     ]
     for crop, path in (("out_crop", "slice"), ("in_crop", "major_cycle")):
-        bench, prod = b2_cases[(crop, BENCH_NGRID)], b2_prod[crop]
+        bench = b2_cases[(crop, BENCH_NGRID)]
         entries.append(kernel_entry(
             f"fft_first_axis_fused[{crop}]", "fft_fused.cu", f"{fused}:238",
             count(f"b2_{crop}", path), paths(f"b2_{crop}"),
-            max_abs_err=bench["max_abs_err"], ms=bench["ms"],
-            plain_ms=bench["plain_ms"],
-            production={k: prod[k] for k in ("n", "m", *prod_keys)},
+            **{k: bench[k] for k in row_keys},
+            library_call=bench["library_call"],
+            first_design_ms=bench["first_design_ms"],
+            production=[{k: c[k] for k in b2_keys} for c in b2["production"]
+                        if c["pass"] == crop],
         ))
+    n = tiled["ngrid"]
     entries += [
         kernel_entry(
             "fft_first_axis_fused[tiled]", "fft_fused.cu", f"{fused}:263",
             b6["launches"]["b2_tiled"], exact=tiled["tiled_exact"],
             max_abs_err=tiled["tiled_max_abs_err"], ms=tiled["tiled_ms"],
-            plain_ms=tiled["tiled_plain_ms"], ngrid=tiled["ngrid"],
+            plain_ms=tiled["tiled_plain_ms"], ngrid=n,
+            **bound(8 * n * (n + tiled["rows_out"]), 5 * n * math.log2(n) * n),
+            library_ms=library, library_call=probes["library_call"],
         ),
         kernel_entry(
             "degrid_planes", "degrid.cu",
             "ska_sdp_cip_tpu/ops/pallas_gridder.py:458",
             count("b3", "major_cycle"), paths("b3"),
-            max_abs_err=b3["bench"]["max_abs_err"], ms=b3["bench"]["ms"],
-            plain_ms=b3["bench"]["plain_ms"],
+            **{k: b3["bench"][k] for k in row_keys},
             production={k: production["b3"][k]
                         for k in ("group", "G", "active_blocks", *prod_keys)},
         ),
@@ -1409,7 +1701,10 @@ def kernels_line(b1, b2, b3, b6, probes, production, by_path) -> list:
             "pretile_first_axis", "pretile.cu", f"{fused}:310",
             b6["launches"]["b6"], exact=tiled["pretile_exact"],
             max_abs_err=tiled["pretile_max_abs_err"], ms=tiled["pretile_ms"],
-            plain_ms=tiled["pretile_plain_ms"], ngrid=tiled["ngrid"],
+            plain_ms=tiled["pretile_plain_ms"], ngrid=n,
+            **bound(2 * 8 * n * n),
+            library_ms=tiled["pretile_plain_ms"],
+            library_call="permute().contiguous() (the plain version)",
         ),
     ]
     for stages, case in p1["stages"].items():
@@ -1417,8 +1712,9 @@ def kernels_line(b1, b2, b3, b6, probes, production, by_path) -> list:
             f"fft_async_fetch[{stages}]", "fft_probes.cu",
             "scripts/fft_split_fetch_probe.py:71",
             probes["launches"][f"p1_S{stages}"],
-            exact=case["exact_vs_b2"], max_abs_err=case["max_abs_err"],
+            exact=case["exact_vs_dense"], max_abs_err=case["max_abs_err"],
             ms=case["ms"], plain_ms=p1["plain_ms"], ngrid=p1["ngrid"],
+            **bound(*work["full"]), library_ms=library,
         ))
     for variant, case in p2["variants"].items():
         entries.append(kernel_entry(
@@ -1428,6 +1724,8 @@ def kernels_line(b1, b2, b3, b6, probes, production, by_path) -> list:
             **({"exact": case["exact"]} if "exact" in case else {}),
             max_abs_err=case["max_abs_err"], ms=case["ms"],
             plain_ms=case["plain_ms"], ngrid=p2["ngrid"],
+            **bound(*work[variant]),
+            library_ms=library if variant == "full" else None,
         ))
     p3 = probes["p3"]
     entries.append(kernel_entry(
@@ -1436,6 +1734,7 @@ def kernels_line(b1, b2, b3, b6, probes, production, by_path) -> list:
         max_abs_err=p3["max_abs_err"],
         ms=p3["ms"], plain_ms=p3["plain_ms"], max_bytes=p3["max_bytes"],
         optin_attribute_bytes=p3["optin_attribute_bytes"],
+        **bound(p3["max_bytes"]), library_ms=None,
     ))
     return entries
 
@@ -1480,9 +1779,9 @@ def main() -> int:
     bench = bench_problem(device)
     b1 = phase_b1(device, bench)
     emit(b1)
-    b2 = phase_b2(device)
+    b2 = phase_b2(device, widths=(BENCH_NGRID, BENCH_NPIX, BENCH_NPIX - 2))
     b2["production"] = phase_b2(device, PROD_NGRID, PROD_NPIX,
-                                width=PROD_NGRID, iters=5)["cases"]
+                                iters=5)["cases"]
     emit(b2)
     b3 = phase_b3(device, bench)
     emit(b3)

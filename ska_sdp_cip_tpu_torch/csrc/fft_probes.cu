@@ -1,5 +1,7 @@
-// Probes of the fused first-axis pass (kernel B2), built from B2's own
-// helpers (this file includes csrc/fft_fused.cu).
+// Probes of the fused first-axis pass (kernel B2) in its first design:
+// two dense float32 complex products (csrc/fft_dense.cuh, the helpers
+// B2 was built from before csrc/fft_fused.cu became shared-memory FFT
+// stages). The probes keep measuring the design the TPU probes measured.
 //
 // Replaces two Pallas TPU probe kernels, as Hopper probes of the same
 // questions:
@@ -11,19 +13,19 @@
 //   S-deep ring of shared-memory buffers by cp.async (16-byte
 //   cp.async.cg for the input rows, 4-byte cp.async.ca for the
 //   transposed factor tile), S in {1, 2, 4}: chunk t + S - 1 is in
-//   flight while chunk t is multiplied. Stage 2 is B2's. The loaded
-//   values, the multiply-adds and their order are B2's, so the output
-//   equals B2's bit for bit.
+//   flight while chunk t is multiplied. Stage 2 is the dense pass's.
+//   The loaded values, the multiply-adds and their order are the dense
+//   pass's, so the output equals P2 `full` bit for bit.
 //
 // * P2, scripts/fft_ablation_probe.py (make_kernel :63): where does the
-//   pass's time go? Compile-time variants of the same kernel with later
-//   stages switched off:
+//   dense pass's time go? Compile-time variants of the same kernel with
+//   later stages switched off:
 //     load  stage 1's tiles loaded into shared memory and written
 //           straight back (row-tile 0 writes; the output is the input);
 //     s1    the stage-1 product only (no twiddle);
-//     s1tw  stage 1 + twiddle, i.e. z (B2's first launch);
-//     s2    stage 2 + crop on a given z (B2's second launch);
-//     full  both launches (= B2).
+//     s1tw  stage 1 + twiddle, i.e. z (the first launch);
+//     s2    stage 2 + crop on a given z (the second launch);
+//     full  both launches (the dense pass).
 //   The TPU probe's s1twtr variant (plus the in-VMEM transpose between
 //   the stages) has no counterpart: the two-launch design writes z to
 //   device memory and stage 2 reads it in its own layout.
@@ -32,8 +34,7 @@
 // has the split); `load` is bound by device-memory reads, the product
 // variants by float32 FMA issue.
 
-#define CIP_FFT_FUSED_NO_ENTRY
-#include "fft_fused.cu"
+#include "fft_dense.cuh"
 
 namespace {
 
@@ -200,8 +201,10 @@ enum Variant { kLoad = 0, kS1 = 1, kS1Tw = 2, kS2 = 3, kFull = 4 };
 }  // namespace
 
 // C entries (bound with ctypes by probes/fft_async_fetch.py and
-// probes/fft_ablation.py); arguments as cip_fft_first_axis_fused in
-// csrc/fft_fused.cu. Return the CUDA error code (0 = ok).
+// probes/fft_ablation.py): re/im, the dense factors m1/twc/tws/m2
+// (fused_pass_host_arrays), z scratch, out, then n1, n1i, n2, C, QB,
+// QS, trim0, size, m and the stream. Return the CUDA error code (0 =
+// ok).
 //
 // The pass with stage 1 through an S-deep cp.async ring (S = 1, 2, 4).
 // Needs m % 64 == 0 and 16-byte-aligned re/im.

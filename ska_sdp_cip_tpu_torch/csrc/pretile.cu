@@ -8,8 +8,8 @@
 // Output: (NC, m / MB, n1i, C, MB) with j2 = ci * C + cc and
 // col = bm * MB + mm:
 //   out[ci, bm, j1, cc, mm] = in[j1 * n2 + ci * C + cc, bm * MB + mm],
-// so every (n1i, C, MB) tile that one stage-1 block of the fused pass
-// reads (csrc/fft_fused.cu, Stage1Tiled) is one contiguous run.
+// so every (n1i, C, MB) tile of the fused pass's tiled input mode
+// (csrc/fft_fused.cu) is one contiguous run.
 //
 // What bounds it on Hopper: device-memory bandwidth. It moves every
 // byte twice (read + write, 3.8 GB for re and im at the 15360^2

@@ -10,7 +10,7 @@ first use, and loaded with ``ctypes``:
          -Xcompiler -fPIC -o build/torch_kernels/<stem>_<hash>.so csrc/<stem>.cu
 
 A library's name carries a hash of the flags, its source and the
-sources that includes (``fft_probes.cu`` includes ``fft_fused.cu``), so
+sources that includes (``fft_probes.cu`` includes ``fft_dense.cuh``), so
 an edited source never loads a stale build and rebuilds only the
 libraries made from it. The build directory is
 ``build/torch_kernels/`` beside the package. ``nvcc`` is taken from
@@ -139,13 +139,12 @@ def _declare(lib) -> None:
         c_int, c_i64, c_i64, ptr,
     ]
     lib.cip_degrid_planes.restype = c_int
-    lib.cip_fft_first_axis_fused.argtypes = [ptr] * 10 + [c_int] * 8 + [
-        c_i64, ptr,
+    b2 = [ptr] * 10 + [c_int] * 6 + [c_i64] + [c_int] * 4 + [c_i64] * 2 + [
+        c_int, c_int,
     ]
+    lib.cip_fft_first_axis_fused.argtypes = b2 + [c_i64, ptr]
     lib.cip_fft_first_axis_fused.restype = c_int
-    lib.cip_fft_first_axis_fused_tiled.argtypes = [ptr] * 10 + [c_int] * 9 + [
-        c_i64, ptr,
-    ]
+    lib.cip_fft_first_axis_fused_tiled.argtypes = b2 + [c_int, c_i64, ptr]
     lib.cip_fft_first_axis_fused_tiled.restype = c_int
     lib.cip_pretile_first_axis.argtypes = [ptr] * 4 + [c_int] * 4 + [
         c_i64, ptr,

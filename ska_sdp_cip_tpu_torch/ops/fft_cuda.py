@@ -6,13 +6,20 @@ their plain PyTorch versions.
 Counterpart: ``ska_sdp_cip_tpu/ops/fft_pallas.py`` —
 ``fused_pass_meta`` (copied with ``FusedPassMeta``),
 ``fused_pass_host_arrays`` (rewritten to emit float32 factors: the
-bf16 hi/lo split there fed the TPU's bf16 matrix unit, and the CUDA
-kernel multiplies in float32), ``fft_first_axis_fused`` (the Pallas
-kernel, replaced by :func:`fft_first_axis_fused`, with its ``tiled``
-input mode), ``pretile_first_axis`` (replaced by
+bf16 hi/lo split there fed the TPU's bf16 matrix unit; the dense
+probes P1/P2 multiply by them in float32), ``fft_first_axis_fused``
+(the Pallas kernel, replaced by :func:`fft_first_axis_fused`, with its
+``tiled`` input mode), ``pretile_first_axis`` (replaced by
 :func:`pretile_first_axis`) and ``fft2_from_image_fused`` (predict's
 forward 2-D transform). As in the counterpart, nothing on the invert
 or predict path uses the tiled mode: ``probes/fft_tiled.py`` measures it.
+
+The B2 kernel runs each four-step stage as a short FFT (radix passes
+of :func:`sub_fft_radices`, twiddles of :func:`sub_fft_twiddles`, on
+:func:`sub_fft_columns` columns a block) and multiplies by the twiddle
+``twc``/``tws`` between the stages; it reads the factors of
+:func:`fused_pass_kernel_arrays`. The dense probes P1/P2 read those of
+:func:`fused_pass_host_arrays`.
 
 A pass is out-cropped (invert: ``meta.size`` output rows of the image
 crop, factors ``fftp_*`` at sign +1) or in-cropped (predict: the input
@@ -33,7 +40,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .fft import FFTPlan, _zero_pad, fft_first_axis
+from .fft import FFTPlan, fft_first_axis
 
 #: Launches of the B2 kernel (one per :func:`fft_first_axis_fused` call
 #: on CUDA tensors): out-cropped passes (invert) in ``LAUNCHES``,
@@ -52,6 +59,19 @@ MB = 128
 
 #: Output-row-block budget of the counterpart's geometry (bytes).
 _OUT_BLOCK_BYTES = 6 * 1024 * 1024
+
+#: Shared memory one block may opt in to on Hopper (227 KiB), which
+#: holds a B2 stage's two buffers of n rows x C columns, re and im.
+SMEM_BYTES = 227 * 1024
+
+#: Longest sub-FFT (n1 or n2) the B2 kernel takes: two buffers of
+#: 2 x n x 4 float32 (its narrowest tile) within :data:`SMEM_BYTES`.
+MAX_SUB_FFT = SMEM_BYTES // (2 * 2 * 4 * 4)
+
+#: The factor tensors of one pass that each kernel reads
+#: (:func:`pass_factors`): the dense probes P1/P2, and B2.
+DENSE_FACTORS = ("m1", "twc", "tws", "m2")
+B2_FACTORS = ("twc", "tws", "fft1_tw", "fft2_tw")
 
 
 def _pick_chunk(n2: int) -> int:
@@ -179,10 +199,7 @@ def fused_pass_host_arrays(
     d1s = plan.d1_sin[:, meta.j1a : meta.j1a + meta.n1_in]
     m1 = np.block([[d1c, -s * d1s], [s * d1s, d1c]]).astype(np.float32)
 
-    twc = plan.tw_cos.reshape(n1, meta.nc, c)
-    tws = (s * plan.tw_sin).reshape(n1, meta.nc, c)
-    twc = np.ascontiguousarray(twc.transpose(1, 0, 2))[..., None]
-    tws = np.ascontiguousarray(tws.transpose(1, 0, 2))[..., None]
+    twc, tws = _pass_twiddle(plan, meta, sign)
 
     q = qb * qs
     d2c = np.zeros((n2, q), np.float32)
@@ -199,9 +216,97 @@ def fused_pass_host_arrays(
 
     return {
         f"{prefix}_m1": m1,
-        f"{prefix}_twc": twc.astype(np.float32),
-        f"{prefix}_tws": tws.astype(np.float32),
+        f"{prefix}_twc": twc,
+        f"{prefix}_tws": tws,
         f"{prefix}_m2": m2,
+        f"{prefix}_sign": int(sign),
+    }
+
+
+def _pass_twiddle(plan: FFTPlan, meta: FusedPassMeta, sign: int) -> tuple:
+    """The twiddle between a pass's stages as float32 (NC, n1, C, 1)
+    tables: cos, and sin with ``sign`` folded in."""
+    n1, nc, c = meta.n1, meta.nc, meta.c
+    twc = plan.tw_cos.reshape(n1, nc, c)
+    tws = (float(sign) * plan.tw_sin).reshape(n1, nc, c)
+    return tuple(np.ascontiguousarray(t.transpose(1, 0, 2))[..., None]
+                 .astype(np.float32) for t in (twc, tws))
+
+
+def sub_fft_radices(n: int) -> tuple:
+    """
+    The radix passes of B2's length-``n`` sub-FFT (n1 or n2), in order:
+    eights, then a four or a two, then threes, fives and sevens
+    (120 -> 8, 3, 5; 128 -> 8, 8, 2). Raises unless ``n`` is 7-smooth
+    and 2 <= n <= :data:`MAX_SUB_FFT`.
+    """
+    if not 2 <= n <= MAX_SUB_FFT:
+        raise ValueError(f"B2 takes sub-FFT lengths 2..{MAX_SUB_FFT} "
+                         f"(a grid's near-square factors), got {n}")
+    radices, rest = [], n
+    while rest % 8 == 0:
+        radices.append(8)
+        rest //= 8
+    for r in (4, 2):
+        if rest % r == 0:
+            radices.append(r)
+            rest //= r
+    for r in (3, 5, 7):
+        while rest % r == 0:
+            radices.append(r)
+            rest //= r
+    if rest != 1:
+        raise ValueError(f"B2 takes 7-smooth sub-FFT lengths, got {n}")
+    return tuple(radices)
+
+
+def sub_fft_columns(n: int) -> int:
+    """
+    Columns per block of B2's stage whose sub-FFT has length ``n``: the
+    widest of 32, 16, 8 and 4 whose two shared buffers (2 x n x C
+    float32 each) fit :data:`SMEM_BYTES`; 32 for every n <= 454.
+    """
+    for cols in (32, 16, 8, 4):
+        if 2 * 2 * n * cols * 4 <= SMEM_BYTES:
+            return cols
+    raise ValueError(f"B2 takes sub-FFT lengths up to {MAX_SUB_FFT}, "
+                     f"got {n}")
+
+
+def sub_fft_twiddles(n: int, sign: int) -> np.ndarray:
+    """
+    The Stockham twiddles of B2's length-``n`` sub-FFT as an (n - 1, 2)
+    float32 (cos, sin) table: pass p (radix R, ns the product of the
+    earlier radices) multiplies input t of butterfly k (mod ns) by
+    exp(i sign 2 pi t k / (ns R)), stored at row ns - 1 + k (R - 1) +
+    t - 1. Computed in float64 and rounded once.
+    """
+    rows, ns = [], 1
+    for r in sub_fft_radices(n):
+        k = np.arange(ns)[:, None]
+        t = np.arange(1, r)[None, :]
+        angle = sign * 2.0 * np.pi * (k * t) / (ns * r)
+        rows.append(np.stack([np.cos(angle), np.sin(angle)], -1)
+                    .reshape(-1, 2))
+        ns *= r
+    return np.concatenate(rows).astype(np.float32)
+
+
+def fused_pass_kernel_arrays(plan: FFTPlan, meta: FusedPassMeta, *,
+                             sign: int, prefix: str) -> dict:
+    """
+    The factors the B2 kernel reads for one pass at ``sign``
+    (:data:`B2_FACTORS`): the twiddle ``{prefix}_twc``/``_tws`` (as
+    :func:`fused_pass_host_arrays` lays it out), the sub-FFT twiddles
+    ``{prefix}_fft1_tw`` (n1 - 1, 2) and ``{prefix}_fft2_tw``
+    (n2 - 1, 2), and ``{prefix}_sign``.
+    """
+    twc, tws = _pass_twiddle(plan, meta, sign)
+    return {
+        f"{prefix}_twc": twc,
+        f"{prefix}_tws": tws,
+        f"{prefix}_fft1_tw": sub_fft_twiddles(meta.n1, sign),
+        f"{prefix}_fft2_tw": sub_fft_twiddles(meta.n2, sign),
         f"{prefix}_sign": int(sign),
     }
 
@@ -319,7 +424,7 @@ def fft_first_axis_fused(re, im, f, *, meta: FusedPassMeta, sign: int,
     rows cropped to ``meta.size`` output rows, or (in-cropped)
     ``meta.in_size`` rows of a zero-padded input to ``n`` output rows.
     On CUDA tensors this launches the B2 kernel with the factors
-    ``{prefix}_*`` of :func:`fused_pass_host_arrays`, and raises unless
+    ``{prefix}_*`` of :func:`fused_pass_kernel_arrays`, and raises unless
     they were built for ``sign``; on CPU tensors it runs
     :func:`fft_first_axis_reference` on the plan factors ``fft_*`` of
     the same dict.
@@ -370,12 +475,13 @@ def fft2_from_image_fused(f, img_re, img_im, *, meta: FusedPassMeta,
 
 
 def pass_factors(f, meta: FusedPassMeta, *, sign: int, prefix: str,
-                 device) -> dict:
+                 device, names: tuple) -> dict:
     """
-    The ``{prefix}_*`` factor tensors of one pass (``m1``, ``twc``,
-    ``tws``, ``m2``) as the kernels read them: float32 on ``device`` in
-    the shapes of :func:`fused_pass_host_arrays`, built for ``sign``
-    (raises otherwise).
+    The ``{prefix}_*`` factor tensors ``names`` of one pass
+    (:data:`DENSE_FACTORS` for the dense probes, :data:`B2_FACTORS` for
+    B2) as the kernels read them: float32 on ``device`` in the shapes of
+    :func:`fused_pass_host_arrays` and :func:`fused_pass_kernel_arrays`,
+    built for ``sign`` (raises otherwise).
     """
     if f.get(f"{prefix}_sign") != sign:
         raise ValueError(
@@ -388,9 +494,12 @@ def pass_factors(f, meta: FusedPassMeta, *, sign: int, prefix: str,
         "twc": (meta.nc, n1, meta.c, 1),
         "tws": (meta.nc, n1, meta.c, 1),
         "m2": (meta.qb, meta.nc, 2 * meta.qs, 2 * meta.c),
+        "fft1_tw": (n1 - 1, 2),
+        "fft2_tw": (meta.n2 - 1, 2),
     }
     tensors = {}
-    for name, shape in shapes.items():
+    for name in names:
+        shape = shapes[name]
         t = f[f"{prefix}_{name}"]
         if t.device != device or t.dtype != torch.float32:
             raise TypeError(f"{prefix}_{name} must be float32 on {device}")
@@ -404,8 +513,9 @@ def pass_factors(f, meta: FusedPassMeta, *, sign: int, prefix: str,
 
 def pass_args(re, im, factors: dict, z_re, z_im, out_re, out_im,
               meta: FusedPassMeta) -> list:
-    """The leading arguments of the pass's C entries (csrc/fft_fused.cu):
-    pointers, then n1, n1i, n2, C, QB, QS, trim0, size."""
+    """The leading arguments of the dense probes' C entries
+    (csrc/fft_probes.cu): pointers, then n1, n1i, n2, C, QB, QS, trim0,
+    size."""
     return [
         re.data_ptr(), im.data_ptr(), factors["m1"].data_ptr(),
         factors["twc"].data_ptr(), factors["tws"].data_ptr(),
@@ -416,13 +526,20 @@ def pass_args(re, im, factors: dict, z_re, z_im, out_re, out_im,
     ]
 
 
+def _packed_radices(n: int) -> int:
+    """:func:`sub_fft_radices` packed 4 bits each, first in the low bits."""
+    return sum(r << (4 * i) for i, r in enumerate(sub_fft_radices(n)))
+
+
 def _fft_first_axis_cuda(re, im, f, *, meta, sign, prefix, tiled):
     global LAUNCHES, IN_CROP_LAUNCHES, TILED_LAUNCHES
     from . import _build
 
     factors = pass_factors(f, meta, sign=sign, prefix=prefix,
-                           device=re.device)
+                           device=re.device, names=B2_FACTORS)
     n1, n2, n1i = meta.n1, meta.n2, meta.n1_in
+    radices = (_packed_radices(n1), _packed_radices(n2))
+    cols = (sub_fft_columns(n1), sub_fft_columns(n2))
     for name, t in (("re", re), ("im", im)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be a float32 tensor")
@@ -432,8 +549,12 @@ def _fft_first_axis_cuda(re, im, f, *, meta, sign, prefix, tiled):
             raise ValueError(f"the tiled kernel takes MB = {MB}, "
                              f"not {meta.mb}")
         m = re.shape[1] * meta.mb
+        pad_lo, rows = 0, n1i * n2
     else:
+        # The kernel reads the in-cropped rows in place and zero-fills
+        # the rest of the covering j1 window (stage-1 pruning).
         rows = meta.in_size or n1i * n2
+        pad_lo = meta.pad_lo if meta.in_size else 0
         for name, t in (("re", re), ("im", im)):
             if t.dim() != 2:
                 raise TypeError(f"{name} must be a 2-D float32 tensor")
@@ -441,11 +562,6 @@ def _fft_first_axis_cuda(re, im, f, *, meta, sign, prefix, tiled):
                 raise ValueError(f"{name} has {t.shape[0]} rows, want {rows}")
         if re.shape != im.shape:
             raise ValueError("re and im shapes differ")
-        if rows != n1i * n2:
-            # Zero-pad the cropped rows into the covering j1 window, as
-            # the counterpart does before its kernel (stage-1 pruning).
-            re = _zero_pad(re, 0, n1i * n2, meta.pad_lo)
-            im = _zero_pad(im, 0, n1i * n2, meta.pad_lo)
         m = re.shape[1]
     z_re = torch.empty((n1 * n2, m), dtype=torch.float32, device=re.device)
     z_im = torch.empty_like(z_re)
@@ -454,7 +570,15 @@ def _fft_first_axis_cuda(re, im, f, *, meta, sign, prefix, tiled):
     )
     out_im = torch.empty_like(out_re)
     lib = _build.load_library()
-    args = pass_args(re, im, factors, z_re, z_im, out_re, out_im, meta)
+    args = [
+        re.data_ptr(), im.data_ptr(), factors["twc"].data_ptr(),
+        factors["tws"].data_ptr(), factors["fft1_tw"].data_ptr(),
+        factors["fft2_tw"].data_ptr(), z_re.data_ptr(), z_im.data_ptr(),
+        out_re.data_ptr(), out_im.data_ptr(), int(n1), int(n2),
+        int(meta.c), int(meta.j1a), int(n1i), int(pad_lo), int(rows),
+        int(meta.k2a), int(meta.trim0), int(meta.size), int(sign),
+        *radices, *cols,
+    ]
     stream = torch.cuda.current_stream(re.device).cuda_stream
     if tiled:
         err = lib.cip_fft_first_axis_fused_tiled(*args, int(meta.mb), int(m),

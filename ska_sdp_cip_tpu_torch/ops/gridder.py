@@ -44,7 +44,7 @@ from .fft import fft_plan_arrays, make_fft_plan
 from .fft_cuda import (
     fft2_from_image_fused,
     fft_first_axis_fused,
-    fused_pass_host_arrays,
+    fused_pass_kernel_arrays,
     fused_pass_meta,
 )
 from .kernels import correction
@@ -184,13 +184,13 @@ def plan_host_arrays(plan: GridderPlan, device, *, invert: bool = True,
     if resolve_device(device).type == "cuda":
         if invert:
             arrays.update(
-                fused_pass_host_arrays(
+                fused_pass_kernel_arrays(
                     fft_plan, _fused_fft_meta(plan), sign=+1, prefix="fftp"
                 )
             )
         if predict:
             arrays.update(
-                fused_pass_host_arrays(
+                fused_pass_kernel_arrays(
                     fft_plan, _fused_fft_meta_ic(plan), sign=-1,
                     prefix="fftq",
                 )

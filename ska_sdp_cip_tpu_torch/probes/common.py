@@ -18,6 +18,7 @@ from ..ops.fft import fft_plan_arrays, make_fft_plan
 from ..ops.fft_cuda import (
     FusedPassMeta,
     fused_pass_host_arrays,
+    fused_pass_kernel_arrays,
     fused_pass_meta,
 )
 from ..ops.gridder import resolve_device, stage_arrays
@@ -55,9 +56,9 @@ class PassSetup:
 def out_crop_pass(ngrid: int, device, *, m: int | None = None) -> PassSetup:
     """
     The probed pass at ``ngrid`` on ``device``: factors ``fft_*`` (the
-    plain version's) and ``fftp_*`` (the kernels'), and standard-normal
-    (ngrid, m) float32 re/im made on the device from seed 1 (``m``
-    defaults to ngrid).
+    plain version's) and ``fftp_*`` (the dense probes' and B2's), and
+    standard-normal (ngrid, m) float32 re/im made on the device from
+    seed 1 (``m`` defaults to ngrid).
     """
     device = resolve_device(device)
     npix = crop_rows(ngrid)
@@ -65,6 +66,7 @@ def out_crop_pass(ngrid: int, device, *, m: int | None = None) -> PassSetup:
     meta = fused_pass_meta(plan, ((ngrid - npix) // 2, npix))
     host = fft_plan_arrays(plan, prefix="fft")
     host.update(fused_pass_host_arrays(plan, meta, sign=+1, prefix="fftp"))
+    host.update(fused_pass_kernel_arrays(plan, meta, sign=+1, prefix="fftp"))
     f = stage_arrays(host, device)
     gen = torch.Generator(device=device).manual_seed(1)
     shape = (ngrid, ngrid if m is None else m)

@@ -5,16 +5,18 @@ Stage ablation of the fused first-axis pass (P2; counterpart
 
     python -m ska_sdp_cip_tpu_torch.probes.fft_ablation [ngrid]
 
-B2 with later stages switched off, as compile-time variants of the
-same kernel (``csrc/fft_probes.cu``), each held against its plain piece:
+B2's first design (two dense complex products, ``csrc/fft_dense.cuh``)
+with later stages switched off, as compile-time variants of the same
+kernel (``csrc/fft_probes.cu``), each held against its plain piece:
 
 * ``load``: stage 1's tiles loaded into shared memory and written
   straight back; it must equal its input exactly;
 * ``s1``: the stage-1 product only, against a torch einsum of ``m1``
   with the input viewed (n1i, n2, m);
-* ``s1tw``: stage 1 plus twiddle, i.e. ``z`` (B2's first launch);
-* ``s2``: stage 2 + crop on a given ``z`` (B2's second launch);
-* ``full``: both launches, which must equal B2 exactly.
+* ``s1tw``: stage 1 plus twiddle, i.e. ``z`` (the first launch);
+* ``s2``: stage 2 + crop on a given ``z`` (the second launch);
+* ``full``: both launches, the dense pass, timed beside B2 (its
+  shared-memory FFT redesign) on the same input.
 
 The counterpart's ``s1twtr`` (plus the inter-stage transpose in VMEM)
 has no counterpart here: the two-launch design writes ``z`` to device
@@ -29,6 +31,7 @@ import torch
 
 from ..ops import _build
 from ..ops.fft_cuda import (
+    DENSE_FACTORS,
     fft_first_axis_fused,
     fft_first_axis_reference,
     pass_args,
@@ -90,7 +93,8 @@ def ablation_reference(variant: str, xr, xi, f, *, meta):
     ``fused_pass_host_arrays``)."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}")
-    fac = pass_factors(f, meta, sign=+1, prefix="fftp", device=xr.device)
+    fac = pass_factors(f, meta, sign=+1, prefix="fftp", device=xr.device,
+                       names=DENSE_FACTORS)
     if variant == "load":
         return xr.clone(), xi.clone()
     if variant == "s2":
@@ -118,7 +122,8 @@ def ablation(variant: str, xr, xi, f, *, meta):
         raise ValueError(f"unsupported device {xr.device}")
     if xr.dtype != torch.float32 or xi.dtype != torch.float32:
         raise TypeError("re/im must be float32")
-    fac = pass_factors(f, meta, sign=+1, prefix="fftp", device=xr.device)
+    fac = pass_factors(f, meta, sign=+1, prefix="fftp", device=xr.device,
+                       names=DENSE_FACTORS)
     xr, xi = xr.contiguous(), xi.contiguous()
     m = xr.shape[1]
     out_re = torch.empty((_rows_out(variant, meta), m), dtype=torch.float32,
@@ -174,8 +179,8 @@ def run(ngrid: int = common.PRODUCTION_NGRID, *, device="cuda",
             case["exact"] = common.all_equal(got, x)
             ok = case["exact"]
         elif variant == "full":
-            case["exact_vs_b2"] = common.all_equal(got, b2)
-            ok = case["exact_vs_b2"] and rel <= common.KERNEL_RTOL
+            case["max_rel_err_vs_b2"] = common.max_err(got, b2)[1]
+            ok = rel <= common.KERNEL_RTOL
         else:
             ok = rel <= common.KERNEL_RTOL
         del got

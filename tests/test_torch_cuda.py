@@ -9,8 +9,9 @@ imports jax, which such a machine need not have).
 Tolerances: 1e-5 of the reference's max between a float32 kernel and
 its float32 plain version (summation order differs; the gridding
 kernel adds with atomics), 1e-4 against the explicit DFT; exact where
-a kernel only moves data (B6, P2's ``load``) or sums B2's values in
-B2's order (tiled B2, P1, P2's ``full``).
+a kernel only moves data (B6, P2's ``load``) or sums another kernel's
+values in its order (tiled B2 as row-major B2, P1 as the dense pass
+P2 ``full``).
 """
 
 import numpy as np
@@ -100,15 +101,21 @@ def test_degrid_kernel_matches_plain(cuda, wstack):
         assert float((got - ref).abs().max() / scale) <= 1e-5
 
 
+#: B2's in-cropped cases: m = 102 and 98 are not multiples of 4 (the
+#: kernel's 4-byte staging); 156250 = 250 x 625 runs a 16-column stage.
 @pytest.mark.parametrize("n,in_crop,m", [(96, (24, 48), 128),
                                          (96, (30, 40), 96),
-                                         (512, (128, 256), 384)])
+                                         (512, (128, 256), 384),
+                                         (768, (100, 300), 256),
+                                         (840, (210, 420), 200),
+                                         (192, (40, 100), 102),
+                                         (156250, (39062, 78126), 98)])
 def test_in_crop_fft_kernel_matches_plain(cuda, n, in_crop, m):
     plan = make_fft_plan(n, shifted=True)
     meta = tfc.fused_pass_meta(plan, None, in_crop=in_crop)
     host = fft_plan_arrays(plan, prefix="fft")
-    host.update(tfc.fused_pass_host_arrays(plan, meta, sign=-1,
-                                           prefix="fftq"))
+    host.update(tfc.fused_pass_kernel_arrays(plan, meta, sign=-1,
+                                             prefix="fftq"))
     f = tg.stage_arrays(host, cuda)
     rng = np.random.default_rng(n + m)
     size = in_crop[1]
@@ -142,14 +149,22 @@ def test_predict_on_card_matches_dft(cuda, wstack):
     assert np.abs(got - ref).max() / np.abs(ref).max() <= 1e-4
 
 
+#: B2's out-cropped cases: m = 98 and 102 are not multiples of 4;
+#: 156250 = 250 x 625 runs a 16-column stage 2, 1647086 = 686 x 2401
+#: a 4-column one.
 @pytest.mark.parametrize("n,crop,m", [(96, (24, 48), 128), (256, None, 200),
-                                      (512, (128, 256), 384)])
+                                      (512, (128, 256), 384),
+                                      (768, (192, 384), 256),
+                                      (840, (210, 420), 200),
+                                      (768, (192, 384), 98),
+                                      (156250, (39062, 78126), 102),
+                                      (1647086, (411771, 823543), 4)])
 def test_fft_kernel_matches_plain(cuda, n, crop, m):
     plan = make_fft_plan(n, shifted=True)
     meta = tfc.fused_pass_meta(plan, crop)
     host = fft_plan_arrays(plan, prefix="fft")
-    host.update(tfc.fused_pass_host_arrays(plan, meta, sign=+1,
-                                           prefix="fftp"))
+    host.update(tfc.fused_pass_kernel_arrays(plan, meta, sign=+1,
+                                             prefix="fftp"))
     f = tg.stage_arrays(host, cuda)
     rng = np.random.default_rng(n)
     re = torch.from_numpy(rng.normal(size=(n, m)).astype(np.float32)).to(cuda)
@@ -203,6 +218,8 @@ def _pass(cuda, n, m, *, in_crop=None, seed=0):
         sign, prefix, rows = -1, "fftq", meta.in_size
     host.update(tfc.fused_pass_host_arrays(plan, meta, sign=sign,
                                            prefix=prefix))
+    host.update(tfc.fused_pass_kernel_arrays(plan, meta, sign=sign,
+                                             prefix=prefix))
     f = tg.stage_arrays(host, cuda)
     gen = torch.Generator(device=cuda).manual_seed(seed)
     re = torch.randn((rows, m), generator=gen, device=cuda)
@@ -252,6 +269,23 @@ def test_tiled_pass_equals_untiled_kernel(cuda, n, m, in_crop):
 
 
 @pytest.mark.parametrize("in_crop", [None, (240, 480)], ids=["out", "in"])
+def test_scalar_staging_equals_vector_staging(cuda, in_crop):
+    """B2 at m = 98 (4-byte copies) equals, bit for bit and twice over,
+    the first 98 columns of the same pass at m = 128 (16-byte copies):
+    a column's arithmetic does not depend on how it was staged."""
+    meta, f, sign, prefix, re, im = _pass(cuda, 960, 128, in_crop=in_crop)
+    wide = tfc.fft_first_axis_fused(re, im, f, meta=meta, sign=sign,
+                                    prefix=prefix)
+    narrow = [tfc.fft_first_axis_fused(re[:, :98].contiguous(),
+                                       im[:, :98].contiguous(), f, meta=meta,
+                                       sign=sign, prefix=prefix)
+              for _ in range(2)]
+    for got in narrow:
+        for g, w in zip(got, wide):
+            assert torch.equal(g, w[:, :98])
+
+
+@pytest.mark.parametrize("in_crop", [None, (240, 480)], ids=["out", "in"])
 def test_fft_kernel_ragged_n1_matches_plain(cuda, in_crop):
     """B2 at n = 960 (n1 = 30: not a multiple of the kernel's 16-deep
     chunk or 64-row tile), m = 1024."""
@@ -265,10 +299,13 @@ def test_fft_kernel_ragged_n1_matches_plain(cuda, in_crop):
 
 @pytest.mark.parametrize("n", [512, 960])
 def test_async_fetch_probe_equals_b2(cuda, n):
+    """P1 equals the dense pass it probes (B2's first design, P2
+    ``full``) bit for bit."""
+    from ska_sdp_cip_tpu_torch.probes import fft_ablation as p2
     from ska_sdp_cip_tpu_torch.probes import fft_async_fetch as p1
 
     meta, f, _, _, re, im = _pass(cuda, n, 1024)
-    base = tfc.fft_first_axis_fused(re, im, f, meta=meta, sign=+1)
+    base = p2.ablation("full", re, im, f, meta=meta)
     ref = tfc.fft_first_axis_reference(re, im, f, meta=meta, sign=+1)
     for stages in p1.STAGES:
         before = p1.LAUNCHES[stages]
@@ -296,8 +333,8 @@ def test_ablation_variants_match_plain(cuda, n):
             assert all(torch.equal(g, r) for g, r in zip(got, x))
         _rel_close(got, p2.ablation_reference(variant, *x, f, meta=meta))
     full = p2.ablation("full", re, im, f, meta=meta)
-    base = tfc.fft_first_axis_fused(re, im, f, meta=meta, sign=+1)
-    assert all(torch.equal(g, b) for g, b in zip(full, base))
+    _rel_close(full, tfc.fft_first_axis_fused(re, im, f, meta=meta,
+                                              sign=+1))
 
 
 @pytest.mark.parametrize("probe", ["fft_tiled", "fft_async_fetch",

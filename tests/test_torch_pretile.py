@@ -171,7 +171,7 @@ def test_probe_wrappers_refuse_bad_arguments():
     with pytest.raises(ValueError, match="stages"):
         p1.async_fetch_pass(s.re, s.im, s.f, meta=s.meta, stages=3)
     got = p1.async_fetch_pass(s.re, s.im, s.f, meta=s.meta, stages=2)
-    ref = tfc.fft_first_axis_reference(s.re, s.im, s.f, meta=s.meta, sign=1)
+    ref = p2.ablation_reference("full", s.re, s.im, s.f, meta=s.meta)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert common.crop_rows(15360) == 10240 == common.crop_rows(20480)
     assert common.crop_rows(4096) == 2048
@@ -204,6 +204,6 @@ def test_probe_modules_run_on_cpu_without_jax():
     assert tiled["pretile_exact"] and tiled["tiled_exact"]
     assert tiled["pretile_max_abs_err"] == 0.0
     assert tiled["tiled_ms"] == "not measured"
-    assert all(c["exact_vs_b2"] for c in fetch["stages"].values())
+    assert all(c["exact_vs_dense"] for c in fetch["stages"].values())
     assert set(ablation["variants"]) == set(p2.VARIANTS)
     assert "CUDA card" in smem_err
