@@ -10,11 +10,18 @@ Builds the CUDA kernels from ``ska_sdp_cip_tpu_torch/csrc`` with nvcc
 then runs these phases and prints one JSON object per phase:
 
 1. ``device``: card name, ``nvidia-smi`` name and power limit, build time;
-2. ``b1``: the gridding kernel against its plain version, on small
-   plans (G = 1 and G = 2) and on one bench-size plane group (G = 2);
-   then the whole bench-size image of the noise-like bench visibilities
-   against a float64 DFT at 256 random pixels (``bench_dft``, gated at
-   the 1e-4 contract);
+2. ``b1``: the gridding kernel (B1, which folds onto the periodic grid
+   itself) against its folded plain version, on every plane group of
+   the small plans (:func:`small_plans`: every tile an edge tile,
+   footprints across the periodic edge beside interior tiles, split
+   hot tiles; G = 1 and 2) and on the bench plan's largest plane group,
+   with w-stacking (G = 2) and without it (G = 1, B4), each with its
+   time, the zeroing of its planes (``zero_ms``), the time of the fold
+   that left the path (``fold_ms``) and a bound that does not depend on
+   the design (:func:`gridding_work`), the G = 2 group also at 2 to 32
+   blocks a chunk (``chunk_sweep_ms``); then the whole bench-size image
+   of the noise-like bench visibilities against a float64 DFT at 256
+   random pixels (``bench_dft``, gated at the 1e-4 contract);
 3. ``b2``: the fused first-axis DFT kernel against its plain version at
    the bench transform: out-cropped (invert: 4096 rows -> 2048-row
    crop) and in-cropped at sign -1 (predict: 2048 image rows -> 4096),
@@ -26,13 +33,16 @@ then runs these phases and prints one JSON object per phase:
    complex64 input (``library_ms``) and the first design of B2, the
    dense pass P2 ``full`` (out-cropped), and gives the bound and the
    achieved GB/s;
-4. ``b3``: the degridding kernel against its plain version, on small
-   plans (G = 1 without w-stacking, G = 2) and on one bench-size plane
-   group;
+4. ``b3``: the degridding kernel (B3, reading the periodic grid)
+   against its folded plain version on random planes, on the same
+   plans and groups as ``b1`` (G = 1 at bench size: B5), with the
+   unfold that left the path as ``fold_ms`` and the same chunk sweep;
 5. ``e2e_small``: ``dirty_image`` on the card against the explicit DFT
-   (``dirty_image_dft``) on a 256 px check plan;
+   (``dirty_image_dft``) on a 256 px check plan, without w-stacking
+   (through B4) and with it (B1), with the launch counts of each;
 6. ``predict``: ``predict_visibilities`` on the card against
-   ``predict_dft`` on a 256 px check plan; at bench size the adjoint
+   ``predict_dft`` on a 256 px check plan (through B5, then B3, with
+   launch counts); at bench size the adjoint
    identity <invert(v), I> = Re <v, predict(I)> (float64 dot products
    on the host), the median wall of 3 calls and the kernels' launch
    counts;
@@ -64,8 +74,9 @@ then runs these phases and prints one JSON object per phase:
     (float64 DFT at 256 pixels, B1 against its plain version on the
     largest plane group, median wall of 3 calls, breakdown, launch
     counts, profile), ``predict_visibilities`` (the adjoint identity,
-    with a witness that replaces B2 by its plain version and by the
-    exact transform, and for the dirty image as I; five point sources
+    with a witness on three noise images that replaces B2 by its plain
+    version and by the exact transform and swaps predict's pass order,
+    and for the dirty image as I; five point sources
     against a float64 DFT at 4096 visibilities, B3
     against its plain version on the largest plane group, median wall,
     breakdown) and the major cycle on the Clark minor
@@ -202,23 +213,38 @@ def b2_replaced(pass_fn):
     of the operators'."""
     from ska_sdp_cip_tpu_torch.ops import fft_cuda, gridder
 
+    def run(re, im, f, *, out=None, **kw):
+        got = pass_fn(re, im, f, **kw)
+        if out is None:
+            return got
+        for dst, src in zip(out, got):  # predict's pass into its stack
+            dst.copy_(src)
+        return out
+
     saved = gridder.fft_first_axis_fused, fft_cuda.fft_first_axis_fused
-    gridder.fft_first_axis_fused = fft_cuda.fft_first_axis_fused = pass_fn
+    gridder.fft_first_axis_fused = fft_cuda.fft_first_axis_fused = run
     try:
         yield
     finally:
         gridder.fft_first_axis_fused, fft_cuda.fft_first_axis_fused = saved
 
 
-def gridding_work(plan, G: int, active: int, *, degrid: bool) -> tuple:
-    """Bytes and flops of one B1 (``degrid=False``) or B3 launch over
-    ``active`` blocks: every slot's three packed floats, its visibility
-    (B1) or accumulator read and written (B3), and each block's 2G
-    patch_x x patch_y float32 patches written (B1) or windows read (B3);
-    two FMAs (re, im) per footprint cell and plane."""
-    slots = active * plan.block
-    patches = active * 2 * G * plan.patch_x * plan.patch_y * 4
-    nbytes = slots * (12 + (16 if degrid else 8)) + patches
+def gridding_work(plan, ids, G: int, *, degrid: bool) -> tuple:
+    """Bytes and flops of one B1 (``degrid=False``) or B3 launch over the
+    active blocks ``ids``, whatever the kernel's design: each slot's three
+    packed floats and visibility (B1) or accumulator, read and written
+    (B3), once; for B1 the 2G periodic N x N planes the caller receives,
+    written once (the patches land in them, so they add no bytes); for
+    B3 each distinct tile's 2G patch_x x patch_y float32 window, read
+    once. Two FMAs (re, im) per footprint cell and plane."""
+    slots = int(plan.block_len[ids].sum())
+    if degrid:
+        tiles = len(np.unique(plan.block_ox[ids].astype(np.int64)
+                              * plan.nalloc_y + plan.block_oy[ids]))
+        nbytes = slots * (12 + 16) + tiles * 2 * G * plan.patch_x \
+            * plan.patch_y * 4
+    else:
+        nbytes = slots * (12 + 8) + 2 * G * plan.ngrid ** 2 * 4
     return nbytes, 4.0 * slots * G * plan.support ** 2
 
 
@@ -297,45 +323,99 @@ def group_args(plan, arrays, re_s, im_s, k):
     )
 
 
-def compare_group(plan, args, *, time_it: bool, iters: int = 3) -> dict:
-    """B1 kernel vs plain version on one plane group, plane by plane."""
+def group_chunks(plan, arrays, k, chunk_blocks=None):
+    """Plane group ``k``'s B1/B3 chunk table on the arrays' device: the
+    staged one, or one cut at ``chunk_blocks`` blocks a chunk."""
+    import torch
+
+    from ska_sdp_cip_tpu_torch.ops.gridder import (
+        group_active_blocks,
+        group_tile_chunks,
+        tile_chunks,
+    )
+
+    if chunk_blocks is None:
+        count = len(group_tile_chunks(plan)[k])
+        return arrays["group_chunks"][k, :count]
+    table = tile_chunks(plan, group_active_blocks(plan)[k], chunk_blocks)
+    return torch.from_numpy(table).to(arrays["packed"].device)
+
+
+#: Blocks a chunk at which the b1 and b3 phases time the bench group:
+#: the measurement behind ``ops/gridder.py:CHUNK_BLOCKS``.
+CHUNK_SWEEP = (2, 4, 8, 16, 32)
+
+
+def chunk_sweep(plan, arrays, k, launch) -> dict:
+    """``launch(chunks)``'s time on plane group ``k`` with its tile runs
+    cut at each of :data:`CHUNK_SWEEP` blocks a chunk (on the card)."""
+    if arrays["packed"].device.type != "cuda":
+        return {}
+    from ska_sdp_cip_tpu_torch.probes.common import cuda_ms
+
+    out = {}
+    for blocks in CHUNK_SWEEP:
+        chunks = group_chunks(plan, arrays, k, blocks)
+        out[str(blocks)] = cuda_ms(lambda: launch(chunks), iters=3)
+    return out
+
+
+def compare_group(plan, args, chunks, *, time_it: bool,
+                  iters: int = 3) -> dict:
+    """B1 kernel vs its folded plain version on one plane group, plane by
+    plane; timed, also the zeroing of the planes the kernel receives
+    (``zero_ms``) and the fold that left the path (``fold_ms``: the
+    2G planes of the plain version's alloc frame)."""
+    import torch
+
     from ska_sdp_cip_tpu_torch.ops import cuda_gridder as cg
     from ska_sdp_cip_tpu_torch.probes.common import cuda_ms
 
-    got = cg.grid_planes(*args, plan=plan)
-    ref = cg.grid_planes_reference(*args, plan=plan)
+    got = cg.grid_planes(*args, plan=plan, chunks=chunks)
+    ref = cg.grid_planes_folded_reference(*args, plan=plan)
     worst_rel, worst_abs = 0.0, 0.0
     for p in range(ref.shape[0]):
         err, rel = rel_err(got[p], ref[p])
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-    G, active = int(args[6].shape[0]), int(args[7].shape[0])
+    del got, ref
+    G, ids = int(args[6].shape[0]), args[7].cpu().numpy()
     out = {
         "G": G,
-        "active_blocks": active,
+        "active_blocks": len(ids),
+        "chunks": int(chunks.shape[0]),
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
-        **bound(*gridding_work(plan, G, active, degrid=False)),
+        **bound(*gridding_work(plan, ids, G, degrid=False)),
         "library_ms": None,
     }
     if time_it and args[0].device.type == "cuda":
-        out["ms"] = cuda_ms(lambda: cg.grid_planes(*args, plan=plan),
-                            iters=iters)
+        out["ms"] = cuda_ms(
+            lambda: cg.grid_planes(*args, plan=plan, chunks=chunks),
+            iters=iters)
+        shape = (2 * G, plan.ngrid, plan.ngrid)
+        out["zero_ms"] = cuda_ms(
+            lambda: torch.zeros(shape, device=args[0].device), iters=iters)
         out["plain_ms"] = cuda_ms(
-            lambda: cg.grid_planes_reference(*args, plan=plan), iters=iters
-        )
+            lambda: cg.grid_planes_folded_reference(*args, plan=plan),
+            iters=iters)
+        alloc = cg.grid_planes_reference(*args, plan=plan)
+        out["fold_ms"] = cuda_ms(
+            lambda: [cg._fold_wraps(plan, a) for a in alloc], iters=iters)
+        del alloc
     if not worst_rel <= KERNEL_RTOL:
         raise PhaseError(f"B1 vs plain {worst_rel:.3e} > {KERNEL_RTOL}")
     return out
 
 
-def small_visibilities():
-    """The small check problem of the b1/b3 phases: uvw, freqs, vis, wgt."""
+def small_visibilities(num_times=3, num_antennas=10, num_channels=2):
+    """A small check problem of the b1/b3 phases: uvw, freqs, vis, wgt."""
     from ska_sdp_cip_tpu_torch.io.synth import synthetic_uvw
 
     rng = np.random.default_rng(17)
-    uvw, _ = synthetic_uvw(3, 10, max_baseline_m=5000.0, seed=23)
-    freqs = np.array([1.0e9, 1.07e9])
-    shape = (len(uvw), 2)
+    uvw, _ = synthetic_uvw(num_times, num_antennas, max_baseline_m=5000.0,
+                           seed=23)
+    freqs = np.linspace(1.0e9, 1.07e9, num_channels)
+    shape = (len(uvw), num_channels)
     vis = (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(
         np.complex64
     )
@@ -343,13 +423,34 @@ def small_visibilities():
     return uvw, freqs, vis, wgt
 
 
+def small_plans() -> dict:
+    """
+    The small check plans of the b1 and b3 phases (``tests/
+    test_torch_grid_schedule.py``'s): name -> (visibilities, npix, asec,
+    plan options, blocks a chunk; None for the staged table). ``small``:
+    96 px at 40 asec, every tile an edge tile; ``edge``: 256 px at 20
+    asec, footprints across the periodic edge beside interior tiles;
+    ``split``: 256 px at 12 asec in 32-slot blocks, two blocks a chunk,
+    so the hot tiles are split. Each without (G = 1) and with (G = 2)
+    w-stacking.
+    """
+    small, wide = small_visibilities(), small_visibilities(4, 16, 3)
+    plans = {}
+    for w in (0, 1):
+        kw = {} if w else {"do_wstacking": False}
+        plans[f"small_w{w}"] = (small, 96, 40.0, kw, None)
+        plans[f"edge_w{w}"] = (wide, 256, 20.0, kw, None)
+        plans[f"split_w{w}"] = (wide, 256, 12.0, {**kw, "block": 32}, 2)
+    return plans
+
+
 def bench_problem(device, bench=(BENCH_TIMES, BENCH_ANTENNAS, BENCH_CHANNELS),
-                  npix=BENCH_NPIX) -> dict:
+                  npix=BENCH_NPIX, **plan_kw) -> dict:
     """bench.py's visibilities, planned and staged on ``device`` once for
     the b1, b3 and predict phases."""
     uvw, freqs, vis, wgt = bench_visibilities(*bench)
     plan, arrays, re_s, im_s = staged_problem(
-        uvw, freqs, vis, wgt, npix, BENCH_ASEC, device
+        uvw, freqs, vis, wgt, npix, BENCH_ASEC, device, **plan_kw
     )
     return {"uvw": uvw, "freqs": freqs, "vis": vis, "wgt": wgt,
             "plan": plan, "arrays": arrays, "re_s": re_s, "im_s": im_s}
@@ -361,27 +462,24 @@ def largest_group(plan) -> int:
     return int(np.argmax([len(x) for x in group_active_blocks(plan)]))
 
 
-def phase_b1(device, bench: dict) -> dict:
-    results = {"phase": "b1", "cases": []}
-    uvw, freqs, vis, wgt = small_visibilities()
-    for wstack in (False, True):
-        plan, arrays, re_s, im_s = staged_problem(
-            uvw, freqs, vis, wgt, 96, 40.0, device, do_wstacking=wstack
-        )
+def small_cases(device, compare) -> list:
+    """``compare(plan, arrays, re_s, im_s, k, chunks)`` on every plane
+    group of every :func:`small_plans` plan."""
+    cases = []
+    for name, (problem, npix, asec, kw, blocks) in small_plans().items():
+        plan, arrays, re_s, im_s = staged_problem(*problem, npix, asec,
+                                                  device, **kw)
         for k in range(plan.num_groups):
-            case = compare_group(
-                plan, group_args(plan, arrays, re_s, im_s, k), time_it=False
-            )
-            results["cases"].append({"plan": f"small_w{int(wstack)}",
-                                     "group": k, **case})
-    # One bench-size plane group (the one with the most active blocks).
+            chunks = group_chunks(plan, arrays, k, blocks)
+            cases.append({"plan": name, "group": k, **compare(
+                plan, arrays, re_s, im_s, k, chunks)})
+    return cases
+
+
+def bench_geometry(plan) -> dict:
     from ska_sdp_cip_tpu_torch.ops.gridder import group_active_blocks
 
-    plan, arrays = bench["plan"], bench["arrays"]
-    re_s, im_s = bench["re_s"], bench["im_s"]
-    sizes = [len(x) for x in group_active_blocks(plan)]
-    k = largest_group(plan)
-    results["bench_geometry"] = {
+    return {
         "ngrid": plan.ngrid,
         "nalloc": [plan.nalloc_x, plan.nalloc_y],
         "support": plan.support,
@@ -391,15 +489,40 @@ def phase_b1(device, bench: dict) -> dict:
         "num_blocks": plan.num_blocks,
         "num_vis_slots": plan.num_vis,
         "num_vis_data": plan.num_vis_data,
-        "group_active_blocks": sizes,
+        "group_active_blocks": [len(x) for x in group_active_blocks(plan)],
     }
-    case = compare_group(
-        plan, group_args(plan, arrays, re_s, im_s, k), time_it=True
-    )
-    results["bench"] = {"group": k, **case}
+
+
+def phase_b1(device, bench: dict, bench_w0: dict) -> dict:
+    """
+    B1 against its folded plain version on every group of the small
+    plans, then on the bench plan's largest plane group (G = 2, also
+    timed at each of :data:`CHUNK_SWEEP` blocks a chunk) and, as B4, on
+    the bench plan without w-stacking (G = 1), both timed; then
+    ``bench_dft``.
+    """
+    from ska_sdp_cip_tpu_torch.ops import cuda_gridder as cg
+
+    def grid_case(plan, arrays, re_s, im_s, k, chunks, time_it=False):
+        return compare_group(plan, group_args(plan, arrays, re_s, im_s, k),
+                             chunks, time_it=time_it)
+
+    results = {"phase": "b1", "cases": small_cases(device, grid_case)}
+    for key, problem in (("bench", bench), ("bench_w0", bench_w0)):
+        plan, arrays = problem["plan"], problem["arrays"]
+        k = largest_group(plan)
+        results[f"{key}_geometry"] = bench_geometry(plan)
+        results[key] = {"group": k, **grid_case(
+            plan, arrays, problem["re_s"], problem["im_s"], k,
+            group_chunks(plan, arrays, k), time_it=True)}
+    plan, arrays = bench["plan"], bench["arrays"]
+    k = results["bench"]["group"]
+    args = group_args(plan, arrays, bench["re_s"], bench["im_s"], k)
+    results["bench"]["chunk_sweep_ms"] = chunk_sweep(
+        plan, arrays, k, lambda c: cg.grid_planes(*args, plan=plan, chunks=c))
     results["bench_dft"] = bench_dft_check(
-        plan, arrays, re_s, im_s, bench["uvw"], bench["freqs"],
-        bench["vis"] * bench["wgt"], device,
+        bench["plan"], bench["arrays"], bench["re_s"], bench["im_s"],
+        bench["uvw"], bench["freqs"], bench["vis"] * bench["wgt"], device,
     )
     return results
 
@@ -557,85 +680,105 @@ def phase_b2(device, n=4096, npix=2048, iters=10, widths=None) -> dict:
     return results
 
 
-def compare_degrid(plan, arrays, grids, k, *, time_it: bool,
+def compare_degrid(plan, arrays, grids, k, chunks, *, time_it: bool,
                    iters: int = 3) -> dict:
-    """B3 kernel vs plain version on plane group ``k`` of ``grids``."""
+    """B3 kernel vs its folded plain version on plane group ``k`` of the
+    periodic planes ``grids``; timed, also the unfold that left the path
+    (``fold_ms``: the 2G planes into a zeroed alloc-frame stack)."""
     import torch
 
     from ska_sdp_cip_tpu_torch.ops import cuda_gridder as cg
     from ska_sdp_cip_tpu_torch.ops.gridder import group_active_blocks
     from ska_sdp_cip_tpu_torch.probes.common import cuda_ms
 
-    count = len(group_active_blocks(plan)[k])
+    ids = group_active_blocks(plan)[k]
     args = (
         arrays["packed"], arrays["block_len"], arrays["cblock_ox"],
         arrays["block_oy"], grids, arrays["plane_wg"][k],
-        arrays["group_blocks"][k, :count],
+        arrays["group_blocks"][k, :len(ids)],
     )
 
     def acc():
         return torch.zeros((2, plan.num_vis), dtype=torch.float32,
                            device=grids.device)
 
-    got = cg.degrid_planes(*args, acc(), plan=plan)
-    ref = cg.degrid_planes_reference(*args, acc(), plan=plan)
+    got = cg.degrid_planes(*args, acc(), plan=plan, chunks=chunks)
+    ref = cg.degrid_planes_folded_reference(*args, acc(), plan=plan)
     err, rel = rel_err(got, ref)
     G = int(args[5].shape[0])
-    out = {"G": G, "active_blocks": count,
+    out = {"G": G, "active_blocks": len(ids),
+           "chunks": int(chunks.shape[0]),
            "max_abs_err": err, "max_rel_err": rel,
-           **bound(*gridding_work(plan, G, count, degrid=True)),
+           **bound(*gridding_work(plan, ids, G, degrid=True)),
            "library_ms": None}
     if time_it and grids.device.type == "cuda":
-        out["ms"] = cuda_ms(lambda: cg.degrid_planes(*args, acc(), plan=plan),
-                            iters=iters)
+        out["ms"] = cuda_ms(
+            lambda: cg.degrid_planes(*args, acc(), plan=plan, chunks=chunks),
+            iters=iters)
         out["plain_ms"] = cuda_ms(
-            lambda: cg.degrid_planes_reference(*args, acc(), plan=plan),
+            lambda: cg.degrid_planes_folded_reference(*args, acc(),
+                                                      plan=plan),
             iters=iters,
         )
+        alloc = torch.zeros((2 * G, plan.nalloc_x, plan.nalloc_y),
+                            device=grids.device)
+        out["fold_ms"] = cuda_ms(
+            lambda: [cg._unfold_wraps(plan, g, a)
+                     for g, a in zip(grids, alloc)], iters=iters)
+        del alloc
     if not rel <= KERNEL_RTOL:
         raise PhaseError(f"B3 vs plain {rel:.3e} > {KERNEL_RTOL}")
     return out
 
 
 def random_grids(plan, device, seed: int):
-    """(2G, nalloc_x, nalloc_y) standard-normal float32 planes."""
+    """(2G, N, N) standard-normal float32 periodic planes."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(seed)
     return torch.randn(
-        (2 * plan.plane_group, plan.nalloc_x, plan.nalloc_y),
+        (2 * plan.plane_group, plan.ngrid, plan.ngrid),
         generator=gen, device=device,
     )
 
 
-def phase_b3(device, bench: dict) -> dict:
+def phase_b3(device, bench: dict, bench_w0: dict) -> dict:
     """
-    B3 against its plain version: every group of two small plans
-    (G = 1 without w-stacking, G = 2), then the bench plan's largest
-    plane group on random planes, with CUDA-event times of both.
+    B3 against its folded plain version on random periodic planes: every
+    group of the small plans, then the bench plan's largest plane group
+    (G = 2, also timed at each of :data:`CHUNK_SWEEP` blocks a chunk)
+    and, as B5, the bench plan without w-stacking (G = 1), with
+    CUDA-event times.
     """
-    from ska_sdp_cip_tpu_torch.ops.gridder import (
-        slot_plan_host_arrays,
-        stage_arrays,
-    )
-    from ska_sdp_cip_tpu_torch.ops.plan import make_plan
+    import torch
 
-    results = {"phase": "b3", "cases": []}
-    uvw, freqs, _, _ = small_visibilities()
-    pix = float(np.sin(np.radians(40.0 / 3600.0)))
-    for wstack in (False, True):
-        plan = make_plan(uvw, freqs, 96, pix, do_wstacking=wstack)
-        arrays = stage_arrays(slot_plan_host_arrays(plan, device), device)
-        grids = random_grids(plan, device, seed=5)
-        for k in range(plan.num_groups):
-            case = compare_degrid(plan, arrays, grids, k, time_it=False)
-            results["cases"].append({"plan": f"small_w{int(wstack)}",
-                                     "group": k, **case})
+    from ska_sdp_cip_tpu_torch.ops import cuda_gridder as cg
+
+    def degrid_case(plan, arrays, re_s, im_s, k, chunks, time_it=False):
+        return compare_degrid(plan, arrays, random_grids(plan, device, 5),
+                              k, chunks, time_it=time_it)
+
+    results = {"phase": "b3", "cases": small_cases(device, degrid_case)}
+    for key, problem in (("bench", bench), ("bench_w0", bench_w0)):
+        plan, arrays = problem["plan"], problem["arrays"]
+        k = largest_group(plan)
+        results[key] = {"group": k, **degrid_case(
+            plan, arrays, None, None, k, group_chunks(plan, arrays, k),
+            time_it=True)}
     plan, arrays = bench["plan"], bench["arrays"]
-    k = largest_group(plan)
-    grids = random_grids(plan, device, seed=6)
-    results["bench"] = {"group": k, **compare_degrid(plan, arrays, grids, k,
-                                                      time_it=True)}
+    k = results["bench"]["group"]
+    grids = random_grids(plan, device, 5)
+    ids = arrays["group_blocks"][k, :results["bench"]["active_blocks"]]
+
+    def degrid(chunks):
+        acc = torch.zeros((2, plan.num_vis), dtype=torch.float32,
+                          device=device)
+        return cg.degrid_planes(
+            arrays["packed"], arrays["block_len"], arrays["cblock_ox"],
+            arrays["block_oy"], grids, arrays["plane_wg"][k], ids, acc,
+            plan=plan, chunks=chunks)
+
+    results["bench"]["chunk_sweep_ms"] = chunk_sweep(plan, arrays, k, degrid)
     return results
 
 
@@ -657,16 +800,23 @@ def phase_e2e_small(device, npix=256) -> dict:
                "cases": []}
     for wstack in (False, True):
         ref = dirty_image_dft(uvw, freqs, vis, wgt, npix, pix, apply_w=wstack)
+        reset_launches()
         got = dirty_image(
             uvw, freqs, vis, wgt, npix, pix, do_wstacking=wstack,
             device=device,
         )
+        launches = read_launches()
         err, rel = rel_err(got, ref)
         results["cases"].append(
-            {"wstacking": wstack, "max_abs_err": err, "max_rel_err": rel}
+            {"wstacking": wstack, "max_abs_err": err, "max_rel_err": rel,
+             "launches": launches}
         )
         if not (np.isfinite(got).all() and rel <= DFT_RTOL):
             raise PhaseError(f"dirty_image vs DFT {rel:.3e} > {DFT_RTOL}")
+        # Without w-stacking the plan has one plane: B1 at G = 1 (B4).
+        require_launches(launches, ("b1", "b2_out_crop") if wstack
+                         else ("b4", "b2_out_crop"), device, "e2e_small")
+    results["launches"] = results["cases"][0]["launches"]
     return results
 
 
@@ -683,6 +833,7 @@ def reset_launches() -> None:
 
     cuda_gridder, fft_cuda, p1, p2 = _launch_counters()
     cuda_gridder.LAUNCHES = cuda_gridder.DEGRID_LAUNCHES = 0
+    cuda_gridder.GROUP1_LAUNCHES = cuda_gridder.DEGRID_GROUP1_LAUNCHES = 0
     fft_cuda.LAUNCHES = fft_cuda.IN_CROP_LAUNCHES = 0
     fft_cuda.TILED_LAUNCHES = fft_cuda.PRETILE_LAUNCHES = 0
     for counts in (p1.LAUNCHES, p2.LAUNCHES):
@@ -700,6 +851,8 @@ def read_launches() -> dict:
            "b2_in_crop": fft_cuda.IN_CROP_LAUNCHES,
            "b2_tiled": fft_cuda.TILED_LAUNCHES,
            "b3": cuda_gridder.DEGRID_LAUNCHES,
+           "b4": cuda_gridder.GROUP1_LAUNCHES,
+           "b5": cuda_gridder.DEGRID_GROUP1_LAUNCHES,
            "b6": fft_cuda.PRETILE_LAUNCHES, "p3": smem.LAUNCHES}
     out.update({f"p1_S{k}": v for k, v in p1.LAUNCHES.items()})
     out.update({f"p2_{k}": v for k, v in p2.LAUNCHES.items()})
@@ -735,14 +888,21 @@ def phase_predict(device, bench: dict, npix=256, repeats=3) -> dict:
         image[i, j] += flux
     for wstack in (False, True):
         ref = predict_dft(uvw, freqs, image, pix, apply_w=wstack)
+        reset_launches()
         got = predict_visibilities(uvw, freqs, image, pix,
                                    do_wstacking=wstack, device=device)
+        launches = read_launches()
         err = float(np.abs(got - ref).max())
         rel = err / float(np.abs(ref).max())
         results["cases"].append({"wstacking": wstack, "num_vis": got.size,
-                                 "max_abs_err": err, "max_rel_err": rel})
+                                 "max_abs_err": err, "max_rel_err": rel,
+                                 "launches": launches})
         if not (np.isfinite(got).all() and rel <= DFT_RTOL):
             raise PhaseError(f"predict vs DFT {rel:.3e} > {DFT_RTOL}")
+        # Without w-stacking the plan has one plane: B3 at G = 1 (B5).
+        require_launches(launches, ("b3", "b2_in_crop") if wstack
+                         else ("b5", "b2_in_crop"), device, "predict")
+    results["small_launches"] = results["cases"][0]["launches"]
 
     uvw, freqs, vis, wgt = (bench[k] for k in ("uvw", "freqs", "vis", "wgt"))
     bench_npix = bench["plan"].num_pixels
@@ -1419,7 +1579,8 @@ def phase_production_invert(device, problem, npix=PROD_NPIX,
                                               asec, device, sigma="auto")
     k = largest_group(plan)
     b1_check = {"group": k, **compare_group(
-        plan, group_args(plan, arrays, re_s, im_s, k), time_it=True)}
+        plan, group_args(plan, arrays, re_s, im_s, k),
+        group_chunks(plan, arrays, k), time_it=True)}
     del arrays, re_s, im_s
     out = {
         "phase": "production", "part": "invert", "npix": npix,
@@ -1454,8 +1615,9 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
     adjoint identity <dirty_image(v), I> = Re <v, predict(I)> for a
     noise image I (float64 dot products on the host, rel 1e-4), also
     read on ``spread`` more dirty images (B1's atomics move the
-    image's last bits from run to run), with both operators' B2 passes
-    replaced by the plain version and by the exact transform
+    image's last bits from run to run), on three noise images with both
+    operators' B2 passes done by the kernel, its plain version and the
+    exact transform, and with predict's passes in the other order
     (:func:`adjoint_witness`), and for I = the dirty image itself
     (no cancellation; rel 1e-4); a
     sparse image of five seeded point sources against a float64 DFT of
@@ -1464,8 +1626,6 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
     group of random planes; the median wall of ``repeats`` calls,
     launch counts, a breakdown and a profile of the device part.
     """
-    import torch
-
     from ska_sdp_cip_tpu_torch.ops.gridder import (
         dirty_image,
         predict_visibilities,
@@ -1476,8 +1636,7 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
 
     uvw, freqs, vis, wgt = problem
     pix = float(np.sin(np.radians(asec / 3600.0)))
-    gen = torch.Generator().manual_seed(79)
-    image = torch.randn((npix, npix), generator=gen).numpy()
+    image = noise_image(npix, WITNESS_SEEDS[0])
 
     def run(img=image):
         return predict_visibilities(uvw, freqs, img, pix, sigma="auto",
@@ -1507,7 +1666,10 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
     rhs_d = float(np.real(np.vdot(run(unit).astype(np.complex128),
                                   weighted)))
     plan = make_plan(uvw, freqs, npix, pix, sigma="auto")
-    witness = adjoint_witness(problem, image, plan.ngrid, pix, device)
+    images = {WITNESS_SEEDS[0]: image}
+    images.update({s: noise_image(npix, s) for s in WITNESS_SEEDS[1:]})
+    witness = adjoint_witness(problem, images, plan.ngrid, pix, device)
+    del images
     pixels, flux = point_sources(npix)
     sparse = np.zeros((npix, npix), np.float32)
     sparse[pixels[:, 0], pixels[:, 1]] = flux
@@ -1521,8 +1683,9 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
     arrays = stage_arrays(slot_plan_host_arrays(plan, device), device)
     grids = random_grids(plan, device, seed=6)
     k = largest_group(plan)
-    b3_check = {"group": k, **compare_degrid(plan, arrays, grids, k,
-                                              time_it=True)}
+    b3_check = {"group": k, **compare_degrid(
+        plan, arrays, grids, k, group_chunks(plan, arrays, k),
+        time_it=True)}
     del arrays, grids
     out = {
         "phase": "production", "part": "predict", "npix": npix,
@@ -1560,14 +1723,57 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
     return out
 
 
-def adjoint_witness(problem, image, ngrid: int, pix: float, device) -> dict:
+@contextlib.contextmanager
+def predict_rows_first():
+    """Run predict's two B2 passes in the other order: along the image's
+    rows first, then its columns (the grid comes out transposed and is
+    copied into the stack). A witness of what the pass order does to
+    the adjoint identity, not a path of the port."""
+    from ska_sdp_cip_tpu_torch.ops import fft_cuda, gridder
+
+    def run(f, img_t_re, img_t_im, *, meta, out, **kw):
+        b_re, b_im = fft_cuda.fft2_from_image_fused(
+            f, img_t_re.t().contiguous(), img_t_im.t().contiguous(),
+            meta=meta, **kw)
+        out[0].copy_(b_re.t())
+        out[1].copy_(b_im.t())
+        return out
+
+    saved = gridder.fft2_from_image_fused
+    gridder.fft2_from_image_fused = run
+    try:
+        yield
+    finally:
+        gridder.fft2_from_image_fused = saved
+
+
+def noise_image(npix: int, seed: int) -> np.ndarray:
+    """A standard-normal float32 (npix, npix) image made from ``seed``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((npix, npix), generator=gen).numpy()
+
+
+#: The adjoint witness's variants: B2 as the kernel, its plain version or
+#: the exact transform, predict's passes in the path's order or rows first;
+#: and the seeds of its noise images (the first is the gated reading's).
+WITNESS_VARIANTS = ("kernel", "plain_b2", "plain_b2_rows_first", "exact_b2")
+WITNESS_SEEDS = (79, 80, 81)
+
+
+def adjoint_witness(problem, images: dict, ngrid: int, pix: float, device,
+                    variants=WITNESS_VARIANTS) -> dict:
     """
-    The production adjoint identity for the noise image ``image`` with
-    every B2 pass of both operators replaced (:func:`b2_replaced`) by
-    B2's plain version (``plain_b2``) and by the exact transform
-    (``exact_b2``): a fresh dirty image and a fresh predict each. If
-    the reading stays where the kernel's is, B2 does not carry the
-    offset.
+    The production adjoint identity for each noise image of ``images``
+    (seed -> image) with every B2 pass of both operators done by the
+    kernel, replaced (:func:`b2_replaced`) by B2's plain version
+    (``plain_b2``) or by the exact transform (``exact_b2``), and with
+    predict's passes in the other order (``_rows_first``,
+    :func:`predict_rows_first`): one dirty image and a predict of each
+    image a variant. The spread over the images is the size of float32
+    rounding in the reading; a variant whose readings stay where the
+    kernel's are does not carry the offset.
     """
     from ska_sdp_cip_tpu_torch.ops.gridder import (
         dirty_image,
@@ -1575,21 +1781,36 @@ def adjoint_witness(problem, image, ngrid: int, pix: float, device) -> dict:
     )
 
     uvw, freqs, vis, wgt = problem
-    npix = image.shape[0]
     weighted = (vis * wgt).astype(np.complex128)
+    passes = {"kernel": None, "plain_b2": plain_b2(ngrid, device),
+              "exact_b2": exact_b2}
+    npix = next(iter(images.values())).shape[0]
     out = {}
-    for name, pass_fn in (("plain_b2", plain_b2(ngrid, device)),
-                          ("exact_b2", exact_b2)):
-        with b2_replaced(pass_fn):
+    for name in variants:
+        pass_fn = passes[name.removesuffix("_rows_first")]
+        with (b2_replaced(pass_fn) if pass_fn else contextlib.nullcontext()):
             dirty = dirty_image(uvw, freqs, vis, wgt, npix, pix,
-                                sigma="auto", device=device)
-            model = predict_visibilities(uvw, freqs, image, pix,
-                                         sigma="auto", device=device)
-        lhs = float(np.vdot(image.astype(np.float64),
-                            dirty.astype(np.float64)))
-        rhs = float(np.real(np.vdot(model.astype(np.complex128), weighted)))
-        out[name] = {"adjoint_lhs": lhs, "adjoint_rhs": rhs,
-                     "adjoint_rel": abs(lhs - rhs) / abs(lhs)}
+                                sigma="auto",
+                                device=device).astype(np.float64)
+            with (predict_rows_first() if name.endswith("_rows_first")
+                  else contextlib.nullcontext()):
+                models = {seed: predict_visibilities(
+                    uvw, freqs, image, pix, sigma="auto", device=device)
+                    for seed, image in images.items()}
+        rel, cancel = {}, {}
+        for seed, image in images.items():
+            i64 = image.astype(np.float64)
+            lhs = float(np.vdot(i64, dirty))
+            rhs = float(np.real(np.vdot(models[seed].astype(np.complex128),
+                                        weighted)))
+            rel[seed] = abs(lhs - rhs) / abs(lhs)
+            cancel[seed] = abs(lhs) / float(np.linalg.norm(i64)
+                                            * np.linalg.norm(dirty))
+        out[name] = {"adjoint_rel": rel}
+        # |lhs| / (|I| |D|) of each image: the factor by which the dot
+        # product's cancellation scales the operators' rounding up into
+        # the reading (the same for every variant).
+        out.setdefault("cancellation", cancel)
     return out
 
 
@@ -1643,6 +1864,10 @@ def kernels_line(b1, b2, b3, b6, probes, production, by_path) -> list:
                 "library_ms")
     prod_keys = ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
                  "bound_by", "library_ms")
+    # B1/B3 (and B4/B5): also the zeroing of B1's planes and the fold or
+    # unfold that left the path, timed on the same planes.
+    grid_keys = ("group", "G", "active_blocks", "chunks", "max_rel_err",
+                 "zero_ms", "fold_ms")
     b2_keys = ("n", "m", "rows_in", *prod_keys, "two_launch_floor_ms",
                "gb_per_s", "gb_per_s_with_z", "first_design_ms")
 
@@ -1658,14 +1883,22 @@ def kernels_line(b1, b2, b3, b6, probes, production, by_path) -> list:
     library = probes["library_ms"]
     work = probe_work(p2, p2["ngrid"])
     fused = "ska_sdp_cip_tpu/ops/fft_pallas.py"
+    def grid_row(case, keys):
+        return {k: case[k] for k in keys if k in case}
+
     entries = [
         kernel_entry(
             "grid_planes", "grid.cu",
             "ska_sdp_cip_tpu/ops/pallas_gridder.py:298",
             count("b1", "slice"), paths("b1"),
-            **{k: b1["bench"][k] for k in row_keys},
-            production={k: production["b1"][k]
-                        for k in ("group", "G", "active_blocks", *prod_keys)},
+            **grid_row(b1["bench"], row_keys + grid_keys),
+            production=grid_row(production["b1"], grid_keys + prod_keys),
+        ),
+        kernel_entry(
+            "grid_planes[G=1]", "grid.cu",
+            "ska_sdp_cip_tpu/ops/pallas_gridder.py:669",
+            count("b4", "e2e_small"), paths("b4"),
+            **grid_row(b1["bench_w0"], row_keys + grid_keys),
         ),
     ]
     for crop, path in (("out_crop", "slice"), ("in_crop", "major_cycle")):
@@ -1693,9 +1926,14 @@ def kernels_line(b1, b2, b3, b6, probes, production, by_path) -> list:
             "degrid_planes", "degrid.cu",
             "ska_sdp_cip_tpu/ops/pallas_gridder.py:458",
             count("b3", "major_cycle"), paths("b3"),
-            **{k: b3["bench"][k] for k in row_keys},
-            production={k: production["b3"][k]
-                        for k in ("group", "G", "active_blocks", *prod_keys)},
+            **grid_row(b3["bench"], row_keys + grid_keys),
+            production=grid_row(production["b3"], grid_keys + prod_keys),
+        ),
+        kernel_entry(
+            "degrid_planes[G=1]", "degrid.cu",
+            "ska_sdp_cip_tpu/ops/pallas_gridder.py:806",
+            count("b5", "predict_small"), paths("b5"),
+            **grid_row(b3["bench_w0"], row_keys + grid_keys),
         ),
         kernel_entry(
             "pretile_first_axis", "pretile.cu", f"{fused}:310",
@@ -1777,15 +2015,18 @@ def main() -> int:
         "ptxas": ptxas,
     })
     bench = bench_problem(device)
-    b1 = phase_b1(device, bench)
+    bench_w0 = bench_problem(device, do_wstacking=False)
+    b1 = phase_b1(device, bench, bench_w0)
     emit(b1)
     b2 = phase_b2(device, widths=(BENCH_NGRID, BENCH_NPIX, BENCH_NPIX - 2))
     b2["production"] = phase_b2(device, PROD_NGRID, PROD_NPIX,
                                 iters=5)["cases"]
     emit(b2)
-    b3 = phase_b3(device, bench)
+    b3 = phase_b3(device, bench, bench_w0)
     emit(b3)
-    emit(phase_e2e_small(device))
+    del bench_w0
+    e2e = phase_e2e_small(device)
+    emit(e2e)
     pred = phase_predict(device, bench)
     emit(pred)
     del bench
@@ -1809,6 +2050,8 @@ def main() -> int:
     emit(p_mc)
     production = {"b1": p_inv["b1_check"], "b3": p_pred["b3_check"]}
     emit({"kernels": kernels_line(b1, b2, b3, b6, probes, production, {
+        "e2e_small": e2e["launches"],
+        "predict_small": pred["small_launches"],
         "slice": sl["launches"], "predict": pred["bench"]["launches"],
         "major_cycle": mc["launches"],
         "production_invert": p_inv["launches"],

@@ -126,17 +126,17 @@ def _declare(lib) -> None:
         ctypes.c_float,
         ctypes.c_void_p,
     )
-    lib.cip_grid_planes.argtypes = [ptr] * 9 + [c_int, ptr, c_int, ptr] + [
-        c_int, c_int, c_int, c_int,
+    lib.cip_grid_planes.argtypes = [ptr] * 10 + [c_int, ptr, c_int, ptr] + [
+        c_int, c_int, c_int, c_int, c_int,
         c_float, c_float, c_float,
-        c_int, c_i64, c_i64, ptr,
+        c_int, c_int, ptr,
     ]
     lib.cip_grid_planes.restype = c_int
-    lib.cip_degrid_planes.argtypes = [ptr] * 7 + [c_int, ptr, c_int] + [
+    lib.cip_degrid_planes.argtypes = [ptr] * 8 + [c_int, ptr, c_int] + [
         ptr, ptr, ptr,
         c_int, c_int, c_int, c_int,
         c_float, c_float, c_float,
-        c_int, c_i64, c_i64, ptr,
+        c_int, c_int, ptr,
     ]
     lib.cip_degrid_planes.restype = c_int
     b2 = [ptr] * 10 + [c_int] * 6 + [c_i64] + [c_int] * 4 + [c_i64] * 2 + [

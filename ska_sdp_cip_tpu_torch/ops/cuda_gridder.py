@@ -10,14 +10,19 @@ Counterpart: ``ska_sdp_cip_tpu/ops/pallas_gridder.py`` —
 built by ``build_grid_planes_pallas_group`` (G >= 2) and
 ``build_grid_planes_pallas`` (G = 1), replaced by :func:`grid_planes`,
 and those built by ``build_degrid_planes_pallas_group`` and
-``build_degrid_planes_pallas``, replaced by :func:`degrid_planes`.
+``build_degrid_planes_pallas``, replaced by :func:`degrid_planes`; and
+from ``ska_sdp_cip_tpu/ops/gridder.py`` the wrap fold ``_fold_wraps``
+and its adjoint ``_unfold_wraps``, which the kernels do inside.
 
-:func:`grid_planes` and :func:`degrid_planes` dispatch on the device of
-their tensors: CUDA tensors go to the hand-written kernel (or raise),
-CPU tensors to the plain version. Nothing falls back from one to the
-other. Unlike the TPU kernels, which read and write lane segments that
-the caller seam-adds, all of them read or write whole
-``(nalloc_x, nalloc_y)`` planes.
+:func:`grid_planes` and :func:`degrid_planes` write and read periodic
+``(2G, ngrid, ngrid)`` planes, the grid the FFT passes take. They
+dispatch on the device of their tensors: CUDA tensors go to the
+hand-written kernel (or raise), CPU tensors to the folded plain version
+(:func:`grid_planes_folded_reference`,
+:func:`degrid_planes_folded_reference`). Nothing falls back from one to
+the other. The plain versions proper (:func:`grid_planes_reference`,
+:func:`degrid_planes_reference`) keep the counterpart's padded
+``(nalloc_x, nalloc_y)`` alloc frame.
 """
 
 from __future__ import annotations
@@ -29,14 +34,20 @@ from ..utils.hostmem import alloc_populated
 from .kernels import es_kernel
 from .plan import GridderPlan
 
-#: Launches of the B1 kernel (one per :func:`grid_planes` call on CUDA
-#: tensors). Callers reset it to 0 and read it to show that a run went
-#: through the kernel.
+#: Launches of the B1 kernel at G >= 2 (one per :func:`grid_planes` call
+#: on CUDA tensors). Callers reset it to 0 and read it to show that a run
+#: went through the kernel.
 LAUNCHES = 0
 
-#: Launches of the B3 kernel (one per :func:`degrid_planes` call on CUDA
-#: tensors), read the same way.
+#: Launches of B4, the B1 kernel at G = 1, counted the same way.
+GROUP1_LAUNCHES = 0
+
+#: Launches of the B3 kernel at G >= 2 (one per :func:`degrid_planes`
+#: call on CUDA tensors), read the same way.
 DEGRID_LAUNCHES = 0
+
+#: Launches of B5, the B3 kernel at G = 1.
+DEGRID_GROUP1_LAUNCHES = 0
 
 #: Plane-group sizes the kernel is instantiated for.
 KERNEL_GROUPS = (1, 2)
@@ -44,6 +55,9 @@ KERNEL_GROUPS = (1, 2)
 #: Blocks per chunk of the plain version: bounds its (chunk, patch, B)
 #: ES factor tensors (~50 MB at B = 1024).
 REFERENCE_CHUNK = 64
+
+#: Shared memory a thread block may use (H100: 227 KiB).
+SHARED_BYTES = 227 * 1024
 
 
 def pack_plan_columns(plan: GridderPlan) -> np.ndarray:
@@ -64,6 +78,36 @@ def pack_plan_columns(plan: GridderPlan) -> np.ndarray:
     packed[2] = plan.ws
     packed[3] = plan.block_len[slot_block].astype(np.float32)
     return packed
+
+
+def _fold_wraps(plan: GridderPlan, grid: torch.Tensor) -> torch.Tensor:
+    """Fold the padded alloc frame back onto the periodic N x N grid."""
+    N, W = plan.ngrid, plan.support
+    g = grid[W : W + N, :].clone()
+    g[0:W, :] += grid[W + N : N + 2 * W, :]
+    g[N - W : N, :] += grid[0:W, :]
+    g2 = g[:, W : W + N].clone()
+    g2[:, 0:W] += g[:, W + N : N + 2 * W]
+    g2[:, N - W : N] += g[:, 0:W]
+    return g2
+
+
+def _unfold_wraps(plan: GridderPlan, g: torch.Tensor,
+                  out: torch.Tensor) -> torch.Tensor:
+    """
+    Adjoint of :func:`_fold_wraps`: write the periodic N x N grid ``g``
+    into the alloc frame ``out`` (nalloc_x, nalloc_y) with its wrap
+    edges duplicated, rows first, then columns, as the counterpart does
+    (so the corners match). ``out`` is written in place only inside
+    [0, N + 2W)^2; the rest must already be zero.
+    """
+    N, W = plan.ngrid, plan.support
+    out[W : W + N, W : W + N] = g
+    out[W + N : N + 2 * W, W : W + N] = g[0:W, :]
+    out[0:W, W : W + N] = g[N - W : N, :]
+    out[: N + 2 * W, W + N : N + 2 * W] = out[: N + 2 * W, W : 2 * W]
+    out[: N + 2 * W, 0:W] = out[: N + 2 * W, N : N + W]
+    return out
 
 
 def _constants(plan: GridderPlan) -> dict:
@@ -123,64 +167,94 @@ def grid_planes(
     blocks: torch.Tensor,
     *,
     plan: GridderPlan,
+    chunks: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """
-    Grid the listed blocks onto the G = ``len(w_g)`` w-planes at ``w_g``.
+    Grid the listed blocks onto the G = ``len(w_g)`` w-planes at ``w_g``
+    and fold them onto the periodic grid.
 
     ``packed`` is (>= 3, num_vis) f32 with rows (xpos, ypos, |w|) as
     ``pack_plan_columns``/``build_assemble`` make them; ``re``/``im``
     the slot-order visibilities; ``block_len/ox/oy`` the plan's
     per-block int32 tables; ``blocks`` the int32 ids of the blocks
-    active on any plane of the group (-1 entries are skipped). Returns
-    (2G, nalloc_x, nalloc_y) f32 planes ordered re_0, im_0, re_1, ...
+    active on any plane of the group (-1 entries are skipped by the
+    plain version); ``chunks`` the kernel's (first, count, flags) table
+    over ``blocks`` (``ops/gridder.py:tile_chunks``), required on CUDA
+    tensors. Returns (2G, ngrid, ngrid) f32 periodic planes ordered
+    re_0, im_0, re_1, ...
     """
     _check_inputs(plan, packed, re, im, block_len, block_ox, block_oy,
                   w_g, blocks)
     if packed.device.type == "cuda":
         return _grid_planes_cuda(
             packed, re, im, block_len, block_ox, block_oy, w_g, blocks,
-            plan=plan,
+            _check_chunks(chunks, blocks), plan=plan,
         )
     if packed.device.type == "cpu":
-        return grid_planes_reference(
+        return grid_planes_folded_reference(
             packed, re, im, block_len, block_ox, block_oy, w_g, blocks,
             plan=plan,
         )
     raise ValueError(f"unsupported device {packed.device}")
 
 
-def _check_kernel_shape(plan: GridderPlan, G: int, name: str) -> None:
-    """Raise unless the B1/B3 kernels are built for G and the patch fits."""
+def _check_chunks(chunks, blocks) -> torch.Tensor:
+    """The chunk table as the kernels read it, or raise."""
+    if chunks is None:
+        raise ValueError("the CUDA kernels need the chunk table of "
+                         "ops/gridder.py:tile_chunks (chunks=...)")
+    if (chunks.device != blocks.device or chunks.dtype != torch.int32
+            or chunks.dim() != 2 or chunks.shape[1] != 3):
+        raise ValueError("chunks must be an int32 (n, 3) tensor on the "
+                         "device of blocks")
+    return chunks.contiguous()
+
+
+def _column_group(plan: GridderPlan) -> int:
+    """Footprint columns a lane group covers in the kernels (their CS)."""
+    return 8 if plan.support <= 8 else 16
+
+
+def _check_kernel_shape(plan: GridderPlan, G: int, name: str,
+                        buffers: int) -> None:
+    """Raise unless the B1/B3 kernels are built for G and ``buffers``
+    sets of 2G patch windows fit in a thread block's shared memory."""
     if G not in KERNEL_GROUPS:
         raise ValueError(
             f"the {name} kernel is built for plane groups {KERNEL_GROUPS}, "
             f"got {G}"
         )
-    smem = 2 * G * plan.patch_x * plan.patch_y * 4
-    if smem > 227 * 1024:
-        raise ValueError(
-            f"patch ({plan.patch_x}, {plan.patch_y}) x {G} planes needs "
-            f"{smem} B of shared memory, above the 227 KiB a block has"
-        )
-    if plan.support + 2 > 18:
+    if plan.support > 16:
         raise ValueError(f"support {plan.support} above the kernel's 16")
+    if float(np.float32(2.0 / plan.support)) < 2.0 / plan.support:
+        # The kernels evaluate only the W cells after floor(pos - W/2):
+        # the cells either side must come out exactly zero.
+        raise ValueError(f"float32(2 / {plan.support}) rounds down")
+    if plan.patch_y % 4:
+        raise ValueError(f"patch_y {plan.patch_y} is not a multiple of 4")
+    stride = plan.patch_y + _column_group(plan)
+    smem = buffers * 2 * G * plan.patch_x * stride * 4
+    if smem > SHARED_BYTES:
+        raise ValueError(
+            f"patch ({plan.patch_x}, {plan.patch_y}) x {G} planes x "
+            f"{buffers} needs {smem} B of shared memory, above the "
+            f"{SHARED_BYTES} B a block has"
+        )
 
 
 def _grid_planes_cuda(packed, re, im, block_len, block_ox, block_oy, w_g,
-                      blocks, *, plan):
-    global LAUNCHES
+                      blocks, chunks, *, plan):
+    global LAUNCHES, GROUP1_LAUNCHES
     from . import _build
 
     G = w_g.shape[0]
-    _check_kernel_shape(plan, G, "B1")
+    _check_kernel_shape(plan, G, "B1", buffers=1)
     rows = [packed[i].contiguous() for i in range(3)]
     cols = [t.contiguous() for t in (re, im, block_len, block_ox, block_oy,
                                      blocks, w_g)]
-    out = torch.zeros(
-        (2 * G, plan.nalloc_x, plan.nalloc_y),
-        dtype=torch.float32,
-        device=packed.device,
-    )
+    N = plan.ngrid
+    out = torch.zeros((2 * G, N, N), dtype=torch.float32,
+                      device=packed.device)
     lib = _build.load_library()
     k = _constants(plan)
     stream = torch.cuda.current_stream(packed.device).cuda_stream
@@ -188,14 +262,17 @@ def _grid_planes_cuda(packed, re, im, block_len, block_ox, block_oy, w_g,
         rows[0].data_ptr(), rows[1].data_ptr(), rows[2].data_ptr(),
         cols[0].data_ptr(), cols[1].data_ptr(), cols[2].data_ptr(),
         cols[3].data_ptr(), cols[4].data_ptr(), cols[5].data_ptr(),
-        int(cols[5].shape[0]), cols[6].data_ptr(), int(G), out.data_ptr(),
-        int(plan.block), int(plan.patch_x), int(plan.patch_y),
-        int(plan.support), k["beta"], k["inv_half"], k["inv_whalf"],
-        int(bool(plan.wstacking)), int(plan.nalloc_x), int(plan.nalloc_y),
+        chunks.data_ptr(), int(chunks.shape[0]), cols[6].data_ptr(),
+        int(G), out.data_ptr(), int(plan.block), int(plan.patch_x),
+        int(plan.patch_y), int(plan.tile_x), int(plan.support), k["beta"],
+        k["inv_half"], k["inv_whalf"], int(bool(plan.wstacking)), int(N),
         stream,
     )
     _build.check(err, "cip_grid_planes")
-    LAUNCHES += 1
+    if G == 1:
+        GROUP1_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
@@ -203,12 +280,14 @@ def grid_planes_reference(
     packed, re, im, block_len, block_ox, block_oy, w_g, blocks, *, plan
 ) -> torch.Tensor:
     """
-    Plain PyTorch version of :func:`grid_planes`: per block, the dense
-    ES factor matrices ax (patch_x, B) and ay (patch_y, B) and the
-    patch product ``(ax * vis * amp) @ ay^T`` per plane (counterpart:
-    the XLA branch of ``build_invert`` and ``_kernel_factors_group``),
-    overlap-added into the planes, batched over ``REFERENCE_CHUNK``
-    blocks at a time. Runs on any device, in the dtype of ``re``.
+    Plain PyTorch version of the TPU kernels :func:`grid_planes`
+    replaces, in their (2G, nalloc_x, nalloc_y) alloc frame: per block,
+    the dense ES factor matrices ax (patch_x, B) and ay (patch_y, B) and
+    the patch product ``(ax * vis * amp) @ ay^T`` per plane
+    (counterpart: the XLA branch of ``build_invert`` and
+    ``_kernel_factors_group``), overlap-added into the planes, batched
+    over ``REFERENCE_CHUNK`` blocks at a time. Runs on any device, in
+    the dtype of ``re``.
     """
     device = packed.device
     G = w_g.shape[0]
@@ -256,6 +335,21 @@ def grid_planes_reference(
     return out.reshape(2 * G, nx, ny)
 
 
+def grid_planes_folded_reference(
+    packed, re, im, block_len, block_ox, block_oy, w_g, blocks, *, plan
+) -> torch.Tensor:
+    """
+    Plain version of :func:`grid_planes`: :func:`grid_planes_reference`
+    folded plane by plane onto the periodic grid (:func:`_fold_wraps`),
+    the same arithmetic as the counterpart's gridding then fold.
+    """
+    planes = grid_planes_reference(
+        packed, re, im, block_len, block_ox, block_oy, w_g, blocks,
+        plan=plan,
+    )
+    return torch.stack([_fold_wraps(plan, p) for p in planes])
+
+
 def degrid_planes(
     packed: torch.Tensor,
     block_len: torch.Tensor,
@@ -267,24 +361,25 @@ def degrid_planes(
     acc: torch.Tensor,
     *,
     plan: GridderPlan,
+    chunks: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """
-    Degrid the listed blocks off the G = ``len(w_g)`` w-planes at
-    ``w_g`` and ADD the summed contributions into ``acc`` (in place;
+    Degrid the listed blocks off the G = ``len(w_g)`` periodic w-planes
+    at ``w_g`` and ADD the summed contributions into ``acc`` (in place;
     returned). The adjoint of :func:`grid_planes`.
 
-    ``packed``, ``block_len/ox/oy``, ``w_g`` and ``blocks`` are as in
-    :func:`grid_planes`; ``grids`` is the (2G, nalloc_x, nalloc_y) f32
-    stack of (already transformed and unfolded) planes ordered re_0,
+    ``packed``, ``block_len/ox/oy``, ``w_g``, ``blocks`` and ``chunks``
+    are as in :func:`grid_planes`; ``grids`` is the (2G, ngrid, ngrid)
+    f32 stack of (already transformed) periodic planes ordered re_0,
     im_0, re_1, ...; ``acc`` is the (2, num_vis) f32 slot accumulator
     (re, im). Every slot belongs to exactly one block, so a block's
-    slots are written by its own thread block only.
+    slots are written by its own warps only.
     """
     device = packed.device
     _check_inputs(plan, packed, acc[0], acc[1], block_len, block_ox,
                   block_oy, w_g, blocks)
     G = w_g.shape[0]
-    shape = (2 * G, plan.nalloc_x, plan.nalloc_y)
+    shape = (2 * G, plan.ngrid, plan.ngrid)
     if tuple(grids.shape) != shape or grids.dtype != packed.dtype:
         raise ValueError(f"grids must be {packed.dtype} of shape {shape}")
     if grids.device != device:
@@ -292,10 +387,10 @@ def degrid_planes(
     if device.type == "cuda":
         return _degrid_planes_cuda(
             packed, block_len, block_ox, block_oy, grids, w_g, blocks, acc,
-            plan=plan,
+            _check_chunks(chunks, blocks), plan=plan,
         )
     if device.type == "cpu":
-        return degrid_planes_reference(
+        return degrid_planes_folded_reference(
             packed, block_len, block_ox, block_oy, grids, w_g, blocks, acc,
             plan=plan,
         )
@@ -303,14 +398,16 @@ def degrid_planes(
 
 
 def _degrid_planes_cuda(packed, block_len, block_ox, block_oy, grids, w_g,
-                        blocks, acc, *, plan):
-    global DEGRID_LAUNCHES
+                        blocks, acc, chunks, *, plan):
+    global DEGRID_LAUNCHES, DEGRID_GROUP1_LAUNCHES
     from . import _build
 
     G = w_g.shape[0]
-    _check_kernel_shape(plan, G, "B3")
+    _check_kernel_shape(plan, G, "B3", buffers=2)
     if not (grids.is_contiguous() and acc.is_contiguous()):
         raise ValueError("grids and acc must be contiguous")
+    if grids.data_ptr() % 16:
+        raise ValueError("grids must start on a 16-byte boundary")
     rows = [packed[i].contiguous() for i in range(3)]
     cols = [t.contiguous() for t in (block_len, block_ox, block_oy, blocks,
                                      w_g)]
@@ -320,15 +417,17 @@ def _degrid_planes_cuda(packed, block_len, block_ox, block_oy, grids, w_g,
     err = lib.cip_degrid_planes(
         rows[0].data_ptr(), rows[1].data_ptr(), rows[2].data_ptr(),
         cols[0].data_ptr(), cols[1].data_ptr(), cols[2].data_ptr(),
-        cols[3].data_ptr(), int(cols[3].shape[0]), cols[4].data_ptr(),
-        int(G), grids.data_ptr(), acc[0].data_ptr(), acc[1].data_ptr(),
-        int(plan.block), int(plan.patch_x), int(plan.patch_y),
-        int(plan.support), k["beta"], k["inv_half"], k["inv_whalf"],
-        int(bool(plan.wstacking)), int(plan.nalloc_x), int(plan.nalloc_y),
-        stream,
+        cols[3].data_ptr(), chunks.data_ptr(), int(chunks.shape[0]),
+        cols[4].data_ptr(), int(G), grids.data_ptr(), acc[0].data_ptr(),
+        acc[1].data_ptr(), int(plan.block), int(plan.patch_x),
+        int(plan.patch_y), int(plan.support), k["beta"], k["inv_half"],
+        k["inv_whalf"], int(bool(plan.wstacking)), int(plan.ngrid), stream,
     )
     _build.check(err, "cip_degrid_planes")
-    DEGRID_LAUNCHES += 1
+    if G == 1:
+        DEGRID_GROUP1_LAUNCHES += 1
+    else:
+        DEGRID_LAUNCHES += 1
     return acc
 
 
@@ -336,11 +435,12 @@ def degrid_planes_reference(
     packed, block_len, block_ox, block_oy, grids, w_g, blocks, acc, *, plan
 ) -> torch.Tensor:
     """
-    Plain PyTorch version of :func:`degrid_planes` (counterpart: the
-    XLA branch of ``build_predict``): per block, the dense ES factor
-    matrices ax (patch_x, B) and ay (patch_y, B), ``tmp = ax^T @
-    patch`` per plane, ``sum(tmp * ay)`` over the lanes, scaled by each
-    plane's amp and summed over the planes, batched over
+    Plain PyTorch version of the TPU kernels :func:`degrid_planes`
+    replaces, reading (2G, nalloc_x, nalloc_y) alloc-frame planes
+    (counterpart: the XLA branch of ``build_predict``): per block, the
+    dense ES factor matrices ax (patch_x, B) and ay (patch_y, B),
+    ``tmp = ax^T @ patch`` per plane, ``sum(tmp * ay)`` over the lanes,
+    scaled by each plane's amp and summed over the planes, batched over
     ``REFERENCE_CHUNK`` blocks at a time. Runs on any device, in the
     dtype of ``grids``.
     """
@@ -390,3 +490,26 @@ def degrid_planes_reference(
         acc.view(2, -1).index_add_(1, slots.reshape(-1),
                                    con.reshape(2, -1).to(acc.dtype))
     return acc
+
+
+def _unfold_planes(plan: GridderPlan, grids: torch.Tensor) -> torch.Tensor:
+    """The (2G, nalloc_x, nalloc_y) alloc frame of periodic (2G, N, N)
+    planes: :func:`_unfold_wraps` plane by plane into zeros."""
+    out = grids.new_zeros((grids.shape[0], plan.nalloc_x, plan.nalloc_y))
+    for q in range(grids.shape[0]):
+        _unfold_wraps(plan, grids[q], out[q])
+    return out
+
+
+def degrid_planes_folded_reference(
+    packed, block_len, block_ox, block_oy, grids, w_g, blocks, acc, *, plan
+) -> torch.Tensor:
+    """
+    Plain version of :func:`degrid_planes`: :func:`degrid_planes_reference`
+    on the periodic planes unfolded into the alloc frame
+    (:func:`_unfold_planes`), the counterpart's unfold then degridding.
+    """
+    return degrid_planes_reference(
+        packed, block_len, block_ox, block_oy, _unfold_planes(plan, grids),
+        w_g, blocks, acc, plan=plan,
+    )

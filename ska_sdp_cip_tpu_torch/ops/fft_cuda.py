@@ -11,7 +11,7 @@ probes P1/P2 multiply by them in float32), ``fft_first_axis_fused``
 (the Pallas kernel, replaced by :func:`fft_first_axis_fused`, with its
 ``tiled`` input mode), ``pretile_first_axis`` (replaced by
 :func:`pretile_first_axis`) and ``fft2_from_image_fused`` (predict's
-forward 2-D transform). As in the counterpart, nothing on the invert
+forward 2-D transform, here from the transposed image). As in the counterpart, nothing on the invert
 or predict path uses the tiled mode: ``probes/fft_tiled.py`` measures it.
 
 The B2 kernel runs each four-step stage as a short FFT (radix passes
@@ -418,7 +418,8 @@ def fft_first_axis_tiled_reference(re, im, f, *, meta: FusedPassMeta,
 
 
 def fft_first_axis_fused(re, im, f, *, meta: FusedPassMeta, sign: int,
-                         prefix: str = "fftp", tiled: bool = False):
+                         prefix: str = "fftp", tiled: bool = False,
+                         out: tuple | None = None):
     """
     DFT along the first axis of (rows, m) split float32 tensors: ``n``
     rows cropped to ``meta.size`` output rows, or (in-cropped)
@@ -433,9 +434,20 @@ def fft_first_axis_fused(re, im, f, *, meta: FusedPassMeta, sign: int,
     (NC, m/MB, n1i, C, MB) layout of all n1i * n2 covered rows (the
     counterpart's ``tiled`` flag); the result equals the row-major
     pass's bit for bit.
+
+    ``out=(out_re, out_im)``: contiguous float32 (rows out, m) tensors
+    on the input's device that receive the result (returned); by
+    default the pass allocates them.
     """
     if re.device != im.device:
         raise ValueError("re and im must be on one device")
+    if out is not None:
+        shape = (meta.size, re.shape[1] * (meta.mb if tiled else 1))
+        for t in out:
+            if (t.device != re.device or t.dtype != torch.float32
+                    or not t.is_contiguous() or tuple(t.shape) != shape):
+                raise ValueError(f"out must be contiguous float32 {shape} "
+                                 f"tensors on the input's device")
     if tiled:
         tile = (meta.n1_in, meta.c, meta.mb)
         if (re.dim() != 5 or re.shape[0] != meta.nc
@@ -447,31 +459,37 @@ def fft_first_axis_fused(re, im, f, *, meta: FusedPassMeta, sign: int,
             )
     if re.device.type == "cuda":
         return _fft_first_axis_cuda(re, im, f, meta=meta, sign=sign,
-                                    prefix=prefix, tiled=tiled)
-    if re.device.type == "cpu":
-        if tiled:
-            return fft_first_axis_tiled_reference(re, im, f, meta=meta,
-                                                  sign=sign)
-        return fft_first_axis_reference(re, im, f, meta=meta, sign=sign)
-    raise ValueError(f"unsupported device {re.device}")
+                                    prefix=prefix, tiled=tiled, out=out)
+    if re.device.type != "cpu":
+        raise ValueError(f"unsupported device {re.device}")
+    if tiled:
+        got = fft_first_axis_tiled_reference(re, im, f, meta=meta, sign=sign)
+    else:
+        got = fft_first_axis_reference(re, im, f, meta=meta, sign=sign)
+    if out is None:
+        return got
+    for dst, src in zip(out, got):
+        dst.copy_(src)
+    return out
 
 
-def fft2_from_image_fused(f, img_re, img_im, *, meta: FusedPassMeta,
-                          prefix: str = "fftq"):
+def fft2_from_image_fused(f, img_t_re, img_t_im, *, meta: FusedPassMeta,
+                          prefix: str = "fftq", out: tuple | None = None):
     """
     Centred forward 2-D DFT of an (npix, npix) image zero-padded to the
-    (n, n) grid: two in-cropped first-axis passes (sign -1) with one
-    transpose between them (counterpart ``fft2_from_image_fused``).
-    The (n, n) result is returned as transposed views.
+    (n, n) grid (counterpart ``fft2_from_image_fused``), from the image
+    TRANSPOSED: two in-cropped first-axis passes (sign -1) with one
+    transpose between them, the first along the image's columns, the
+    second along its rows, so the (n, n) grid comes out row-major, into
+    ``out=(out_re, out_im)`` if given (contiguous float32).
     """
     a_re, a_im = fft_first_axis_fused(
-        img_re, img_im, f, meta=meta, sign=-1, prefix=prefix
+        img_t_re, img_t_im, f, meta=meta, sign=-1, prefix=prefix
     )
-    b_re, b_im = fft_first_axis_fused(
+    return fft_first_axis_fused(
         a_re.t().contiguous(), a_im.t().contiguous(), f, meta=meta,
-        sign=-1, prefix=prefix,
+        sign=-1, prefix=prefix, out=out,
     )
-    return b_re.t(), b_im.t()
 
 
 def pass_factors(f, meta: FusedPassMeta, *, sign: int, prefix: str,
@@ -531,7 +549,7 @@ def _packed_radices(n: int) -> int:
     return sum(r << (4 * i) for i, r in enumerate(sub_fft_radices(n)))
 
 
-def _fft_first_axis_cuda(re, im, f, *, meta, sign, prefix, tiled):
+def _fft_first_axis_cuda(re, im, f, *, meta, sign, prefix, tiled, out):
     global LAUNCHES, IN_CROP_LAUNCHES, TILED_LAUNCHES
     from . import _build
 
@@ -565,10 +583,13 @@ def _fft_first_axis_cuda(re, im, f, *, meta, sign, prefix, tiled):
         m = re.shape[1]
     z_re = torch.empty((n1 * n2, m), dtype=torch.float32, device=re.device)
     z_im = torch.empty_like(z_re)
-    out_re = torch.empty(
-        (meta.size, m), dtype=torch.float32, device=re.device
-    )
-    out_im = torch.empty_like(out_re)
+    if out is None:
+        out_re = torch.empty(
+            (meta.size, m), dtype=torch.float32, device=re.device
+        )
+        out_im = torch.empty_like(out_re)
+    else:
+        out_re, out_im = out
     lib = _build.load_library()
     args = [
         re.data_ptr(), im.data_ptr(), factors["twc"].data_ptr(),

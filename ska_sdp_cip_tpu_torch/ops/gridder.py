@@ -12,17 +12,22 @@ Counterpart: ``ska_sdp_cip_tpu/ops/gridder.py``:
 * ``compact_plan_host_arrays`` (numpy, copied) and ``build_assemble``
   with its double-float helpers (``_two_sum`` ... ``_df_grid_coord``),
   as torch ops (positions formed at patch scale, ROADMAP.md C1);
-* ``_fold_wraps`` and its adjoint ``_unfold_wraps``;
+* ``_fold_wraps`` and its adjoint ``_unfold_wraps`` (now in
+  ``ops/cuda_gridder.py``, inside the kernels' plain versions: the
+  kernels write and read the periodic grid themselves);
 * the plane-group branch of ``build_invert``: per group of G planes,
-  gridding (kernel B1, ``ops/cuda_gridder.py``) -> ``_fold_wraps`` ->
-  two fused first-axis DFT passes per plane (kernel B2,
-  ``ops/fft_cuda.py``; the counterpart's ``_fft2_to_image_fused_t``) ->
-  w-screen correction -> accumulate -> ``finalize_image``;
+  gridding and fold (kernel B1, ``ops/cuda_gridder.py``, over the tile
+  chunks of :func:`tile_chunks`) -> two fused first-axis DFT passes per
+  plane (kernel B2, ``ops/fft_cuda.py``; the counterpart's
+  ``_fft2_to_image_fused_t``) -> w-screen correction -> accumulate ->
+  ``finalize_image``;
 * the plane-group branch of ``build_predict``, its adjoint: per group,
-  per plane w-screen -> two in-cropped fused DFT passes (B2,
-  ``fft2_from_image_fused``) -> ``_unfold_wraps``, then one degridding
-  launch for the group (kernel B3) into a slot accumulator ->
-  ``_finalize``. Both loops also serve ``plane_group == 1``;
+  per plane w-screen -> two in-cropped fused DFT passes (B2, the
+  counterpart's ``fft2_from_image_fused`` on the transposed image, so
+  the second pass writes the periodic grid row-major into the group's
+  stack), then one unfold-and-degrid launch for the group (kernel B3)
+  into a slot accumulator -> ``_finalize``. Both loops also serve
+  ``plane_group == 1``;
 * ``dirty_image`` on the compact staging path and
   ``predict_visibilities``.
 
@@ -39,7 +44,14 @@ import math
 import numpy as np
 import torch
 
-from .cuda_gridder import degrid_planes, grid_planes, pack_plan_columns
+from .cuda_gridder import (  # noqa: F401  (the fold stays importable here,
+                             # where the counterpart keeps it)
+    _fold_wraps,
+    _unfold_wraps,
+    degrid_planes,
+    grid_planes,
+    pack_plan_columns,
+)
 from .fft import fft_plan_arrays, make_fft_plan
 from .fft_cuda import (
     fft2_from_image_fused,
@@ -152,12 +164,86 @@ def group_active_blocks(plan: GridderPlan) -> list:
     return groups
 
 
+#: Blocks per chunk of a tile run, the unit of work of B1 and B3: a run
+#: longer than this is split over thread blocks, so that the uv centre's
+#: tile (83 blocks in the bench plan's largest group) does not hold one
+#: SM. Picked on the card: ``chip_smoke.py`` times the bench group's B1
+#: and B3 at R = 2 to 32 (``chunk_sweep_ms``).
+CHUNK_BLOCKS = 8
+
+#: Chunk flags: the tile's run is split over more than one chunk (every
+#: patch row is added atomically) ...
+CHUNK_SPLIT = 1
+#: ... and the tile holds an alloc row or column that the wrap fold
+#: moves or targets, [0, 2W) or [N, N + 2W) (likewise).
+CHUNK_EDGE = 2
+
+
+def _edge_tiles(plan: GridderPlan, ox, oy) -> np.ndarray:
+    """Whether the patches at alloc origins (ox, oy) hold a row or column
+    in [0, 2W) or [N, N + 2W), the wrap fold's sources and targets."""
+    N, W = plan.ngrid, plan.support
+
+    def touches(lo, size):
+        lo = np.asarray(lo, np.int64)
+        return (lo < 2 * W) | ((lo < N + 2 * W) & (lo + size > N))
+
+    return touches(ox, plan.patch_x) | touches(oy, plan.patch_y)
+
+
+def tile_chunks(plan: GridderPlan, ids,
+                chunk_blocks: int = CHUNK_BLOCKS) -> np.ndarray:
+    """
+    The B1/B3 work list of one plane group: (n, 3) int32 rows (first,
+    count, flags) over ``ids``, the group's sorted active block ids.
+    A run is a stretch of consecutive ``ids`` with one patch origin
+    (``block_ox``, ``block_oy``): the planner sorts slots tile-major, so
+    a run holds all of a tile's active blocks. Each run is cut into
+    chunks of at most ``chunk_blocks`` blocks; ``flags`` carries
+    :data:`CHUNK_SPLIT` when the chunk's tile has more than one chunk
+    and :data:`CHUNK_EDGE` for :func:`_edge_tiles`. Chunks come heaviest
+    first (by slots), so the longest start first on the card.
+    """
+    if chunk_blocks < 1:
+        raise ValueError(f"chunk_blocks must be >= 1, got {chunk_blocks}")
+    ids = np.asarray(ids, np.int64)
+    if ids.size == 0:
+        return np.zeros((0, 3), np.int32)
+    ox = plan.block_ox[ids].astype(np.int64)
+    oy = plan.block_oy[ids].astype(np.int64)
+    key = ox * plan.nalloc_y + oy
+    starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    ends = np.r_[starts[1:], ids.size]
+    per_run = -(-(ends - starts) // chunk_blocks)
+    run = np.repeat(np.arange(starts.size), per_run)
+    rank = np.arange(run.size) - np.repeat(np.cumsum(per_run) - per_run,
+                                           per_run)
+    first = starts[run] + chunk_blocks * rank
+    count = np.minimum(chunk_blocks, ends[run] - first)
+    _, tile, chunks_of_tile = np.unique(key[first], return_inverse=True,
+                                        return_counts=True)
+    flags = (np.where(chunks_of_tile[tile] > 1, CHUNK_SPLIT, 0)
+             | np.where(_edge_tiles(plan, ox[first], oy[first]),
+                        CHUNK_EDGE, 0))
+    slots = np.r_[0, np.cumsum(plan.block_len[ids].astype(np.int64))]
+    order = np.argsort(-(slots[first + count] - slots[first]), kind="stable")
+    return np.stack([first, count, flags], axis=1)[order].astype(np.int32)
+
+
+def group_tile_chunks(plan: GridderPlan,
+                      chunk_blocks: int = CHUNK_BLOCKS) -> list:
+    """:func:`tile_chunks` of every plane group's active blocks."""
+    return [tile_chunks(plan, ids, chunk_blocks)
+            for ids in group_active_blocks(plan)]
+
+
 def plan_host_arrays(plan: GridderPlan, device, *, invert: bool = True,
                      predict: bool = False) -> dict:
     """
     Host (numpy) arrays of a plan that the port's invert and predict
     read on ``device``: the per-block tables, the (num_groups, G) plane
-    w's, the per-group active block lists (padded with -1), the
+    w's, the per-group active block lists (padded with -1) and their
+    B1/B3 chunk tables (:func:`tile_chunks`, padded with zero rows), the
     quadrature rule, and the first-axis DFT factors of the passes that
     run there — on a CUDA device the fused kernel's, ``fftp_*`` for the
     ``invert`` and ``fftq_*`` for the ``predict``; on the CPU the plain
@@ -170,6 +256,13 @@ def plan_host_arrays(plan: GridderPlan, device, *, invert: bool = True,
     group_blocks = np.full((len(lists), width), -1, np.int32)
     for k, ids in enumerate(lists):
         group_blocks[k, : len(ids)] = ids
+    tables = [tile_chunks(plan, ids) for ids in lists]
+    group_chunks = np.zeros(
+        (len(tables), max(max((len(t) for t in tables), default=0), 1), 3),
+        np.int32,
+    )
+    for k, table in enumerate(tables):
+        group_chunks[k, : len(table)] = table
     arrays = {
         "block_len": plan.block_len.astype(np.int32),
         "cblock_ox": plan.block_ox.astype(np.int32),
@@ -178,6 +271,7 @@ def plan_host_arrays(plan: GridderPlan, device, *, invert: bool = True,
         # outside every block's ES window (zero contributions).
         "plane_wg": wg.astype(np.float32).reshape(-1, G),
         "group_blocks": group_blocks,
+        "group_chunks": group_chunks,
     }
     arrays.update(_quad_arrays(plan))
     fft_plan = make_fft_plan(plan.ngrid, shifted=True)
@@ -567,36 +661,6 @@ def stage_compact(plan: GridderPlan, uvw, channel_frequencies, weighted,
     return build_assemble(plan)(arrays, re.to(device), im.to(device))
 
 
-def _fold_wraps(plan: GridderPlan, grid: torch.Tensor) -> torch.Tensor:
-    """Fold the padded alloc frame back onto the periodic N x N grid."""
-    N, W = plan.ngrid, plan.support
-    g = grid[W : W + N, :].clone()
-    g[0:W, :] += grid[W + N : N + 2 * W, :]
-    g[N - W : N, :] += grid[0:W, :]
-    g2 = g[:, W : W + N].clone()
-    g2[:, 0:W] += g[:, W + N : N + 2 * W]
-    g2[:, N - W : N] += g[:, 0:W]
-    return g2
-
-
-def _unfold_wraps(plan: GridderPlan, g: torch.Tensor,
-                  out: torch.Tensor) -> torch.Tensor:
-    """
-    Adjoint of :func:`_fold_wraps`: write the periodic N x N grid ``g``
-    into the alloc frame ``out`` (nalloc_x, nalloc_y) with its wrap
-    edges duplicated, rows first, then columns, as the counterpart does
-    (so the corners match). ``out`` is written in place only inside
-    [0, N + 2W)^2; the rest must already be zero.
-    """
-    N, W = plan.ngrid, plan.support
-    out[W : W + N, W : W + N] = g
-    out[W + N : N + 2 * W, W : W + N] = g[0:W, :]
-    out[0:W, W : W + N] = g[N - W : N, :]
-    out[: N + 2 * W, W + N : N + 2 * W] = out[: N + 2 * W, W : 2 * W]
-    out[: N + 2 * W, 0:W] = out[: N + 2 * W, N : N + W]
-    return out
-
-
 def _prepare_sorted_vis(plan: GridderPlan, arrays: dict, vis_re, vis_im):
     """
     Data-order visibilities -> slot order on the device: gather by the
@@ -648,6 +712,7 @@ def build_invert(plan: GridderPlan):
     npix = plan.num_pixels
     fmeta = _fused_fft_meta(plan)
     counts = [len(ids) for ids in group_active_blocks(plan)]
+    nchunks = [len(c) for c in group_tile_chunks(plan)]
 
     def invert(arrays, re_s, im_s):
         inv_corr, nm1s = _geometry_maps(plan, arrays)
@@ -666,14 +731,12 @@ def build_invert(plan: GridderPlan):
                 w_g,
                 arrays["group_blocks"][k, : counts[k]],
                 plan=plan,
+                chunks=arrays["group_chunks"][k, : nchunks[k]],
             )
             # Planes of a ragged final group beyond nplanes are empty.
             for i in range(min(G, plan.nplanes - k * G)):
                 img_re, img_im = _fft2_to_image_t(
-                    arrays,
-                    _fold_wraps(plan, planes[2 * i]),
-                    _fold_wraps(plan, planes[2 * i + 1]),
-                    fmeta,
+                    arrays, planes[2 * i], planes[2 * i + 1], fmeta
                 )
                 if plan.wstacking:
                     # nm1s is transpose-symmetric, so the transposed
@@ -706,48 +769,51 @@ def build_predict(plan: GridderPlan, *, slot_output: bool = False):
     before comparing against staged data.
     """
     G = plan.plane_group
+    N = plan.ngrid
     fmeta = _fused_fft_meta_ic(plan)
     counts = [len(ids) for ids in group_active_blocks(plan)]
+    nchunks = [len(c) for c in group_tile_chunks(plan)]
 
-    def screened_alloc(arrays, img0, w_p, nm1s, out_re, out_im):
-        """Screen, pad, FFT and unfold one plane's grid into ``out_*``."""
+    def screened_grid(arrays, img0_t, w_p, nm1s, out_re, out_im):
+        """
+        Screen one plane's image and transform it onto its periodic grid
+        in ``out_*`` (views of the group's stack). The image comes
+        transposed (nm1s is transpose-symmetric, so the screen is too):
+        the first in-cropped pass then runs along the image's columns
+        and the second, along its rows, writes the grid row-major.
+        """
         if plan.wstacking:
             theta = (2.0 * math.pi * w_p) * nm1s
-            img_re = img0 * torch.cos(theta)
-            img_im = img0 * torch.sin(theta)
+            img_re = img0_t * torch.cos(theta)
+            img_im = img0_t * torch.sin(theta)
         else:
-            img_re = img0
-            img_im = torch.zeros_like(img0)
-        grid_re, grid_im = fft2_from_image_fused(
-            arrays, img_re, img_im, meta=fmeta
-        )
-        _unfold_wraps(plan, grid_re, out_re)
-        _unfold_wraps(plan, grid_im, out_im)
+            img_re = img0_t
+            img_im = torch.zeros_like(img0_t)
+        fft2_from_image_fused(arrays, img_re, img_im, meta=fmeta,
+                              out=(out_re, out_im))
 
     def predict(arrays, image):
         inv_corr, nm1s = _geometry_maps(plan, arrays)
         device = inv_corr.device
-        img0 = torch.as_tensor(
+        # inv_corr is transpose-symmetric: this is (image * inv_corr)^T.
+        img0_t = torch.as_tensor(
             image, dtype=torch.float32, device=device
-        ) * inv_corr
-        # One (2G, nalloc_x, nalloc_y) stack for every group: each group
-        # rewrites the same [0, N + 2W)^2 window of each plane, so the
-        # margins stay zero.
-        grids = torch.zeros(
-            (2 * G, plan.nalloc_x, plan.nalloc_y), dtype=torch.float32,
-            device=device,
-        )
+        ).t().contiguous() * inv_corr
+        # One (2G, N, N) stack of periodic planes for every group; each
+        # group's passes overwrite its planes whole.
+        grids = torch.empty((2 * G, N, N), dtype=torch.float32,
+                            device=device)
         acc = torch.zeros((2, plan.num_vis), dtype=torch.float32,
                           device=device)
         for k in range(plan.num_groups):
             w_g = arrays["plane_wg"][k]
             num_real = min(G, plan.nplanes - k * G)
             for i in range(num_real):
-                screened_alloc(arrays, img0, w_g[i], nm1s, grids[2 * i],
-                               grids[2 * i + 1])
+                screened_grid(arrays, img0_t, w_g[i], nm1s, grids[2 * i],
+                              grids[2 * i + 1])
             # Pad planes of a ragged final group: their ES w-factor is
-            # zero for every block, so any grid works — reuse the last
-            # real plane's, as the counterpart does.
+            # zero for every block, so any finite grid works — reuse the
+            # last real plane's, as the counterpart does.
             last = grids[2 * (num_real - 1) : 2 * num_real]
             for i in range(num_real, G):
                 grids[2 * i : 2 * i + 2].copy_(last)
@@ -761,6 +827,7 @@ def build_predict(plan: GridderPlan, *, slot_output: bool = False):
                 arrays["group_blocks"][k, : counts[k]],
                 acc,
                 plan=plan,
+                chunks=arrays["group_chunks"][k, : nchunks[k]],
             )
         if slot_output:
             return acc[0], acc[1]

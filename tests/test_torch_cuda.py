@@ -40,11 +40,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _small(seed=23):
+def _small(seed=23, num_times=3, num_antennas=10, num_channels=2):
     rng = np.random.default_rng(seed)
-    uvw, _ = synthetic_uvw(3, 10, max_baseline_m=5000.0, seed=seed)
-    freqs = np.array([1.0e9, 1.07e9])
-    shape = (len(uvw), 2)
+    uvw, _ = synthetic_uvw(num_times, num_antennas, max_baseline_m=5000.0,
+                           seed=seed)
+    freqs = np.linspace(1.0e9, 1.07e9, num_channels)
+    shape = (len(uvw), num_channels)
     vis = (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(
         np.complex64
     )
@@ -52,37 +53,70 @@ def _small(seed=23):
     return uvw, freqs, vis, wgt
 
 
-@pytest.mark.parametrize("wstack", [False, True], ids=["G1", "G2"])
-def test_grid_kernel_matches_plain(cuda, wstack):
-    uvw, freqs, vis, wgt = _small()
-    plan = make_plan(uvw, freqs, 96, PIXEL, do_wstacking=wstack,
-                     export_packed=False)
+#: B1/B3 plans (``tests/test_torch_grid_schedule.py``'s): name ->
+#: (problem size, npix, asec, plan options, blocks a chunk). "small":
+#: every tile an edge tile; "edge": footprints across the periodic edge
+#: beside interior tiles; "split": hot tiles split over chunks of two.
+GRID_PLANS = {
+    "small": ((3, 10, 2), 96, 40.0, {}, None),
+    "edge": ((4, 16, 3), 256, 20.0, {}, None),
+    "split": ((4, 16, 3), 256, 12.0, {"block": 32}, 2),
+}
+
+
+def _grid_problem(cuda, name, wstack):
+    size, npix, asec, kw, blocks = GRID_PLANS[name]
+    uvw, freqs, vis, wgt = _small(23, *size)
+    pixel = float(np.sin(np.radians(asec / 3600.0)))
+    plan = make_plan(uvw, freqs, npix, pixel, do_wstacking=wstack,
+                     export_packed=False, **kw)
     arrays, re_s, im_s = tg.stage_compact(plan, uvw, freqs, vis * wgt, cuda)
+    chunks = [torch.from_numpy(c).to(cuda)
+              for c in tg.group_tile_chunks(plan, blocks or tg.CHUNK_BLOCKS)]
+    return plan, arrays, re_s, im_s, chunks
+
+
+def _launches(degrid, G):
+    if degrid:
+        return tcg.DEGRID_GROUP1_LAUNCHES if G == 1 else tcg.DEGRID_LAUNCHES
+    return tcg.GROUP1_LAUNCHES if G == 1 else tcg.LAUNCHES
+
+
+@pytest.mark.parametrize("name", list(GRID_PLANS))
+@pytest.mark.parametrize("wstack", [False, True], ids=["G1", "G2"])
+def test_grid_kernel_matches_plain(cuda, wstack, name):
+    """B1 (B4 at G = 1) against its folded plain version, plane by plane,
+    at 1e-5 of the plane's max."""
+    plan, arrays, re_s, im_s, chunks = _grid_problem(cuda, name, wstack)
+    G = plan.plane_group
+    assert G == (2 if wstack else 1)
     for k, ids in enumerate(tg.group_active_blocks(plan)):
         args = (
             arrays["packed"], re_s, im_s, arrays["block_len"],
             arrays["cblock_ox"], arrays["block_oy"], arrays["plane_wg"][k],
             arrays["group_blocks"][k, : len(ids)],
         )
-        before = tcg.LAUNCHES
-        got = tcg.grid_planes(*args, plan=plan)
+        before = _launches(False, G)
+        got = tcg.grid_planes(*args, plan=plan, chunks=chunks[k])
         torch.cuda.synchronize()
-        assert tcg.LAUNCHES == before + 1
-        ref = tcg.grid_planes_reference(*args, plan=plan)
+        assert _launches(False, G) == before + 1
+        ref = tcg.grid_planes_folded_reference(*args, plan=plan)
+        assert got.shape == ref.shape == (2 * G, plan.ngrid, plan.ngrid)
         for p in range(ref.shape[0]):
             scale = ref[p].abs().max()
             assert float((got[p] - ref[p]).abs().max() / scale) <= 1e-5
 
 
+@pytest.mark.parametrize("name", list(GRID_PLANS))
 @pytest.mark.parametrize("wstack", [False, True], ids=["G1", "G2"])
-def test_degrid_kernel_matches_plain(cuda, wstack):
-    uvw, freqs, _, _ = _small()
-    plan = make_plan(uvw, freqs, 96, PIXEL, do_wstacking=wstack)
-    arrays = tg.stage_arrays(tg.slot_plan_host_arrays(plan, cuda), cuda)
+def test_degrid_kernel_matches_plain(cuda, wstack, name):
+    """B3 (B5 at G = 1) on random periodic planes against its folded
+    plain version, at 1e-5 of the max."""
+    plan, arrays, _, _, chunks = _grid_problem(cuda, name, wstack)
     G = plan.plane_group
     gen = torch.Generator(device=cuda).manual_seed(7)
-    grids = torch.randn((2 * G, plan.nalloc_x, plan.nalloc_y),
-                        generator=gen, device=cuda)
+    grids = torch.randn((2 * G, plan.ngrid, plan.ngrid), generator=gen,
+                        device=cuda)
     for k, ids in enumerate(tg.group_active_blocks(plan)):
         args = (
             arrays["packed"], arrays["block_len"], arrays["cblock_ox"],
@@ -90,15 +124,28 @@ def test_degrid_kernel_matches_plain(cuda, wstack):
             arrays["group_blocks"][k, : len(ids)],
         )
         acc = torch.zeros((2, plan.num_vis), device=cuda)
-        before = tcg.DEGRID_LAUNCHES
-        got = tcg.degrid_planes(*args, acc, plan=plan)
+        before = _launches(True, G)
+        got = tcg.degrid_planes(*args, acc, plan=plan, chunks=chunks[k])
         torch.cuda.synchronize()
-        assert tcg.DEGRID_LAUNCHES == before + 1
-        ref = tcg.degrid_planes_reference(
+        assert _launches(True, G) == before + 1
+        ref = tcg.degrid_planes_folded_reference(
             *args, torch.zeros_like(acc), plan=plan
         )
         scale = ref.abs().max()
         assert float((got - ref).abs().max() / scale) <= 1e-5
+
+
+def test_kernels_need_the_chunk_table(cuda):
+    plan, arrays, re_s, im_s, _ = _grid_problem(cuda, "small", True)
+    ids = tg.group_active_blocks(plan)[0]
+    before = tcg.LAUNCHES
+    with pytest.raises(ValueError, match="chunk"):
+        tcg.grid_planes(
+            arrays["packed"], re_s, im_s, arrays["block_len"],
+            arrays["cblock_ox"], arrays["block_oy"], arrays["plane_wg"][0],
+            arrays["group_blocks"][0, : len(ids)], plan=plan,
+        )
+    assert tcg.LAUNCHES == before
 
 
 #: B2's in-cropped cases: m = 102 and 98 are not multiples of 4 (the
@@ -141,10 +188,11 @@ def test_predict_on_card_matches_dft(cuda, wstack):
     image = np.zeros((64, 64), np.float32)
     image[37, 29], image[23, 40] = 1.7, 0.8
     ref = predict_dft(uvw, freqs, image, PIXEL, apply_w=wstack)
-    before = (tcg.DEGRID_LAUNCHES, tfc.IN_CROP_LAUNCHES)
+    before = (tcg.DEGRID_LAUNCHES + tcg.DEGRID_GROUP1_LAUNCHES,
+              tfc.IN_CROP_LAUNCHES)
     got = tg.predict_visibilities(uvw, freqs, image, PIXEL, epsilon=1e-5,
                                   do_wstacking=wstack, device=cuda)
-    assert tcg.DEGRID_LAUNCHES > before[0]
+    assert tcg.DEGRID_LAUNCHES + tcg.DEGRID_GROUP1_LAUNCHES > before[0]
     assert tfc.IN_CROP_LAUNCHES > before[1]
     assert np.abs(got - ref).max() / np.abs(ref).max() <= 1e-4
 
@@ -197,8 +245,10 @@ def test_fft_kernel_refuses_factors_of_the_other_sign(cuda):
 def test_dirty_image_on_card_matches_dft(cuda, wstack):
     uvw, freqs, vis, wgt = _small(seed=5)
     ref = dirty_image_dft(uvw, freqs, vis, wgt, 128, PIXEL, apply_w=wstack)
+    before = tcg.LAUNCHES + tcg.GROUP1_LAUNCHES
     got = tg.dirty_image(uvw, freqs, vis, wgt, 128, PIXEL,
                          do_wstacking=wstack, device=cuda)
+    assert tcg.LAUNCHES + tcg.GROUP1_LAUNCHES > before
     assert np.abs(got - ref).max() / np.abs(ref).max() <= 1e-4
 
 

@@ -1,11 +1,13 @@
 """
-The torch port's degridding (the plain version of kernel B3, which is
-B5 at G = 1) against the JAX package's Pallas degrid kernels in
+The torch port's degridding (the folded plain version of kernel B3,
+which is B5 at G = 1) against the JAX package's Pallas degrid kernels in
 interpret mode, on one plan (``plan_from_fields``) and the same random
-planes: slot contributions to 1e-5 of the max, for the group kernel
-(G = 2, every group) and the single-plane kernel (G = 1, w-stacking off
-and on). The JAX side contracts in bf16x3, the port in float32; the
-float64 run of the plain version is held to the same tolerance.
+periodic planes, unfolded for the JAX kernels by the JAX package's own
+``_unfold_wraps``: slot contributions to 1e-5 of the max, for the group
+kernel (G = 2, every group) and the single-plane kernel (G = 1,
+w-stacking off and on). The JAX side contracts in bf16x3, the port in
+float32; the float64 run of the plain version is held to the same
+tolerance.
 """
 
 import dataclasses
@@ -41,9 +43,14 @@ def _problem(do_wstacking, seed=23):
     port_plan = tplan.plan_from_fields(dataclasses.asdict(plan))
     rng = np.random.default_rng(seed)
     grids = rng.normal(
-        size=(2 * plan.plane_group, plan.nalloc_x, plan.nalloc_y)
+        size=(2 * plan.plane_group, plan.ngrid, plan.ngrid)
     ).astype(np.float32)
     return plan, port_plan, packed4, data, grids
+
+
+def _unfolded(plan, grids):
+    """The JAX package's alloc frame of each periodic plane."""
+    return [jg._unfold_wraps(plan, jnp.asarray(g)) for g in grids]
 
 
 def _step_args(plan, k):
@@ -72,7 +79,7 @@ def _port(port_plan, packed4, grids, w_g, k, dtype=torch.float32,
         t(tg.group_active_blocks(port_plan)[k]),
         torch.zeros((2, port_plan.num_vis), dtype=dtype),
     )
-    fn = tcg.degrid_planes_reference if reference else tcg.degrid_planes
+    fn = tcg.degrid_planes_folded_reference if reference else tcg.degrid_planes
     return fn(*args, plan=port_plan).numpy()
 
 
@@ -92,8 +99,7 @@ def test_group_reference_matches_pallas_group_kernel(k):
     w_g = jg.plan_host_arrays(plan)["plane_wg"][k]
     degrid_group = jpg.build_degrid_planes_pallas_group(plan, interpret=True)
     ref = degrid_group(
-        *_step_args(plan, k), data, [jnp.asarray(g) for g in grids],
-        jnp.asarray(w_g),
+        *_step_args(plan, k), data, _unfolded(plan, grids), jnp.asarray(w_g),
     )
     before = tcg.DEGRID_LAUNCHES
     ours = _port(port_plan, packed4, grids, w_g, k)
@@ -109,8 +115,8 @@ def test_single_plane_reference_matches_pallas_kernel():
     assert plan.plane_group == 1 and plan.nplanes == 1
     degrid_plane = jpg.build_degrid_planes_pallas(plan, interpret=True)
     ref = degrid_plane(
-        *_step_args(plan, 0), data, jnp.asarray(grids[0]),
-        jnp.asarray(grids[1]), jnp.asarray(plan.plane_w[0]),
+        *_step_args(plan, 0), data, *_unfolded(plan, grids),
+        jnp.asarray(plan.plane_w[0]),
     )
     ours = _port(port_plan, packed4, grids, plan.plane_w[:1], 0)
     _assert_close(ours, ref)
@@ -126,10 +132,10 @@ def test_single_plane_wstacked_matches_pallas_kernel(monkeypatch):
     plan, port_plan, packed4, data, grids = _problem(True, seed=29)
     assert plan.plane_group == 1 and plan.wstacking
     degrid_plane = jpg.build_degrid_planes_pallas(plan, interpret=True)
+    alloc = _unfolded(plan, grids)
     for p in (1, plan.nplanes // 2):
         ref = degrid_plane(
-            *_step_args(plan, p), data, jnp.asarray(grids[0]),
-            jnp.asarray(grids[1]), jnp.asarray(plan.plane_w[p]),
+            *_step_args(plan, p), data, *alloc, jnp.asarray(plan.plane_w[p]),
         )
         w_p = plan.plane_w[p : p + 1]
         ours = _port(port_plan, packed4, grids, w_p, p)

@@ -240,18 +240,54 @@ def test_fused_in_crop_pass_matches_pallas(n, in_crop):
 
 
 def test_fft2_from_image_matches_jax():
-    """Predict's forward 2-D transform of a zero-padded image."""
+    """Predict's forward 2-D transform of a zero-padded image: the port
+    takes the image transposed and returns the grid row-major."""
     n, in_crop = 256, (64, 128)
     _, meta, jax_f, _, tmeta, torch_f, _ = _setup(
         n, None, -1, in_crop=in_crop, prefix="fftq"
     )
     re, im = _inputs(128, 128, seed=19)
     ours = tfc.fft2_from_image_fused(
-        torch_f, torch.from_numpy(re), torch.from_numpy(im), meta=tmeta
+        torch_f, torch.from_numpy(re.T.copy()), torch.from_numpy(im.T.copy()),
+        meta=tmeta,
     )
     ref = jfp.fft2_from_image_fused(
         jax_f, jnp.asarray(re), jnp.asarray(im), meta=meta, prefix="fp",
         interpret=True,
     )
-    assert ours[0].shape == (n, n)
+    assert ours[0].shape == (n, n) and ours[0].is_contiguous()
     _assert_close([o.numpy() for o in ours], ref)
+
+
+def test_fft2_from_image_into_out():
+    """With ``out=`` (views of a plane stack, as predict passes them)
+    the grid lands in those tensors, equal to the allocated result."""
+    n, in_crop = 256, (64, 128)
+    *_, tmeta, torch_f, _ = _setup(n, None, -1, in_crop=in_crop,
+                                   prefix="fftq")
+    re, im = (torch.from_numpy(x) for x in _inputs(128, 128, seed=23))
+    stack = torch.full((2, n, n), float("nan"))
+    got = tfc.fft2_from_image_fused(torch_f, re, im, meta=tmeta,
+                                    out=(stack[0], stack[1]))
+    assert all(g.data_ptr() == s.data_ptr() for g, s in zip(got, stack))
+    want = tfc.fft2_from_image_fused(torch_f, re, im, meta=tmeta)
+    for g, w in zip(stack, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "strided"])
+def test_fft_pass_rejects_bad_out(bad):
+    """``out=`` must be contiguous float32 tensors of the pass's output
+    shape; anything else raises before the pass runs."""
+    n, in_crop = 256, (64, 128)
+    *_, tmeta, torch_f, _ = _setup(n, None, -1, in_crop=in_crop,
+                                   prefix="fftq")
+    re, im = (torch.from_numpy(x) for x in _inputs(128, 16, seed=29))
+    out = {
+        "shape": torch.empty((n, 17)),
+        "dtype": torch.empty((n, 16), dtype=torch.float64),
+        "strided": torch.empty((16, n)).t(),
+    }[bad]
+    with pytest.raises(ValueError, match="out must be"):
+        tfc.fft_first_axis_fused(re, im, torch_f, meta=tmeta, sign=-1,
+                                 prefix="fftq", out=(out, out))

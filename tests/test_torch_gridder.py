@@ -2,11 +2,12 @@
 The torch port's gridding (the plain version of kernel B1) and device
 prologue against the JAX package's.
 
-* ``grid_planes`` on CPU tensors (its plain version) must reproduce the
-  Pallas strip kernels in interpret mode plane by plane, to 1e-5 of
-  each plane's max: the group kernel (G = 2) and the single-plane
-  kernel (G = 1); the w-stacked G = 1 case is held as its test says.
-  The JAX side contracts in bf16x3, the port in float32.
+* ``grid_planes`` on CPU tensors (its folded plain version) must
+  reproduce the Pallas strip kernels in interpret mode followed by the
+  JAX package's own ``_fold_wraps``, plane by plane, to 1e-5 of each
+  plane's max: the group kernel (G = 2) and the single-plane kernel
+  (G = 1); the w-stacked G = 1 case is held as its test says. The JAX
+  side contracts in bf16x3, the port in float32.
 * ``build_assemble`` must rebuild the JAX prologue's |w| row and
   slot-order visibilities (same double-float arithmetic in float32),
   and the host planner's positions, which the JAX prologue rounds at
@@ -109,6 +110,11 @@ def _step_args(plan, k):
     )
 
 
+def _folded(plan, planes):
+    """The JAX package's fold of each alloc-frame plane."""
+    return [np.asarray(jg._fold_wraps(plan, jnp.asarray(p))) for p in planes]
+
+
 def _assert_planes_close(ours, ref_planes, rtol=PLANE_RTOL):
     assert ours.shape[0] == len(ref_planes)
     for p, ref in enumerate(ref_planes):
@@ -133,7 +139,7 @@ def test_group_reference_matches_pallas_group_kernel(k):
     grid_group = jpg.build_grid_planes_pallas_group(plan, interpret=True)
     ref = grid_group(*_step_args(plan, k), data, jnp.asarray(w_g))
     ours = _port_group(port_plan, packed4, re, im, w_g, k)
-    _assert_planes_close(ours, ref)
+    _assert_planes_close(ours, _folded(plan, ref))
 
 
 def test_single_plane_reference_matches_pallas_kernel():
@@ -142,7 +148,7 @@ def test_single_plane_reference_matches_pallas_kernel():
     grid_plane = jpg.build_grid_planes_pallas(plan, interpret=True)
     ref = grid_plane(*_step_args(plan, 0), data, jnp.asarray(plan.plane_w[0]))
     ours = _port_group(port_plan, packed4, re, im, plan.plane_w[:1], 0)
-    _assert_planes_close(ours, ref)
+    _assert_planes_close(ours, _folded(plan, ref))
 
 
 def test_single_plane_wstacked_matches_pallas_kernel(monkeypatch):
@@ -165,8 +171,8 @@ def test_single_plane_wstacked_matches_pallas_kernel(monkeypatch):
         )
         ours = _port_group(port_plan, packed4, re, im, plan.plane_w[p:p + 1],
                            p)
-        _assert_planes_close(ours, ref, rtol=2 * 1.03e-5)
-        exact = tcg.grid_planes_reference(
+        _assert_planes_close(ours, _folded(plan, ref), rtol=2 * 1.03e-5)
+        exact = tcg.grid_planes_folded_reference(
             t(packed4[:3].astype(np.float64)),
             t(re.astype(np.float64)),
             t(im.astype(np.float64)),
