@@ -6,8 +6,9 @@ reference; this package mirrors its layout module for module and runs
 the same invert path (visibility dataset -> dirty image) on an NVIDIA
 Hopper card through hand-written CUDA kernels (``csrc/``), or on the
 CPU through their plain PyTorch versions, and its adjoint, predict
-(image -> visibilities), which closes the Hogbom/Clark major cycle
-(``models``). It imports ``torch`` and
+(image -> visibilities), which closes the Hogbom/Clark, multiscale and
+FISTA major cycles (``models``), behind the imaging CLI
+``tpu-cip-torch`` (``apps/pipeline_app.py``). It imports ``torch`` and
 numpy only — never ``jax`` and never the JAX package — because the
 machine that carries the card has no JAX at all. Framework-free host
 code (planner, VZ reader, synthetic data, DFT oracle) is therefore

@@ -4,9 +4,10 @@ Invert: visibility dataset -> Stokes-I dirty image.
 Counterpart: ``ska_sdp_cip_tpu/invert.py`` (``StokesIGridderInput``,
 ``grid_invert``, ``invert_dataset``, ``integrate_weighted_images``),
 with the gridder replaced by the port's (``ops/gridder.py``) and an
-explicit ``device`` on every entry point. Natural weighting only: the
-other schemes and ``sharded_invert_dataset`` are still to be ported
-(ROADMAP.md, queue A).
+explicit ``device`` on every entry point. ``invert_dataset`` takes the
+counterpart's weighting schemes (natural, uniform, Briggs robust;
+``models/weighting.py``); ``sharded_invert_dataset`` is still to be
+ported (ROADMAP.md, A9).
 """
 
 from __future__ import annotations
@@ -131,15 +132,37 @@ def invert_dataset(
 ) -> NDArray:
     """
     Single-device invert of a visibility dataset to a normalized dirty
-    image, on ``device`` (e.g. ``"cuda"`` or ``"cpu"``).
+    image, on ``device`` (e.g. ``"cuda"`` or ``"cpu"``). ``weighting``
+    selects the imaging weighting scheme (natural/uniform/robust; see
+    ``models/weighting.py``).
     """
-    if weighting != "natural":
-        raise NotImplementedError(
-            f"weighting={weighting!r}: the torch port supports natural "
-            "weighting only; uniform/robust weighting is still to be "
-            "ported (ROADMAP.md, queue A)"
-        )
     gridder_input = StokesIGridderInput.from_reader(reader)
+    if weighting != "natural":
+        from .models.weighting import ImagingWeighter
+
+        weighter = ImagingWeighter(
+            num_pixels,
+            pixel_size_lm_from_asec(pixel_size_asec),
+            scheme=weighting,
+            robust=robust,
+        ).fit(
+            gridder_input.uvw,
+            gridder_input.channel_frequencies,
+            gridder_input.effective_weights(),
+        )
+        reweighted = weighter.apply(
+            gridder_input.uvw,
+            gridder_input.channel_frequencies,
+            gridder_input.effective_weights(),
+        )
+        # Fold flags back out: effective weights already zero them.
+        gridder_input = StokesIGridderInput(
+            channel_frequencies=gridder_input.channel_frequencies,
+            flags=np.zeros_like(gridder_input.flags),
+            uvw=gridder_input.uvw,
+            visibilities=gridder_input.visibilities,
+            weights=reweighted,
+        )
     image, total_weight = grid_invert(
         gridder_input,
         num_pixels,

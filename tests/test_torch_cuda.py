@@ -407,3 +407,98 @@ def test_smem_probe_maximum_is_the_device_attribute(cuda):
     assert out["matches_attribute"]
     assert out["read_back_exact"] and out["max_abs_err"] == 0
     assert smem.smem_probe(out["max_bytes"] + 1, cuda) is None
+
+
+#: Kernels for the solvers' convolution on the card: the default scales'
+#: widest (radius 17), and a random one (mixed signs, no smoothing), on
+#: which a TF32 algorithm's rounding would show most.
+CONV_KERNELS = ("scale8", "random")
+
+
+@pytest.mark.parametrize("kind", CONV_KERNELS)
+def test_conv_same_on_card_is_float32(cuda, kind):
+    """``_conv_same`` on the card against the CPU with cuDNN's TF32 left
+    at PyTorch's default (allowed): the function's own flag keeps the
+    convolution in float32 (1e-5 of the max), whichever algorithm cuDNN
+    picks (on an H100 with torch 2.11 it runs a direct kernel that uses
+    no tensor cores even with TF32 allowed)."""
+    from ska_sdp_cip_tpu_torch.models import multiscale as tms
+
+    rng = np.random.default_rng(13)
+    image = rng.normal(size=(512, 512)).astype(np.float32)
+    kernel = (tms.scale_kernel(8.0, 17) if kind == "scale8"
+              else rng.normal(size=(35, 35)).astype(np.float32))
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = tms._conv_same(torch.from_numpy(image).to(cuda),
+                             torch.from_numpy(kernel).to(cuda))
+        torch.cuda.synchronize()
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    ref = tms._conv_same(torch.from_numpy(image), torch.from_numpy(kernel))
+    err = (got.cpu() - ref).abs().max() / ref.abs().max()
+    assert err <= 1e-5
+
+
+def _solver_problem(npix=128, seed=41):
+    """A sidelobed compact PSF and a dirty image of three point sources,
+    an extended one and noise (well-separated peaks)."""
+    rng = np.random.default_rng(seed)
+    psf = np.zeros((npix, npix), np.float32)
+    axis = np.arange(-15, 16)
+    core = np.exp(-0.5 * np.add.outer(axis**2, axis**2) / 9.0)
+    c = npix // 2
+    psf[c - 15 : c + 16, c - 15 : c + 16] = core
+    psf += 0.05 * np.cos(np.arange(npix) / 3.0)[None, :].astype(np.float32)
+    dirty = 0.01 * rng.normal(size=(npix, npix)).astype(np.float32)
+    for (i, j), flux in (((30, 100), 2.0), ((90, 40), 1.1), ((64, 64), 0.7)):
+        dirty[i - 15 : i + 16, j - 15 : j + 16] += flux * core
+    blob = np.exp(-0.5 * np.add.outer(axis**2, axis**2) / 36.0)
+    dirty[80:111, 80:111] += 1.5 * blob
+    return dirty, psf
+
+
+@pytest.mark.parametrize("biases", [(1.0, 0.85, 0.7), (1.0, 1.4, 1.8)],
+                         ids=["default", "rising"])
+@pytest.mark.parametrize("psf_patch", [None, 64], ids=["exact", "clark"])
+def test_multiscale_minor_on_card_matches_cpu(cuda, psf_patch, biases):
+    from ska_sdp_cip_tpu_torch.models import multiscale as tms
+
+    dirty, psf = _solver_problem()
+    kernels = np.stack([tms.scale_kernel(s, 9) for s in (0.0, 2.0, 4.0)])
+    args = [torch.from_numpy(a) for a in
+            (dirty, psf, kernels, np.array(biases, np.float32))]
+    kwargs = dict(gain=0.2, max_iter=40, num_scales=3, psf_patch=psf_patch)
+    ref = tms._multiscale_minor(*args, **kwargs)
+    got = tms._multiscale_minor(*[a.to(cuda) for a in args], **kwargs)
+    for g, r in zip(got, ref):
+        assert g.device.type == "cuda"
+        assert (g.cpu() - r).abs().max() <= 1e-5 * r.abs().max()
+
+
+def test_cli_on_card_matches_cpu(cuda, tmp_path):
+    """One ``tpu-cip-torch`` call on the card (robust weighting, two
+    multiscale major cycles) against the same call on the CPU: the dirty
+    image to 1e-5 of its max, model, residual and restored image to
+    1e-4."""
+    from ska_sdp_cip_tpu_torch.apps.pipeline_app import run_program
+    from ska_sdp_cip_tpu_torch.io.synth import make_synthetic_dataset
+
+    path = make_synthetic_dataset(tmp_path / "obs.vz", num_times=6,
+                                  num_antennas=16, seed=4321)
+    common = [str(path), "-n", "128", "-p", "30.0", "--weighting", "robust",
+              "--clean", "2", "--algorithm", "multiscale", "--minor-iter",
+              "30"]
+    before = tcg.LAUNCHES + tcg.DEGRID_LAUNCHES
+    run_program([common[0], str(tmp_path / "card.npy"), *common[1:]])
+    assert tcg.LAUNCHES + tcg.DEGRID_LAUNCHES > before
+    run_program([common[0], str(tmp_path / "host.npy"), *common[1:],
+                 "--device", "cpu"])
+    for suffix, rtol in ((".npy", 1e-5), (".model.npy", 1e-4),
+                         (".residual.npy", 1e-4), (".restored.npy", 1e-4)):
+        got = np.load(tmp_path / f"card{suffix}")
+        ref = np.load(tmp_path / f"host{suffix}")
+        assert np.isfinite(got).all(), suffix
+        assert np.abs(got - ref).max() <= rtol * np.abs(ref).max(), suffix

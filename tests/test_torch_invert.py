@@ -84,8 +84,8 @@ def test_invert_dataset_matches_jax_and_dft(dataset, wstack, monkeypatch):
 
 def test_invert_dataset_options(dataset):
     reader = VisibilityReader(dataset)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        invert_dataset(reader, NPIX, ASEC, weighting="uniform", device="cpu")
+    with pytest.raises(ValueError, match="weighting scheme"):
+        invert_dataset(reader, NPIX, ASEC, weighting="briggs", device="cpu")
     with pytest.raises(TypeError):
         invert_dataset(reader, NPIX, ASEC)  # no device: none is picked
     if not torch.cuda.is_available():
