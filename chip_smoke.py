@@ -10,6 +10,13 @@ Builds the CUDA kernels from ``ska_sdp_cip_tpu_torch/csrc`` with nvcc
 then runs these phases and prints one JSON object per phase:
 
 1. ``device``: card name, ``nvidia-smi`` name and power limit, build time;
+   then ``planner``: the native planner engine (``csrc/cip_native.cpp``,
+   built with the host C++ compiler; the phase fails unless it is in
+   use): its build seconds and compiler, and at the bench workload and
+   the production configuration its plans against the numpy planner's
+   (every field; the exported columns, phases within 1e-6), each
+   planner's seconds, and ``stage_slot_vis`` and the weighting density
+   on each;
 2. ``b1``: the gridding kernel (B1, which folds onto the periodic grid
    itself) against its folded plain version, on every plane group of
    the small plans (:func:`small_plans`: every tile an edge tile,
@@ -50,13 +57,20 @@ then runs these phases and prints one JSON object per phase:
    device="cuda")`` on a 5,836,800-visibility synthetic dataset, with
    the kernels' launch counts, the brightest source's peak position, a
    float64 DFT spot check of 448 pixels, the median wall time of 3 runs
-   after a warm run, a per-stage breakdown and a profile of one call;
+   after a warm run, a per-stage breakdown (with the planner that ran,
+   whether the image came down into a pinned buffer, and the seconds
+   of the path not taken in each direction: the pageable download and
+   the pinned upload) and a profile of one call;
 8. ``major_cycle``: ``MeasurementOperator.build`` + ``major_cycle_clean(
    num_major=3, minor_iter=100)`` on the same dataset, gated on the
    residual (below 0.6 x the dirty peak) and on the brightest CLEAN
    component (at the brightest source's pixel), with the plan and
    staging seconds, the seconds of each major cycle, the kernels'
-   launch counts and a profile of one cycle;
+   launch counts and a profile of one cycle; then ``tiles``: the
+   dataset reordered by ``tpu-cip-reorder-uvw-torch`` and inverted from
+   the tile store by ``invert_tile_chunks`` on the card, against
+   ``invert_dataset`` (atol 1e-4 of the max, rtol 1e-3) and the float64
+   DFT (1e-4), with the reorder's and the invert's seconds;
 9. ``b6``: the tiled-input probe (``probes/fft_tiled.py``) at 15360^2
    and 4096^2: B6 (``pretile_first_axis``) against its plain version
    and B2 on tiled input against B2 on row-major input, both exact,
@@ -967,7 +981,9 @@ def phase_predict(device, bench: dict, npix=256, repeats=3) -> dict:
 
 def predict_breakdown(uvw, freqs, image, pix, device, **plan_kw) -> dict:
     """Seconds per stage of one predict_visibilities call, synchronized,
-    and a profile of its device part."""
+    a profile of its device part, which planner ran, whether the
+    visibilities came down into a pinned buffer, and the seconds of the
+    same arrays' upload through pinned buffers."""
     import torch
 
     from ska_sdp_cip_tpu_torch.ops.gridder import (
@@ -976,24 +992,27 @@ def predict_breakdown(uvw, freqs, image, pix, device, **plan_kw) -> dict:
         stage_arrays,
     )
     from ska_sdp_cip_tpu_torch.ops.plan import make_plan
+    from ska_sdp_cip_tpu_torch.utils.staging import device_get
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize()
 
-    out = {}
+    out = {"planner": planner_name()}
     t = time.perf_counter()
     plan = make_plan(uvw, freqs, image.shape[0], pix, **plan_kw)
     out["plan_seconds"] = time.perf_counter() - t
     t = time.perf_counter()
     host = slot_plan_host_arrays(plan, device, invert=False)
     out["host_arrays_seconds"] = time.perf_counter() - t
+    host["image"] = image
     sync()
     t = time.perf_counter()
     arrays = stage_arrays(host, device)
-    img = torch.from_numpy(image).to(device)
+    img = arrays.pop("image")
     sync()
     out["h2d_seconds"] = time.perf_counter() - t
+    out["h2d_pinned_seconds"] = pinned_upload_seconds(host, device)
     predict = build_predict(plan)
     predict(arrays, img)  # warm
     sync()
@@ -1002,8 +1021,10 @@ def predict_breakdown(uvw, freqs, image, pix, device, **plan_kw) -> dict:
     sync()
     out["predict_device_seconds"] = time.perf_counter() - t
     t = time.perf_counter()
-    re.cpu(), im.cpu()
+    host_re, _ = device_get(re), device_get(im)
     out["d2h_seconds"] = time.perf_counter() - t
+    out["d2h_pinned"] = bool(torch.from_numpy(host_re).is_pinned())
+    del host_re
     out["profile_device_part"] = profile_call(lambda: predict(arrays, img),
                                               device)
     return out
@@ -1085,6 +1106,7 @@ def phase_slice(device, path: Path, dataset_seconds: float, seed=1234,
         "median_wall_seconds": wall,
         "mvis_per_s": num_vis / wall / 1e6,
         "launches": launches,
+        "planner": planner_name(),
         "peak_pixel": [int(p) for p in peak],
         "expected_pixel": [int(e) for e in expected],
         "peak_value": float(image.max()),
@@ -1249,10 +1271,37 @@ def slice_breakdown(reader, npix, asec, device) -> dict:
     return out
 
 
+def pinned_upload_seconds(host: dict, device):
+    """Seconds of the same host arrays' upload through pinned buffers,
+    the path ``utils/staging.py`` does not take: each array (as
+    ``stage_arrays`` converts it) filled into a pinned buffer, then
+    copied with ``non_blocking=True``; synchronized, the second of two
+    runs, so the caching host allocator already holds the buffers.
+    None off the card (a CPU-only torch cannot pin)."""
+    import torch
+
+    from ska_sdp_cip_tpu_torch.utils.staging import _host_array
+
+    if device.type != "cuda":
+        return None
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for value in host.values():
+            if not isinstance(value, int):
+                pinned = torch.from_numpy(_host_array(value)).pin_memory()
+                pinned.to(device, non_blocking=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+    return seconds
+
+
 def invert_breakdown(uvw, freqs, weighted, npix, pix, device,
                      **plan_kw) -> dict:
     """Seconds per stage of one invert of weighted visibilities
-    (``dirty_image``'s steps), synchronized."""
+    (``dirty_image``'s steps), synchronized; which planner ran, whether
+    the image came down into a pinned buffer, and the pageable
+    download's seconds (``image.cpu()``) on the same image."""
     import torch
 
     from ska_sdp_cip_tpu_torch.ops.gridder import (
@@ -1262,26 +1311,28 @@ def invert_breakdown(uvw, freqs, weighted, npix, pix, device,
         stage_arrays,
     )
     from ska_sdp_cip_tpu_torch.ops.plan import make_plan
+    from ska_sdp_cip_tpu_torch.utils.staging import device_get
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize()
 
     weighted = np.asarray(weighted, np.complex64).ravel()
-    out = {}
+    out = {"planner": planner_name()}
     t = time.perf_counter()
     plan = make_plan(uvw, freqs, npix, pix, export_packed=False, **plan_kw)
     out["plan_seconds"] = time.perf_counter() - t
     t = time.perf_counter()
     host = compact_plan_host_arrays(plan, uvw, freqs, device)
     out["host_arrays_seconds"] = time.perf_counter() - t
+    host["re"], host["im"] = weighted.real, weighted.imag
     sync()
     t = time.perf_counter()
     arrays = stage_arrays(host, device)
-    re = torch.from_numpy(np.ascontiguousarray(weighted.real)).to(device)
-    im = torch.from_numpy(np.ascontiguousarray(weighted.imag)).to(device)
+    re, im = arrays.pop("re"), arrays.pop("im")
     sync()
     out["h2d_seconds"] = time.perf_counter() - t
+    out["h2d_pinned_seconds"] = pinned_upload_seconds(host, device)
     t = time.perf_counter()
     arrays, re_s, im_s = build_assemble(plan)(arrays, re, im)
     sync()
@@ -1292,10 +1343,267 @@ def invert_breakdown(uvw, freqs, weighted, npix, pix, device,
     sync()
     out["invert_device_seconds"] = time.perf_counter() - t
     t = time.perf_counter()
-    image.cpu()
+    host_image = device_get(image)
     out["d2h_seconds"] = time.perf_counter() - t
+    out["d2h_pinned"] = bool(torch.from_numpy(host_image).is_pinned())
+    del host_image
+    t = time.perf_counter()
+    image.cpu()
+    out["d2h_pageable_seconds"] = time.perf_counter() - t
     if device.type == "cuda":
         out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def planner_name() -> str:
+    """Which planner ``make_plan`` runs: the native engine or numpy."""
+    from ska_sdp_cip_tpu_torch import native
+
+    return "native" if native.available() else "numpy"
+
+
+@contextlib.contextmanager
+def numpy_planner():
+    """The port's planner on its numpy path: the native engine off."""
+    from ska_sdp_cip_tpu_torch import native
+
+    available = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = available
+
+
+def timed(fn, *args, **kwargs) -> tuple:
+    """(result, host seconds) of one call."""
+    t = time.perf_counter()
+    out = fn(*args, **kwargs)
+    return out, time.perf_counter() - t
+
+
+#: Plan columns that only the native engine exports.
+ENGINE_EXPORTS = ("packed", "flip_sign", "phase_cos", "phase_sin",
+                  "order_enc")
+
+
+#: Float slot columns in which the engine may differ from numpy by one
+#: float32 ulp: it scales by 1 / du where numpy divides by du, so a
+#: float64 position one ulp apart can round to the neighbouring float32
+#: (1 of 1.46M samples of the bench geometry; ROADMAP.md, C6).
+ULP_COLUMNS = ("fx", "fy", "ws")
+
+#: At most this many entries of a column may be one ulp apart: the bench
+#: workload has one; a change of the engine's rounding that moved many
+#: fails the gate.
+ULP_APART_MAX = 4
+
+
+def ulp_apart(a, b) -> int:
+    """How many entries of float32 arrays differ, failing with -1 if any
+    differs by more than one float32 ulp."""
+    diff = np.abs(a.astype(np.float64) - b.astype(np.float64))
+    if (diff > np.spacing(np.abs(b).astype(np.float32))).any():
+        return -1
+    return int(np.count_nonzero(diff))
+
+
+def compare_plans(ours, ref) -> dict:
+    """
+    A native plan with its coordinates exported against the numpy plan:
+    the fields that differ (every integer slot column, block table and
+    scalar must be equal; at most :data:`ULP_APART_MAX` entries of each
+    of :data:`ULP_COLUMNS` may be one float32 ulp apart, counted in
+    ``ulp_apart``), and the engine's exports against
+    the numpy path's on-demand versions: ``packed`` (counted the same
+    way) and ``flip_sign`` equal, the phase factors' largest error (1e-6
+    allowed), ``order_enc`` equal.
+    """
+    import dataclasses
+
+    from ska_sdp_cip_tpu_torch.ops.cuda_gridder import pack_plan_columns
+    from ska_sdp_cip_tpu_torch.ops.gridder import plan_order_host
+
+    differ, ulps = [], {}
+    for field in dataclasses.fields(ref):
+        if field.name in ENGINE_EXPORTS:
+            continue
+        a, b = getattr(ours, field.name), getattr(ref, field.name)
+        if isinstance(b, np.ndarray):
+            same = (a is not None and a.dtype == b.dtype
+                    and np.array_equal(a, b))
+            if not same and field.name in ULP_COLUMNS and a is not None:
+                ulps[field.name] = ulp_apart(a, b)
+                same = 0 <= ulps[field.name] <= ULP_APART_MAX
+        else:
+            same = type(a) is type(b) and a == b
+        if not same:
+            differ.append(field.name)
+    out = {"fields": len(dataclasses.fields(ref)), "differ": differ,
+           "ulp_apart": ulps}
+    ok = not differ
+    if ours.packed is not None:
+        with numpy_planner():
+            host = plan_order_host(ref)
+        packed = pack_plan_columns(ref)
+        out["packed_equal"] = bool(np.array_equal(ours.packed, packed))
+        out["packed_ulp_apart"] = ulp_apart(ours.packed, packed)
+        ok = ok and 0 <= out["packed_ulp_apart"] <= ULP_APART_MAX
+        out["flip_sign_equal"] = bool(np.array_equal(ours.flip_sign,
+                                                     host["flip_sign"]))
+        out["phase_max_abs_err"] = float(max(
+            np.abs(ours.phase_cos - host["phase_cos"]).max(),
+            np.abs(ours.phase_sin - host["phase_sin"]).max()))
+        ok = (ok and out["flip_sign_equal"]
+              and out["phase_max_abs_err"] <= 1e-6)
+    if ours.order_enc is not None:
+        enc = np.where(ref.flip, -ref.order.astype(np.int64) - 1,
+                       ref.order).astype(np.int32)
+        out["order_enc_equal"] = bool(np.array_equal(ours.order_enc, enc))
+        ok = ok and out["order_enc_equal"]
+    out["equal"] = ok
+    return out
+
+
+def phase_planner(device, configs=None) -> dict:
+    """
+    The native planner engine (``csrc/cip_native.cpp``, built here with
+    the host C++ compiler): its build, and at the bench workload and the
+    production configuration its plans against the numpy planner's
+    (:func:`compare_plans`, the slot export and the compact one), the
+    seconds of each planner, and ``stage_slot_vis`` (1e-6 of the max)
+    and the uniform-weighting density (rtol 1e-12) on each, with their
+    seconds. Fails unless the engine is in use.
+    """
+    from ska_sdp_cip_tpu_torch import native
+    from ska_sdp_cip_tpu_torch.models.weighting import ImagingWeighter
+    from ska_sdp_cip_tpu_torch.ops.gridder import stage_slot_vis
+    from ska_sdp_cip_tpu_torch.ops.plan import make_plan
+
+    if configs is None:
+        configs = {
+            "bench": (bench_visibilities(BENCH_TIMES, BENCH_ANTENNAS,
+                                         BENCH_CHANNELS),
+                      BENCH_NPIX, BENCH_ASEC, {}),
+            "production": (production_visibilities(), PROD_NPIX, PROD_ASEC,
+                           {"sigma": "auto"}),
+        }
+    available, load_seconds = timed(native.available)
+    if not available:
+        raise PhaseError("planner: the native engine is not in use (no C++ "
+                         "compiler on PATH)")
+    out = {"phase": "planner", "engine_load_seconds": load_seconds,
+           "engine_build_seconds": native.build_seconds,
+           "compiler": native.compiler, "configs": {}}
+    for name, (problem, npix, asec, kw) in configs.items():
+        uvw, freqs, vis, wgt = problem
+        pix = float(np.sin(np.radians(asec / 3600.0)))
+        row = {"num_vis": int(vis.size), "npix": npix, "pixel_asec": asec}
+        # The main path's plans: compact for invert, slot for predict.
+        row["engine_compact_seconds"] = [
+            timed(make_plan, uvw, freqs, npix, pix, export_packed=False,
+                  **kw)[1] for _ in range(2)]
+        slot, row["engine_slot_seconds"] = timed(make_plan, uvw, freqs, npix,
+                                                 pix, **kw)
+        with numpy_planner():
+            ref, row["numpy_seconds"] = timed(make_plan, uvw, freqs, npix,
+                                              pix, **kw)
+        row["slot"] = compare_plans(
+            make_plan(uvw, freqs, npix, pix, export_coords=True, **kw), ref)
+        row["compact"] = compare_plans(
+            make_plan(uvw, freqs, npix, pix, export_coords=True,
+                      export_packed=False, **kw), ref)
+        weighted = (vis * wgt).ravel()
+        staged, row["engine_stage_seconds"] = timed(
+            stage_slot_vis, slot, weighted.real, weighted.imag)
+        with numpy_planner():
+            want, row["numpy_stage_seconds"] = timed(
+                stage_slot_vis, ref, weighted.real, weighted.imag)
+        scale = max(float(np.abs(w).max()) for w in want)
+        row["stage_rel_err"] = max(float(np.abs(g - w).max())
+                                   for g, w in zip(staged, want)) / scale
+        weighter = ImagingWeighter(npix, pix, scheme="uniform")
+        density, row["engine_density_seconds"] = timed(
+            weighter.accumulate_density, uvw, freqs, wgt)
+        with numpy_planner():
+            dens_ref, row["numpy_density_seconds"] = timed(
+                weighter.accumulate_density, uvw, freqs, wgt)
+        row["density_equal_rtol_1e-12"] = bool(
+            np.allclose(density, dens_ref, rtol=1e-12, atol=0))
+        out["configs"][name] = row
+        if not (row["slot"]["equal"] and row["compact"]["equal"]
+                and row["stage_rel_err"] <= 1e-6
+                and row["density_equal_rtol_1e-12"]):
+            raise PhaseError(f"planner {name}: the engine differs from the "
+                             f"numpy planner: {row}")
+    return out
+
+
+#: UVW tile size (wavelengths) of the ``tiles`` phase: about 8 x 8 uv
+#: tiles over the bench dataset's 38.7 kilo-wavelength extent.
+TILE_SIZE = (10000.0, 10000.0, 20000.0)
+
+
+def phase_tiles(device, path: Path, workdir: Path, seed=1234,
+                npix=BENCH_NPIX, asec=BENCH_ASEC, intervals=4,
+                workers=4) -> dict:
+    """
+    The tile store on the slice's dataset: ``tpu-cip-reorder-uvw-torch``
+    (``run_program``, in ``workdir``), then ``invert_tile_chunks`` on the
+    card (B1 and B2 launches required), against ``invert_dataset`` on
+    the same data within the reference's tolerance (atol 1e-4 of the
+    max, rtol 1e-3) and the float64 DFT at 448 pixels (1e-4); the
+    reorder's and the invert's seconds.
+    """
+    from ska_sdp_cip_tpu_torch import VisibilityReader, invert_dataset
+    from ska_sdp_cip_tpu_torch.apps.uvw_reorder_app import run_program
+    from ska_sdp_cip_tpu_torch.uvw_tiling.tiled_invert import (
+        invert_tile_chunks,
+    )
+
+    reader = VisibilityReader(path)
+    outdir = workdir / "tiles"
+    argv = [str(path), "-t", *map(str, TILE_SIZE), "-o", str(outdir),
+            "-n", str(intervals), "-j", str(workers)]
+    with contextlib.chdir(workdir):
+        _, reorder_seconds = timed(run_program, argv)
+    paths = sorted(outdir.glob("tile_iu*chunk*.npz"))
+    pix = float(np.sin(np.radians(asec / 3600.0)))
+    freqs = reader.channel_frequencies()
+
+    def run():
+        return invert_tile_chunks(paths, freqs, npix, pix, device=device)
+
+    image, first, launches, walls = timed_calls(run, device, repeats=2)
+    require_launches(launches, ("b1", "b2_out_crop"), device, "tiles")
+    direct = invert_dataset(reader, npix, asec, device=device)
+    scale = float(np.abs(direct).max())
+    diff = np.abs(image - direct)
+    within = bool((diff <= 1e-4 * scale + 1e-3 * np.abs(direct)).all())
+    out = {
+        "phase": "tiles", "tile_size": list(TILE_SIZE),
+        "intervals": intervals, "workers": workers,
+        "tile_files": len(paths),
+        "tile_bytes": sum(p.stat().st_size for p in paths),
+        "reorder_seconds": reorder_seconds,
+        "first_invert_seconds": first, "invert_wall_seconds": walls,
+        "median_invert_wall_seconds": statistics.median(walls),
+        "planner": planner_name(), "launches": launches,
+        "vs_invert_dataset_max_rel": float(diff.max()) / scale,
+        "within_reference_tolerance": within,
+        "finite": bool(np.isfinite(image).all()),
+        "shape": list(image.shape),
+    }
+    if image.shape != (npix, npix) or not out["finite"] or not within:
+        rel = out["vs_invert_dataset_max_rel"]
+        raise PhaseError(f"tiles: the tiled image differs from "
+                         f"invert_dataset ({rel:.3e} of the max) or is not "
+                         "finite")
+    rel = dft_spot_check(reader, image, expected_pixel(seed, npix, asec), pix,
+                         device)
+    out["dft_spot_check"] = rel
+    if not rel["max_rel_err"] <= DFT_RTOL:
+        raise PhaseError(f"tiles vs DFT {rel['max_rel_err']:.3e} > {DFT_RTOL}")
     return out
 
 
@@ -2452,6 +2760,7 @@ def main() -> int:
         "build_seconds": _build.build_seconds,
         "ptxas": ptxas,
     })
+    emit(phase_planner(device))
     bench = bench_problem(device)
     bench_w0 = bench_problem(device, do_wstacking=False)
     b1 = phase_b1(device, bench, bench_w0)
@@ -2474,6 +2783,8 @@ def main() -> int:
         emit(sl)
         mc = phase_major_cycle(device, path)
         emit(mc)
+        tiles = phase_tiles(device, path, Path(tmp))
+        emit(tiles)
         b6 = phase_b6(device)
         emit(b6)
         probes = phase_fft_probes(device)
@@ -2500,7 +2811,7 @@ def main() -> int:
         "e2e_small": e2e["launches"],
         "predict_small": pred["small_launches"],
         "slice": sl["launches"], "predict": pred["bench"]["launches"],
-        "major_cycle": mc["launches"],
+        "major_cycle": mc["launches"], "tiles": tiles["launches"],
         "production_invert": p_inv["launches"],
         "production_predict": p_pred["launches"],
         "production_major_cycle": p_mc["launches"],

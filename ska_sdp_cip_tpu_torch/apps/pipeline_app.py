@@ -215,6 +215,12 @@ def run_program(cli_args: list[str]) -> None:
     reader = VisibilityReader(args.dataset)
     sigma = args.sigma if args.sigma == "auto" else float(args.sigma)
 
+    # Pre-fault the planner's host allocation arenas (utils/hostmem.py):
+    # this moves the cold page faults of the first plan to start-up.
+    from ..ops.plan import prewarm_plan_arenas
+
+    prewarm_plan_arenas(reader.num_data_rows * reader.num_channels)
+
     with _profiled(args.profile_dir):
         image = invert_dataset(
             reader,

@@ -10,10 +10,11 @@ with G = degridding (predict) and G* its exact adjoint (invert).
 Counterpart: ``ska_sdp_cip_tpu/models/operators.py``. The operator
 holds torch tensors on its ``device``; visibilities are carried as
 split (re, im) float32 pairs. It stages like the counterpart: the
-host-built packed rows (``pack_plan_columns``) and order transform
-(``plan_order_host``), slot-order data (``stage_slot_vis``) and weights
-(``stage_slot_weights``); every solver iteration then runs in slot
-space with no gather between predict and invert.
+packed rows (the native engine's, else ``pack_plan_columns``) and
+order transform (``plan_order_host``), slot-order data
+(``stage_slot_vis``) and weights (``stage_slot_weights``), uploaded
+by ``stage_arrays`` (``utils/staging.py``); every solver iteration
+then runs in slot space with no gather between predict and invert.
 """
 
 from __future__ import annotations
@@ -53,16 +54,23 @@ class SlotVis(NamedTuple):
 
 def as_split_pair(vis, device) -> tuple:
     """
-    Normalize a visibility argument — complex array or (re, im) pair —
-    to flattened float32 tensors on ``device``.
+    Normalize a visibility argument — complex array or (re, im) pair of
+    arrays or tensors — to flattened float32 tensors on ``device``; host
+    arrays are uploaded by ``stage_arrays``.
     """
     device = resolve_device(device)
     if not isinstance(vis, tuple):
         arr = np.asarray(vis).ravel()
         vis = (arr.real, arr.imag)
+    staged = stage_arrays(
+        {i: np.asarray(part, np.float32).reshape(-1)
+         for i, part in enumerate(vis) if not isinstance(part, torch.Tensor)},
+        device,
+    )
     return tuple(
-        torch.as_tensor(part, dtype=torch.float32, device=device).reshape(-1)
-        for part in vis
+        staged[i] if i in staged
+        else part.to(device=device, dtype=torch.float32).reshape(-1)
+        for i, part in enumerate(vis)
     )
 
 
@@ -170,10 +178,8 @@ class MeasurementOperator:
             arr = np.asarray(vis).ravel()
             re, im = arr.real, arr.imag
         slot_re, slot_im = stage_slot_vis(self.plan, re, im)
-        return SlotVis(
-            torch.from_numpy(np.ascontiguousarray(slot_re)).to(self.device),
-            torch.from_numpy(np.ascontiguousarray(slot_im)).to(self.device),
-        )
+        staged = stage_arrays({"re": slot_re, "im": slot_im}, self.device)
+        return SlotVis(staged["re"], staged["im"])
 
     def _image(self, image) -> torch.Tensor:
         return torch.as_tensor(image, dtype=torch.float32,

@@ -15,11 +15,9 @@ The density fit is global: :class:`ImagingWeighter` is fitted once on
 the full dataset and then applied per shard, so sharded inverts see
 exactly the weights a single-device run would.
 
-The counterpart's density pass also has a multithreaded C++ branch
-(its native library); that branch comes with the native planner
-engine (ROADMAP.md, A10). Until then the density is always the numpy
-``bincount`` pass below, which the counterpart's tests hold equal to
-its native one.
+The density pass runs on the native engine's multithreaded C++ branch
+(``native.py``) where the engine is available, else on the numpy
+``bincount`` pass below; the tests hold the two equal.
 """
 
 from __future__ import annotations
@@ -84,6 +82,24 @@ class ImagingWeighter:
         """
         if density is None:
             density = np.zeros((self.num_pixels, self.num_pixels))
+        from .. import native as _native
+
+        if (
+            len(uvw)
+            and density.flags.c_contiguous
+            and _native.available()
+        ):
+            # Multithreaded C++ pass (lock-free double adds): the
+            # single-threaded per-sample fit is the plan-time
+            # bottleneck at production sample counts.
+            return _native.density_accumulate(
+                uvw,
+                freqs,
+                weights,
+                inv_cell=1.0 / self.cell,
+                npix=self.num_pixels,
+                density=density,
+            )
         npix = self.num_pixels
         iu, iv = self._cells(uvw, freqs)
         w = np.asarray(weights, np.float64).ravel()

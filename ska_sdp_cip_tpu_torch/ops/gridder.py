@@ -6,9 +6,10 @@ Counterpart: ``ska_sdp_cip_tpu/ops/gridder.py``:
 
 * ``_geometry_maps`` / ``_quad_arrays`` (image-domain correction maps);
 * ``plan_host_arrays`` — here only what the port reads;
-* ``plan_order_host``, ``stage_slot_vis``, ``stage_slot_weights`` and
-  ``slot_duplicate_pairs`` (numpy, copied without the native engine),
-  ``slot_group_sum`` and ``_prepare_sorted_vis`` as torch ops;
+* ``plan_order_host`` and ``stage_slot_vis`` (with their native engine
+  branches, ``native.py``), ``stage_slot_weights`` and
+  ``slot_duplicate_pairs`` (numpy, copied), ``slot_group_sum`` and
+  ``_prepare_sorted_vis`` as torch ops;
 * ``compact_plan_host_arrays`` (numpy, copied) and ``build_assemble``
   with its double-float helpers (``_two_sum`` ... ``_df_grid_coord``),
   as torch ops (positions formed at patch scale, ROADMAP.md C1);
@@ -29,7 +30,8 @@ Counterpart: ``ska_sdp_cip_tpu/ops/gridder.py``:
   into a slot accumulator -> ``_finalize``. Both loops also serve
   ``plane_group == 1``;
 * ``dirty_image`` on the compact staging path and
-  ``predict_visibilities``.
+  ``predict_visibilities``, whose results come down through pinned
+  buffers (``utils/staging.py``).
 
 Everything runs eagerly on the device of the staged tensors; the
 kernels' plain versions run where the tensors lie on the CPU. The
@@ -44,6 +46,8 @@ import math
 import numpy as np
 import torch
 
+from .. import native as _native
+from ..utils.staging import device_get, device_put_parallel
 from .cuda_gridder import (  # noqa: F401  (the fold stays importable here,
                              # where the counterpart keeps it)
     _fold_wraps,
@@ -80,21 +84,12 @@ def resolve_device(device) -> torch.device:
 
 def stage_arrays(host: dict, device) -> dict:
     """
-    Host numpy arrays -> tensors on ``device`` (same keys); Python ints
-    stay as they are. uint16 arrays are widened to int32 first: torch's
+    Host numpy arrays -> tensors on ``device`` (same keys), one
+    pageable copy each (``utils/staging.py``); Python ints stay as they
+    are. uint16 arrays are widened to int32 first: torch's
     unsigned 16-bit type supports few operations.
     """
-    device = resolve_device(device)
-    staged = {}
-    for key, value in host.items():
-        if isinstance(value, int):
-            staged[key] = value
-            continue
-        value = np.ascontiguousarray(value)
-        if value.dtype == np.uint16:
-            value = value.astype(np.int32)
-        staged[key] = torch.from_numpy(value).to(device)
-    return staged
+    return device_put_parallel(host, device)
 
 
 def _geometry_maps(plan: GridderPlan, arrays: dict) -> tuple:
@@ -299,7 +294,9 @@ def plan_order_host(plan: GridderPlan) -> dict:
     Numpy (order, flip_sign, phase_cos, phase_sin) of a plan: the static
     data-order -> slot-order transform (gather, conjugate flip, w-shift
     pre-phase), shared by device staging and :func:`stage_slot_vis`
-    (counterpart copy, numpy branch).
+    (counterpart copy). The phase factors come from the plan when its
+    engine exported them, else from the native engine's multithreaded
+    pass, else from numpy.
     """
     if plan.phase_cos is not None:
         phase_cos, phase_sin = plan.phase_cos, plan.phase_sin
@@ -311,9 +308,12 @@ def plan_order_host(plan: GridderPlan) -> dict:
         phase_sin = np.zeros(plan.num_vis, np.float32)
     else:
         factor = -2.0 * np.pi * plan.n_mid
-        phase = factor * plan.ws.astype(np.float64)
-        phase_cos = np.cos(phase).astype(np.float32)
-        phase_sin = np.sin(phase).astype(np.float32)
+        if plan.num_vis and _native.available():
+            phase_cos, phase_sin = _native.phase_cossin(plan.ws, factor)
+        else:
+            phase = factor * plan.ws.astype(np.float64)
+            phase_cos = np.cos(phase).astype(np.float32)
+            phase_sin = np.sin(phase).astype(np.float32)
     flip_sign = (
         plan.flip_sign
         if plan.flip_sign is not None
@@ -333,10 +333,22 @@ def stage_slot_vis(plan: GridderPlan, vis_re, vis_im) -> tuple:
     order: gather by the plan's block-slot permutation (duplicating
     lane straddlers), conjugate w-flipped samples, and apply the static
     w-shift pre-phase. Returns float32 numpy ``(re, im)`` of length
-    ``plan.num_vis`` (counterpart copy, numpy branch): the input
-    convention of :func:`build_invert`.
+    ``plan.num_vis`` (counterpart copy): the input convention of
+    :func:`build_invert`. The native engine does it in one fused
+    multithreaded pass where it is available.
     """
     host = plan_order_host(plan)
+    if plan.num_vis and _native.available():
+        # Padding slots (order >= num_vis_data) stage as zero there.
+        return _native.stage_slot_vis(
+            np.asarray(vis_re, np.float32).ravel(),
+            np.asarray(vis_im, np.float32).ravel(),
+            host["order"],
+            host["flip_sign"],
+            host["phase_cos"],
+            host["phase_sin"],
+            wstacking=plan.wstacking,
+        )
     re = np.append(
         np.asarray(vis_re, np.float32).ravel(), np.float32(0.0)
     )
@@ -414,18 +426,25 @@ def slot_group_sum(acc_re, acc_im, dup_a, dup_b) -> tuple:
     return out[:, 0], out[:, 1]
 
 
+def packed_rows(plan: GridderPlan) -> np.ndarray:
+    """The slot path's (3, num_vis) float32 rows xpos, ypos, |w|: the
+    native engine's export, else ``pack_plan_columns``."""
+    packed4 = plan.packed if plan.packed is not None else pack_plan_columns(
+        plan)
+    return np.ascontiguousarray(packed4[:3])
+
+
 def slot_plan_host_arrays(plan: GridderPlan, device, *, invert: bool = True,
                           predict: bool = True) -> dict:
     """
     Host staging dict of the slot path for ``device``:
-    :func:`plan_host_arrays` plus the host-built packed rows
-    (``pack_plan_columns``, rows xpos, ypos, |w|) and the order
+    :func:`plan_host_arrays` plus the :func:`packed_rows` and the order
     transform of :func:`plan_order_host`. Feeds :func:`build_invert`
     (slot-order input staged with :func:`stage_slot_vis`) and
     :func:`build_predict`.
     """
     arrays = plan_host_arrays(plan, device, invert=invert, predict=predict)
-    arrays["packed"] = np.ascontiguousarray(pack_plan_columns(plan)[:3])
+    arrays["packed"] = packed_rows(plan)
     arrays.update(plan_order_host(plan))
     return arrays
 
@@ -651,14 +670,12 @@ def stage_compact(plan: GridderPlan, uvw, channel_frequencies, weighted,
     ``device`` and the :func:`build_assemble` prologue: returns
     ``(arrays, re_s, im_s)`` ready for :func:`build_invert`.
     """
-    arrays = stage_arrays(
-        compact_plan_host_arrays(plan, uvw, channel_frequencies, device),
-        device,
-    )
     weighted = np.asarray(weighted, np.complex64).ravel()
-    re = torch.from_numpy(np.ascontiguousarray(weighted.real))
-    im = torch.from_numpy(np.ascontiguousarray(weighted.imag))
-    return build_assemble(plan)(arrays, re.to(device), im.to(device))
+    host = compact_plan_host_arrays(plan, uvw, channel_frequencies, device)
+    host["re"], host["im"] = weighted.real, weighted.imag
+    arrays = stage_arrays(host, device)
+    re, im = arrays.pop("re"), arrays.pop("im")
+    return build_assemble(plan)(arrays, re, im)
 
 
 def _prepare_sorted_vis(plan: GridderPlan, arrays: dict, vis_re, vis_im):
@@ -875,6 +892,10 @@ def dirty_image(
     analog; counterpart ``dirty_image`` on its compact path).
     ``visibilities``/``weights`` have shape (nrow, nchan); the work
     runs on ``device`` and a float32 (npix, npix) numpy array returns.
+    From a CUDA device that array is a view of a pinned host buffer
+    (:func:`~ska_sdp_cip_tpu_torch.utils.staging.device_get`), which
+    stays page-locked while the array lives; ``np.array(image)`` gives
+    an owned, pageable copy to keep.
     """
     device = resolve_device(device)
     plan = make_plan(
@@ -894,7 +915,7 @@ def dirty_image(
         plan, uvw, channel_frequencies, weighted, device
     )
     image = build_invert(plan)(arrays, re_s, im_s)
-    return image.cpu().numpy()
+    return device_get(image)
 
 
 def predict_visibilities(
@@ -924,11 +945,11 @@ def predict_visibilities(
         do_wstacking=do_wstacking,
         sigma=sigma,
     )
-    arrays = stage_arrays(
-        slot_plan_host_arrays(plan, device, invert=False), device
-    )
-    out_re, out_im = build_predict(plan)(arrays, image)
-    vis = out_re.cpu().numpy() + 1j * out_im.cpu().numpy()
+    host = slot_plan_host_arrays(plan, device, invert=False)
+    host["image"] = np.asarray(image, np.float32)
+    arrays = stage_arrays(host, device)
+    out_re, out_im = build_predict(plan)(arrays, arrays.pop("image"))
+    vis = device_get(out_re) + 1j * device_get(out_im)
     return vis.reshape(len(uvw), len(channel_frequencies)).astype(
         np.complex64
     )

@@ -2,17 +2,19 @@
 Gridding plan: host-side geometry and binning for the gridder.
 
 Counterpart: ``ska_sdp_cip_tpu/ops/plan.py`` (``make_plan`` and
-everything it calls), copied on its numpy path. The port cannot import
-the original: importing any module of the JAX package imports jax, and
-the machine that carries the card has none. The tests hold this copy
-equal to the original field by field.
+everything it calls, ``w_range`` and ``prewarm_plan_arenas``), with its
+two engines: the native C++ engine (``native.py``, built from
+``csrc/cip_native.cpp``) whenever a C++ compiler is on ``PATH``, else
+the numpy path. The port cannot import the original: importing any
+module of the JAX package imports jax, and the machine that carries the
+card has none. The tests hold both engines equal to the original's
+numpy path field by field.
 
 Differences from the counterpart:
 
-* the native C++ engine (``native.py``, ``native/``) is not carried —
-  every plan is built on the numpy path;
-* ``export_coords`` is an explicit argument (default ``False``) instead
-  of being resolved from the JAX gridder mode;
+* ``export_coords`` is an explicit argument (default ``False``: the
+  port reads the engine's packed columns) instead of being resolved
+  from the JAX gridder mode;
 * the environment overrides of the counterpart (``CIP_BLOCK``,
   ``CIP_WBIN_GROUP``, ``CIP_PLANE_GROUP``, ``CIP_PATCH_X``) are not
   read: the port always plans with the defaults;
@@ -30,6 +32,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import native as _native
 from .kernels import (
     es_beta,
     gauss_legendre_kernel_quadrature,
@@ -268,6 +271,22 @@ SIGMA_COST_FFT_PER_CELL_PLANE = 3.3e-10
 SIGMA_CANDIDATES = (2.0, 1.5)
 
 
+def w_range(uvw: np.ndarray, channel_frequencies: np.ndarray) -> tuple:
+    """
+    (min, max) of ``|w|`` in wavelengths over all (row, chan) samples —
+    the w extent after the w >= 0 conjugation flip. Used to resolve
+    ``sigma="auto"`` without building a plan.
+    """
+    uvw = np.asarray(uvw, np.float64)
+    freqs = np.asarray(channel_frequencies, np.float64)
+    if len(uvw) == 0 or len(freqs) == 0:
+        return 0.0, 0.0
+    if _native.available():
+        return _native.w_minmax(uvw, freqs)
+    w = np.abs(np.multiply.outer(uvw[:, 2], freqs / SPEED_OF_LIGHT))
+    return float(w.min()), float(w.max())
+
+
 def nm1_min_of(num_pixels: int, pixel_size_lm: float) -> float:
     """
     Most negative ``n(l,m) - 1`` over the image (at the corner): the
@@ -308,6 +327,34 @@ def resolve_sigma(
         )
 
     return min(SIGMA_CANDIDATES, key=cost)
+
+
+def prewarm_plan_arenas(num_vis: int) -> None:
+    """
+    Pre-fault the host allocation arenas (python + native) for a
+    subsequent :func:`make_plan` of ~``num_vis`` samples, so the timed
+    planning path finds warm pages (``utils/hostmem.py``). For untimed
+    start-up phases (the CLI's start). Buffers park in the arenas and
+    are reused.
+    """
+    from ..utils.hostmem import alloc_populated
+
+    n = int(num_vis)
+    if n <= 0:
+        return
+    ns = int(n * 1.3) + 1024  # slots: straddlers + block padding
+    # Native planner scratch (build_slot_plan): per-sample geometry
+    # columns, sort key, extended/sorted index arrays.
+    _native.arena_prewarm(
+        [n, 4 * n, 4 * n, 4 * n, 4 * n, 4 * n, 8 * n]
+        + [8 * ns, 8 * ns, 8 * ns]
+    )
+    # Python-side export buffers: order + order_enc (compact) and the
+    # packed/flip/phase columns (slot export).
+    held = [alloc_populated(ns, np.int32) for _ in range(2)]
+    held += [alloc_populated(4 * ns, np.float32)]  # packed rows
+    held += [alloc_populated(ns, np.float32) for _ in range(3)]
+    del held  # finalizers park the buffers in the arena
 
 
 def make_plan(
@@ -351,10 +398,13 @@ def make_plan(
     shapes up to common bounds — used by the sharded invert so every
     device runs an identical program over differently-sized shards.
 
-    ``export_coords`` is kept for call compatibility with the
-    counterpart, where it steers the native engine's export. The numpy
-    path always materializes the per-slot coordinate columns (flip,
-    x0, y0, fx, fy, ws), whatever its value.
+    ``export_coords`` controls whether the native engine materializes
+    the per-slot coordinate columns (flip, x0, y0, fx, fy, ws). The
+    port's kernels read the engine's ``packed`` columns instead, so the
+    default skips them; callers that read them (``pack_plan_columns``)
+    pass True. The numpy path always materializes them, whatever its
+    value, and exports no ``packed`` / ``flip_sign`` / phase columns
+    (``ops/gridder.py`` builds them on demand).
 
     ``export_packed=False`` (compact staging) skips the packed /
     flip_sign / phase columns too and exports ``order_enc`` instead —
@@ -366,6 +416,7 @@ def make_plan(
     freqs = np.asarray(channel_frequencies, dtype=np.float64)
 
     num_vis = len(uvw) * len(freqs)
+    use_native = num_vis > 0 and _native.available()
     if bin_group is None:
         bin_group = auto_bin_group(num_vis)
     bin_group = max(int(bin_group), 1)
@@ -380,19 +431,24 @@ def make_plan(
     # Keep at least one 8-row tile column under the patch overhang.
     patch_x = max(patch_x, ((support_bound + 8 + 7) // 8) * 8)
 
-    # Flattened per-sample coordinates in wavelengths
-    scale = freqs / SPEED_OF_LIGHT
-    u = np.multiply.outer(uvw[:, 0], scale).ravel()
-    v = np.multiply.outer(uvw[:, 1], scale).ravel()
-    w = np.multiply.outer(uvw[:, 2], scale).ravel()
+    if use_native:
+        # The engine computes the per-sample arrays later, in one fused
+        # multithreaded pass; only the |w| range is needed here.
+        wmin, wmax = _native.w_minmax(uvw, freqs)
+    else:
+        # Flattened per-sample coordinates in wavelengths
+        scale = freqs / SPEED_OF_LIGHT
+        u = np.multiply.outer(uvw[:, 0], scale).ravel()
+        v = np.multiply.outer(uvw[:, 1], scale).ravel()
+        w = np.multiply.outer(uvw[:, 2], scale).ravel()
 
-    # Flip to w >= 0 (dirty image is real; V(-u,-v,-w) = conj(V))
-    flip = w < 0
-    u = np.where(flip, -u, u)
-    v = np.where(flip, -v, v)
-    w = np.where(flip, -w, w)
-    wmin = float(w.min()) if num_vis else 0.0
-    wmax = float(w.max()) if num_vis else 0.0
+        # Flip to w >= 0 (dirty image is real; V(-u,-v,-w) = conj(V))
+        flip = w < 0
+        u = np.where(flip, -u, u)
+        v = np.where(flip, -v, v)
+        w = np.where(flip, -w, w)
+        wmin = float(w.min()) if num_vis else 0.0
+        wmax = float(w.max()) if num_vis else 0.0
 
     if w_range is not None:
         gmin, gmax = float(w_range[0]), float(w_range[1])
@@ -485,144 +541,197 @@ def make_plan(
     # injectively via (tile % nty).
     nty = nalloc_y // tile_y
 
-    # Footprint start cell: W consecutive cells centred on the
-    # coordinate, in the alloc frame (wrapped into [0, ngrid) then
-    # offset by W so footprints never go negative):
-    # x0 = floor(x) - W/2 + 1
-    x = np.mod(u / du + ngrid / 2.0, ngrid) + support
-    y = np.mod(v / du + ngrid / 2.0, ngrid) + support
-    x0 = np.floor(x).astype(np.int64) - half + 1
-    y0 = np.floor(y).astype(np.int64) - half + 1
-
-    if wstacking:
-        wbin = np.floor((w - bin_origin) / dw).astype(np.int64)
-        wbin = np.clip(wbin, 0, num_bins - 1)
+    if use_native:
+        # Fused C++ pass straight to the final block-slot layout:
+        # geometry, lane-straddler duplication, radix key sort, block
+        # split and slot scatter all happen inside the native engine
+        # (csrc/cip_native.cpp:cip_slot_plan_build); none of the
+        # O(num_vis) intermediate arrays are materialized in Python.
+        slot = _native.build_slot_plan(
+            uvw,
+            freqs,
+            inv_du=1.0 / du,
+            ngrid=ngrid,
+            support=support,
+            tile_x=tile_x,
+            tile_y=tile_y,
+            ntiles_y=nty,
+            wstacking=wstacking,
+            w0_plane=bin_origin,
+            dw=dw,
+            num_bins=num_bins,
+            block=block,
+            bin_group=bin_group,
+            min_blocks=min_blocks,
+            pad_order=num_vis,
+            # Slot staging applies the w-shift pre-phase only when
+            # w-stacking is on; without it the phases must be identity
+            # (cos = 1, sin = 0), or psf() and slot-input inverts pick
+            # up a spurious per-slot rotation.
+            phase_factor=(-2.0 * np.pi * n_mid) if wstacking else 0.0,
+            export_coords=export_coords,
+            export_packed=export_packed,
+        )
+        num_blocks = slot["num_blocks"]
+        num_blocks_padded = len(slot["block_len"])
+        slot_order = slot["order"]
+        slot_flip = (
+            slot["flip"].astype(bool) if slot["flip"] is not None else None
+        )
+        slot_x0 = slot["x0"]
+        slot_y0 = slot["y0"]
+        slot_fx = slot["fx"]
+        slot_fy = slot["fy"]
+        slot_ws = slot["ws"]
+        block_len_padded = slot["block_len"]
+        block_ox_padded = slot["block_ox"]
+        block_oy_padded = slot["block_oy"]
+        bin_lo = slot["bin_lo"][:num_blocks].astype(np.int64)
+        bin_hi = slot["bin_hi"][:num_blocks].astype(np.int64)
+        slot_packed = slot["packed"]
+        slot_flip_sign = slot["flip_sign"]
+        slot_phase_cos = slot["phase_cos"]
+        slot_phase_sin = slot["phase_sin"]
+        slot_order_enc = slot["order_enc"]
     else:
-        wbin = np.zeros(num_vis, dtype=np.int64)
+        # Footprint start cell: W consecutive cells centred on the
+        # coordinate, in the alloc frame (wrapped into [0, ngrid) then
+        # offset by W so footprints never go negative):
+        # x0 = floor(x) - W/2 + 1
+        x = np.mod(u / du + ngrid / 2.0, ngrid) + support
+        y = np.mod(v / du + ngrid / 2.0, ngrid) + support
+        x0 = np.floor(x).astype(np.int64) - half + 1
+        y0 = np.floor(y).astype(np.int64) - half + 1
 
-    # Duplicate lane straddlers into the window above, then sort
-    # the extended set by (tile, wbin): tile-major so each block
-    # has one patch origin; wbin-minor so a block's w extent
-    # (hence the set of planes it touches) stays narrow.
-    straddle = (y0 % tile_y) > (tile_y - support)
-    dup = np.flatnonzero(straddle)
-    src_ext = np.concatenate(
-        [np.arange(num_vis, dtype=np.int64), dup]
-    )
-    yt_ext = np.concatenate([y0 // tile_y, y0[dup] // tile_y + 1])
-    tile_ext = (x0 // tile_x)[src_ext] * nty + yt_ext
-    wbin_ext = wbin[src_ext]
-    order_ext = np.lexsort((wbin_ext, tile_ext))
-    order = src_ext[order_ext]
-    tile_sorted = tile_ext[order_ext]
-    wbin_sorted = wbin_ext[order_ext]
-    x0_sorted = x0[order].astype(np.int32)
-    y0_sorted = y0[order].astype(np.int32)
-    fx_sorted = (x - x0)[order].astype(np.float32)
-    fy_sorted = (y - y0)[order].astype(np.float32)
-    ws_sorted = w[order].astype(np.float32)
-    flip_sorted = flip[order]
+        if wstacking:
+            wbin = np.floor((w - bin_origin) / dw).astype(np.int64)
+            wbin = np.clip(wbin, 0, num_bins - 1)
+        else:
+            wbin = np.zeros(num_vis, dtype=np.int64)
 
-    # --- block decomposition (in sorted space) ----------------------
-    # Blocks are (tile, wbin)-pure: every visibility in a block
-    # shares one patch origin AND one w data bin, so the strip
-    # kernel grids a block onto exactly its W-plane window. The
-    # sorted space includes the duplicated lane straddlers
-    # (``order`` maps slots to source samples, with duplicates).
-    num_sorted = len(order)
-    if num_sorted:
-        # Group boundaries at (tile, wbin // bin_group) changes:
-        # a block may span bin_group adjacent w-bins (its exact
-        # [bin_lo, bin_hi] window is still read off the bin-sorted
-        # first/last slots below) — see auto_bin_group.
-        boundaries = (
-            np.flatnonzero(
-                (np.diff(tile_sorted) != 0)
-                | (np.diff(wbin_sorted // bin_group) != 0)
+        # Duplicate lane straddlers into the window above, then sort
+        # the extended set by (tile, wbin): tile-major so each block
+        # has one patch origin; wbin-minor so a block's w extent
+        # (hence the set of planes it touches) stays narrow.
+        straddle = (y0 % tile_y) > (tile_y - support)
+        dup = np.flatnonzero(straddle)
+        src_ext = np.concatenate(
+            [np.arange(num_vis, dtype=np.int64), dup]
+        )
+        yt_ext = np.concatenate([y0 // tile_y, y0[dup] // tile_y + 1])
+        tile_ext = (x0 // tile_x)[src_ext] * nty + yt_ext
+        wbin_ext = wbin[src_ext]
+        order_ext = np.lexsort((wbin_ext, tile_ext))
+        order = src_ext[order_ext]
+        tile_sorted = tile_ext[order_ext]
+        wbin_sorted = wbin_ext[order_ext]
+        x0_sorted = x0[order].astype(np.int32)
+        y0_sorted = y0[order].astype(np.int32)
+        fx_sorted = (x - x0)[order].astype(np.float32)
+        fy_sorted = (y - y0)[order].astype(np.float32)
+        ws_sorted = w[order].astype(np.float32)
+        flip_sorted = flip[order]
+
+        # --- block decomposition (in sorted space) ----------------------
+        # Blocks are (tile, wbin)-pure: every visibility in a block
+        # shares one patch origin AND one w data bin, so the strip
+        # kernel grids a block onto exactly its W-plane window. The
+        # sorted space includes the duplicated lane straddlers
+        # (``order`` maps slots to source samples, with duplicates).
+        num_sorted = len(order)
+        if num_sorted:
+            # Group boundaries at (tile, wbin // bin_group) changes:
+            # a block may span bin_group adjacent w-bins (its exact
+            # [bin_lo, bin_hi] window is still read off the bin-sorted
+            # first/last slots below) — see auto_bin_group.
+            boundaries = (
+                np.flatnonzero(
+                    (np.diff(tile_sorted) != 0)
+                    | (np.diff(wbin_sorted // bin_group) != 0)
+                )
+                + 1
             )
-            + 1
+            group_starts = np.concatenate(([0], boundaries))
+            group_ends = np.concatenate((boundaries, [num_sorted]))
+            num_per_group = -(-(group_ends - group_starts) // block)
+            sorted_start = np.concatenate(
+                [
+                    np.arange(gstart, gend, block)
+                    for gstart, gend in zip(group_starts, group_ends)
+                ]
+            ).astype(np.int64)
+            group_end_rep = np.repeat(group_ends, num_per_group)
+            block_len = (
+                np.minimum(sorted_start + block, group_end_rep)
+                - sorted_start
+            )
+        else:
+            sorted_start = np.zeros(0, dtype=np.int64)
+            block_len = np.zeros(0, dtype=np.int64)
+
+        num_blocks = len(sorted_start)
+        block_tile = (
+            tile_sorted[sorted_start]
+            if num_blocks
+            else np.zeros(0, np.int64)
         )
-        group_starts = np.concatenate(([0], boundaries))
-        group_ends = np.concatenate((boundaries, [num_sorted]))
-        num_per_group = -(-(group_ends - group_starts) // block)
-        sorted_start = np.concatenate(
-            [
-                np.arange(gstart, gend, block)
-                for gstart, gend in zip(group_starts, group_ends)
-            ]
-        ).astype(np.int64)
-        group_end_rep = np.repeat(group_ends, num_per_group)
-        block_len = (
-            np.minimum(sorted_start + block, group_end_rep)
-            - sorted_start
+        block_ox = ((block_tile // nty) * tile_x).astype(np.int32)
+        block_oy = ((block_tile % nty) * tile_y).astype(np.int32)
+        if num_blocks:
+            bin_lo = wbin_sorted[sorted_start]  # ascending in a tile
+            bin_hi = wbin_sorted[sorted_start + block_len - 1]
+        else:
+            bin_lo = np.zeros(0, dtype=np.int64)
+            bin_hi = np.zeros(0, dtype=np.int64)
+
+        # --- block-slot re-packing --------------------------------------
+        # Slot layout: block b owns [b*B, (b+1)*B); every DMA offset is
+        # b*B, statically aligned. slot_src maps slots to sorted
+        # indices (sentinel num_sorted for padding).
+        num_blocks_padded = max(num_blocks, min_blocks, 1)
+        num_slots = num_blocks_padded * block
+        slot_idx = np.arange(num_slots)
+        slot_block = slot_idx // block
+        slot_lane = slot_idx % block
+        block_len_padded = np.zeros(num_blocks_padded, dtype=np.int64)
+        block_len_padded[:num_blocks] = block_len
+        sorted_start_padded = np.zeros(num_blocks_padded, dtype=np.int64)
+        sorted_start_padded[:num_blocks] = sorted_start
+        slot_valid = slot_lane < block_len_padded[slot_block]
+        slot_src = np.where(
+            slot_valid,
+            sorted_start_padded[slot_block] + slot_lane,
+            num_sorted,
         )
-    else:
-        sorted_start = np.zeros(0, dtype=np.int64)
-        block_len = np.zeros(0, dtype=np.int64)
 
-    num_blocks = len(sorted_start)
-    block_tile = (
-        tile_sorted[sorted_start]
-        if num_blocks
-        else np.zeros(0, np.int64)
-    )
-    block_ox = ((block_tile // nty) * tile_x).astype(np.int32)
-    block_oy = ((block_tile % nty) * tile_y).astype(np.int32)
-    if num_blocks:
-        bin_lo = wbin_sorted[sorted_start]  # ascending in a tile
-        bin_hi = wbin_sorted[sorted_start + block_len - 1]
-    else:
-        bin_lo = np.zeros(0, dtype=np.int64)
-        bin_hi = np.zeros(0, dtype=np.int64)
+        def _slotted(sorted_values, pad_value, dtype):
+            padded = np.append(
+                np.asarray(sorted_values, dtype=dtype),
+                np.asarray(pad_value, dtype=dtype)[None],
+            )
+            return padded[slot_src]
 
-    # --- block-slot re-packing --------------------------------------
-    # Slot layout: block b owns [b*B, (b+1)*B); every DMA offset is
-    # b*B, statically aligned. slot_src maps slots to sorted
-    # indices (sentinel num_sorted for padding).
-    num_blocks_padded = max(num_blocks, min_blocks, 1)
-    num_slots = num_blocks_padded * block
-    slot_idx = np.arange(num_slots)
-    slot_block = slot_idx // block
-    slot_lane = slot_idx % block
-    block_len_padded = np.zeros(num_blocks_padded, dtype=np.int64)
-    block_len_padded[:num_blocks] = block_len
-    sorted_start_padded = np.zeros(num_blocks_padded, dtype=np.int64)
-    sorted_start_padded[:num_blocks] = sorted_start
-    slot_valid = slot_lane < block_len_padded[slot_block]
-    slot_src = np.where(
-        slot_valid,
-        sorted_start_padded[slot_block] + slot_lane,
-        num_sorted,
-    )
+        slot_order = _slotted(order, num_vis, np.int64).astype(np.int32)
+        slot_flip = _slotted(flip_sorted, False, bool)
+        slot_x0 = _slotted(x0_sorted, support, np.int32)
+        slot_y0 = _slotted(y0_sorted, support, np.int32)
+        slot_fx = _slotted(fx_sorted, 0.5, np.float32)
+        slot_fy = _slotted(fy_sorted, 0.5, np.float32)
+        slot_ws = _slotted(ws_sorted, 0.0, np.float32)
 
-    def _slotted(sorted_values, pad_value, dtype):
-        padded = np.append(
-            np.asarray(sorted_values, dtype=dtype),
-            np.asarray(pad_value, dtype=dtype)[None],
-        )
-        return padded[slot_src]
+        def _pad_blocks(arr, dtype):
+            out = np.zeros(num_blocks_padded, dtype=dtype)
+            out[: len(arr)] = arr
+            return out
 
-    slot_order = _slotted(order, num_vis, np.int64).astype(np.int32)
-    slot_flip = _slotted(flip_sorted, False, bool)
-    slot_x0 = _slotted(x0_sorted, support, np.int32)
-    slot_y0 = _slotted(y0_sorted, support, np.int32)
-    slot_fx = _slotted(fx_sorted, 0.5, np.float32)
-    slot_fy = _slotted(fy_sorted, 0.5, np.float32)
-    slot_ws = _slotted(ws_sorted, 0.0, np.float32)
-
-    def _pad_blocks(arr, dtype):
-        out = np.zeros(num_blocks_padded, dtype=dtype)
-        out[: len(arr)] = arr
-        return out
-
-    block_ox_padded = _pad_blocks(block_ox, np.int32)
-    block_oy_padded = _pad_blocks(block_oy, np.int32)
-    block_len_padded = _pad_blocks(block_len, np.int32)
-    slot_packed = None
-    slot_flip_sign = None
-    slot_phase_cos = None
-    slot_phase_sin = None
-    slot_order_enc = None
+        block_ox_padded = _pad_blocks(block_ox, np.int32)
+        block_oy_padded = _pad_blocks(block_oy, np.int32)
+        block_len_padded = _pad_blocks(block_len, np.int32)
+        slot_packed = None
+        slot_flip_sign = None
+        slot_phase_cos = None
+        slot_phase_sin = None
+        slot_order_enc = None
 
     # --- plane windows and assembly --------------------------------
     # Data bin q -> active plane window [q, q + W) (floor binning)

@@ -502,3 +502,68 @@ def test_cli_on_card_matches_cpu(cuda, tmp_path):
         ref = np.load(tmp_path / f"host{suffix}")
         assert np.isfinite(got).all(), suffix
         assert np.abs(got - ref).max() <= rtol * np.abs(ref).max(), suffix
+
+
+def test_pinned_round_trips_equal_pageable(cuda):
+    """Uploads (one pageable copy each, through ``device_put_parallel``
+    and ``AsyncStager``) and downloads through a pinned buffer on a side
+    stream (``device_get``) give the pageable copies' values."""
+    from ska_sdp_cip_tpu_torch.utils import staging
+
+    rng = np.random.default_rng(9)
+    host = {
+        "f32": rng.normal(size=(37, 5)).astype(np.float32),
+        "i32": rng.integers(-9, 9, size=1001).astype(np.int32),
+        "u16": rng.integers(0, 60000, size=13).astype(np.uint16),
+        "big": rng.normal(size=(4 << 20) + 17).astype(np.float32),
+        "count": 3,
+    }
+    for wait in (False, True):
+        staged = staging.device_put_parallel(host, cuda, wait=wait)
+        assert staged["count"] == 3
+        for key, value in host.items():
+            if isinstance(value, int):
+                continue
+            want = torch.from_numpy(value.astype(np.int32)
+                                    if value.dtype == np.uint16 else value)
+            got = staged[key]
+            assert got.device.type == "cuda" and got.dtype == want.dtype
+            assert torch.equal(got.cpu(), want), key
+            back = staging.device_get(got * 1)
+            assert torch.from_numpy(back).is_pinned(), key
+            np.testing.assert_array_equal(back, got.cpu().numpy())
+    with staging.AsyncStager(cuda) as stager:
+        stager.submit("big", host["big"])
+        stager.submit_dict({"f32": host["f32"]})
+        got = stager.result("big") + 1
+        arrays = stager.wait_all()
+    assert torch.equal(got.cpu(), torch.from_numpy(host["big"]) + 1)
+    assert torch.equal(arrays["f32"].cpu(), torch.from_numpy(host["f32"]))
+
+
+def test_tiled_invert_on_card_matches_cpu(cuda, tmp_path):
+    """``invert_tile_chunks`` from the tiles that
+    ``tpu-cip-reorder-uvw-torch`` writes, on the card (through B1 and
+    B2) against the same call on the CPU: 1e-5 of the max."""
+    from ska_sdp_cip_tpu_torch import VisibilityReader
+    from ska_sdp_cip_tpu_torch.apps.uvw_reorder_app import run_program
+    from ska_sdp_cip_tpu_torch.invert import pixel_size_lm_from_asec
+    from ska_sdp_cip_tpu_torch.io.synth import make_synthetic_dataset
+    from ska_sdp_cip_tpu_torch.uvw_tiling.tiled_invert import (
+        invert_tile_chunks,
+    )
+
+    path = make_synthetic_dataset(tmp_path / "obs.vz", num_times=6,
+                                  num_antennas=16, seed=4321)
+    outdir = tmp_path / "tiles"
+    run_program([str(path), "-t", "3000", "3000", "6000", "-o", str(outdir),
+                 "-n", "2", "-m", "5000", "-j", "2"])
+    paths = sorted(outdir.glob("tile_iu*chunk*.npz"))
+    freqs = VisibilityReader(path).channel_frequencies()
+    pixel = pixel_size_lm_from_asec(30.0)
+    before = tcg.LAUNCHES, tfc.LAUNCHES
+    got = invert_tile_chunks(paths, freqs, 128, pixel, device=cuda)
+    assert tcg.LAUNCHES > before[0] and tfc.LAUNCHES > before[1]
+    ref = invert_tile_chunks(paths, freqs, 128, pixel, device="cpu")
+    assert np.isfinite(got).all() and got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()

@@ -197,7 +197,8 @@ def assembled(assembled_inputs):
     uvw, freqs = assembled_inputs
     pixel = float(np.sin(np.radians(8.0 / 3600.0)))
     plan = jplan.make_plan(uvw, freqs, 512, pixel, export_packed=False)
-    port_plan = tplan.make_plan(uvw, freqs, 512, pixel, export_packed=False)
+    port_plan = tplan.make_plan(uvw, freqs, 512, pixel, export_packed=False,
+                                export_coords=True)
     rng = np.random.default_rng(5)
     shape = (len(uvw), len(freqs))
     weighted = (
@@ -282,7 +283,8 @@ def test_assemble_positions_hold_at_the_bench_grid():
     uvw, _ = synthetic_uvw(2, 40, max_baseline_m=7700.0, seed=42)
     freqs = np.linspace(1.40e9, 1.507e9, 4)
     pixel = float(np.sin(np.radians(5.0 / 3600.0)))
-    plan = tplan.make_plan(uvw, freqs, 2048, pixel, export_packed=False)
+    plan = tplan.make_plan(uvw, freqs, 2048, pixel, export_packed=False,
+                           export_coords=True)
     assert plan.ngrid == 4096 and plan.num_vis_data == len(uvw) * 4
     host = tg.compact_plan_host_arrays(plan, uvw, freqs, "cpu")
     zeros = torch.zeros(plan.num_vis_data, dtype=torch.float32)

@@ -8,7 +8,9 @@ The torch port end to end on the CPU, against the JAX package.
   — and both match the explicit DFT to the 1e-4 contract, with and
   without w-stacking.
 * The port imports and runs with jax and ml_dtypes unavailable, as on
-  the machine that carries the card.
+  the machine that carries the card: its planner engine, staging, tile
+  store, task metrics and the ``tpu-cip-reorder-uvw-torch`` console
+  script too.
 * The copied VZ reader and synthetic data give the JAX package's arrays.
 """
 
@@ -148,6 +150,13 @@ from ska_sdp_cip_tpu_torch.models import MeasurementOperator, major_cycle_clean
 op = MeasurementOperator.build(uvw, freqs, wgt, 64, pix, device="cpu")
 model, res = major_cycle_clean(op, vis.ravel(), num_major=1, minor_iter=5)
 assert np.isfinite(res.numpy()).all()
+import ska_sdp_cip_tpu_torch.uvw_tiling.tiled_invert
+from ska_sdp_cip_tpu_torch import native
+from ska_sdp_cip_tpu_torch.apps import uvw_reorder_app
+from ska_sdp_cip_tpu_torch.utils import staging, task_metrics
+uvw_reorder_app.get_parser().parse_args(["obs.vz", "-t", "1", "2", "3"])
+task_metrics.TaskRecorder()
+staging.device_put_parallel({"x": np.zeros(2)}, "cpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                 ("jax", "jaxlib", "ml_dtypes", "ska_sdp_cip_tpu")
                 and sys.modules[m] is not None)

@@ -4,7 +4,9 @@ The torch port's planner copy against the JAX package's planner.
 The port carries its own copy of ``make_plan`` (it cannot import the JAX
 package on a machine without jax); both must build the identical plan
 from the same inputs: integers exactly, floats bit for bit, on every
-field the port's plan has.
+field the port's plan has. These tests hold the copy's numpy path (the
+native engine switched off); ``tests/test_torch_native.py`` holds the
+engine to it.
 """
 
 import dataclasses
@@ -15,9 +17,16 @@ import torch
 
 from ska_sdp_cip_tpu.io.synth import synthetic_uvw
 from ska_sdp_cip_tpu.ops import plan as jax_plan
+from ska_sdp_cip_tpu_torch import native as torch_native
 from ska_sdp_cip_tpu_torch.ops import plan as torch_plan
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def numpy_planner(monkeypatch):
+    """The port's planner on its numpy path."""
+    monkeypatch.setattr(torch_native, "available", lambda: False)
 
 
 def _inputs():

@@ -44,6 +44,7 @@ from ska_sdp_cip_tpu.ops import fft as jfft
 from ska_sdp_cip_tpu.ops import fft_pallas as jfp
 from ska_sdp_cip_tpu.ops import gridder as jg
 from ska_sdp_cip_tpu.ops import plan as jplan
+from ska_sdp_cip_tpu_torch import native as tnative
 from ska_sdp_cip_tpu_torch.models import clean as tclean
 from ska_sdp_cip_tpu_torch.models import operators as tops
 from ska_sdp_cip_tpu_torch.ops import fft as tfft
@@ -65,7 +66,10 @@ def _production_inputs():
     return uvw, freqs, pixel
 
 
-def test_production_plan_matches_jax():
+def test_production_plan_matches_jax(monkeypatch):
+    # The copy's numpy path; tests/test_torch_native.py holds the native
+    # engine to it at this configuration.
+    monkeypatch.setattr(tnative, "available", lambda: False)
     uvw, freqs, pixel = _production_inputs()
     ref = jplan.make_plan(uvw, freqs, 10240, pixel, sigma="auto")
     ours = tplan.make_plan(uvw, freqs, 10240, pixel, sigma="auto")

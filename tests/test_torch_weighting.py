@@ -22,6 +22,7 @@ from ska_sdp_cip_tpu import native as jnative
 from ska_sdp_cip_tpu.io.visibility_dataset import VisibilityReader as JaxReader
 from ska_sdp_cip_tpu.models import weighting as jweighting
 from ska_sdp_cip_tpu_torch import VisibilityReader, invert_dataset
+from ska_sdp_cip_tpu_torch import native as tnative
 from ska_sdp_cip_tpu_torch.invert import (
     StokesIGridderInput,
     pixel_size_lm_from_asec,
@@ -48,8 +49,11 @@ def gridder_input(dataset_path):
 
 @pytest.fixture
 def numpy_only(monkeypatch):
-    """The JAX module's density pass on its numpy branch."""
+    """Both modules' density passes on their numpy branches
+    (``tests/test_torch_native.py`` holds the port's native one to
+    them)."""
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 @pytest.mark.parametrize("scheme,robust", SCHEMES)
