@@ -70,7 +70,26 @@ then runs these phases and prints one JSON object per phase:
    dataset reordered by ``tpu-cip-reorder-uvw-torch`` and inverted from
    the tile store by ``invert_tile_chunks`` on the card, against
    ``invert_dataset`` (atol 1e-4 of the max, rtol 1e-3) and the float64
-   DFT (1e-4), with the reorder's and the invert's seconds;
+   DFT (1e-4), with the reorder's and the invert's seconds; then
+   ``sharded``: the multi-device path on a process group of one rank
+   (NCCL for the card's tensors, gloo for the host's, over a TCP store
+   on the loopback; one ``all_reduce`` checked) with 4 shards sharing
+   the card, so every collective runs: ``sharded_invert_dataset`` on
+   the same dataset in both FFT modes (``replicated``: per-shard
+   transforms, images summed; ``distributed``: plane grids
+   reduce-scattered, B2 on column slabs of N/4 and npix/4 with an
+   all-to-all between the passes) against ``invert_dataset`` at rtol
+   1e-5, atol 1e-5 of the max, with walls and a breakdown (load, plan,
+   stage, device, collectives); both modes at the production
+   configuration (below) against ``invert_dataset``; the Hogbom
+   ``sharded_major_cycle_clean`` (3 cycles of 50) in both modes against
+   ``major_cycle_clean`` (model within 2e-4, residual within 2e-3 of
+   the residual's max); ``sharded_invert_tile_chunks`` on the tiles in
+   both modes against ``invert_tile_chunks``; ``tpu-cip-torch -d all``
+   under ``torchrun --standalone --nproc-per-node 1`` (its image and its
+   ``task-list.json``); and B2 against its plain version at the slab
+   widths (bench m = 1024 and 512, production m = 3840 and 2560, both
+   crops) with the bound and ``torch.fft``'s time;
 9. ``b6``: the tiled-input probe (``probes/fft_tiled.py``) at 15360^2
    and 4096^2: B6 (``pretile_first_axis``) against its plain version
    and B2 on tiled input against B2 on row-major input, both exact,
@@ -1795,6 +1814,377 @@ def clean_gates(model, residual, dirty_peak: float, sources,
     return out
 
 
+#: Shards of the ``sharded`` phase: four shards over a world of one rank,
+#: all on the one card, so every collective of a 4-device mesh runs.
+SHARDS = 4
+#: The sharded invert against ``invert_dataset`` (rtol, and atol of the
+#: max): the JAX package's tolerance (tests/test_sharded_invert.py:17).
+SHARDED_RTOL = 1e-5
+#: The sharded major cycle against ``major_cycle_clean``: model and
+#: residual within these fractions of the local residual's max
+#: (tests/test_sharded_clean.py:59-64).
+SHARDED_MODEL_TOL, SHARDED_RESIDUAL_TOL = 2e-4, 2e-3
+
+
+def within_sharded_tol(got, ref) -> dict:
+    """``got`` against ``ref`` at :data:`SHARDED_RTOL`: max errors and
+    whether every pixel is within rtol + atol (1e-5 of the max)."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    scale = float(np.abs(ref).max())
+    diff = np.abs(got - ref)
+    # The largest share of its allowance a pixel's error takes.
+    gate_use = float((diff / (SHARDED_RTOL * scale
+                              + SHARDED_RTOL * np.abs(ref))).max())
+    return {
+        "max_abs_err": float(diff.max()),
+        "max_rel_err": float(diff.max()) / scale,
+        "gate_use": gate_use,
+        "within": bool(got.shape == ref.shape and np.isfinite(got).all()
+                       and gate_use <= 1.0),
+    }
+
+
+def sharded_call(fn, mesh, device) -> tuple:
+    """(result, seconds, launches, collectives) of one synchronized call
+    of ``fn``, launch counts and the mesh's collective counts reset just
+    before it."""
+    import torch
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    reset_launches()
+    mesh.reset_stats()
+    sync()
+    t0 = time.perf_counter()
+    result = fn()
+    sync()
+    seconds = time.perf_counter() - t0
+    return result, seconds, read_launches(), mesh.collective_stats()
+
+
+def sharded_invert_case(device, mesh, reader, npix, asec, fft_mode, ref,
+                        repeats=1, **kw) -> dict:
+    """``sharded_invert_dataset`` on ``mesh`` against ``ref`` (the
+    single-device image): launches, walls, the breakdown (load, plan,
+    stage, device: the recorder's steps; collectives: the mesh's)."""
+    from ska_sdp_cip_tpu_torch.parallel.sharded_invert import (
+        sharded_invert_dataset,
+    )
+    from ska_sdp_cip_tpu_torch.utils.task_metrics import TaskRecorder
+
+    recorders = []
+
+    def run():
+        recorders.append(TaskRecorder(worker="smoke"))
+        return sharded_invert_dataset(reader, npix, asec, mesh=mesh,
+                                      fft_mode=fft_mode,
+                                      recorder=recorders[-1], **kw)
+
+    image, first, launches, collectives = sharded_call(run, mesh, device)
+    walls = []
+    for _ in range(repeats):
+        walls.append(sharded_call(run, mesh, device)[1])
+    steps = {t["name"]: t["duration"] for t in recorders[-1].tasks}
+    require_launches(launches, ("b1", "b2_out_crop"), device,
+                     f"sharded invert ({fft_mode})")
+    case = {
+        "fft_mode": fft_mode, "shards": mesh.num_shards,
+        "first_call_seconds": first, "wall_seconds": walls,
+        "launches": launches,
+        "breakdown": {
+            "load_seconds": steps["load_shards"],
+            "plan_seconds": steps["plan_shards"],
+            "stage_seconds": steps["stage_shards"],
+            "device_seconds": steps["grid_fft_reduce"],
+            "collective_seconds": collectives["total_seconds"],
+            "collectives": collectives,
+        },
+        **within_sharded_tol(image, ref),
+    }
+    if not case["within"]:
+        raise PhaseError(f"sharded invert ({fft_mode}, {npix} px) vs "
+                         f"invert_dataset {case['max_rel_err']:.3e} beyond "
+                         f"rtol {SHARDED_RTOL}")
+    return case
+
+
+def write_problem_dataset(path: Path, problem) -> Path:
+    """A VZ dataset of ``problem`` (uvw, freqs, Stokes-I vis, weights):
+    XX = YY = vis and per-sample weights w / 2 on each, so the Stokes-I
+    conversion gives back vis and w; nothing flagged."""
+    from ska_sdp_cip_tpu_torch.io.visibility_dataset import write_vz_dataset
+
+    uvw, freqs, vis, wgt = problem
+    corr = np.zeros(vis.shape + (4,), np.complex64)
+    corr[..., 0] = corr[..., 3] = vis
+    spectrum = np.repeat((0.5 * wgt)[..., None], 4, axis=-1)
+    return write_vz_dataset(path, uvw=uvw, visibilities=corr,
+                            flags=np.zeros(corr.shape, bool),
+                            channel_frequencies=freqs,
+                            weight_spectrum=spectrum)
+
+
+def sharded_clean_case(device, mesh, reader, npix, asec, fft_mode, local,
+                       **kw) -> dict:
+    """``sharded_major_cycle_clean`` against the single-device ``local``
+    (model, residual) at :data:`SHARDED_MODEL_TOL` /
+    :data:`SHARDED_RESIDUAL_TOL` of the local residual's max."""
+    from ska_sdp_cip_tpu_torch.parallel.sharded_clean import (
+        sharded_major_cycle_clean,
+    )
+    from ska_sdp_cip_tpu_torch.utils.task_metrics import TaskRecorder
+
+    recorder = TaskRecorder(worker="smoke")
+    (model, residual, _), seconds, launches, collectives = sharded_call(
+        lambda: sharded_major_cycle_clean(reader, npix, asec, mesh=mesh,
+                                          fft_mode=fft_mode,
+                                          recorder=recorder, **kw),
+        mesh, device)
+    require_launches(launches, ("b1", "b2_out_crop", "b2_in_crop", "b3"),
+                     device, f"sharded major cycle ({fft_mode})")
+    scale = float(np.abs(local[1]).max())
+    case = {
+        "fft_mode": fft_mode, "shards": mesh.num_shards,
+        "seconds": seconds, "launches": launches,
+        "cycle_seconds": [t["duration"] for t in recorder.tasks
+                          if t["name"] == "major_cycle"],
+        "collective_seconds": collectives["total_seconds"],
+        "collectives": collectives,
+        "model_max_abs_err": float(np.abs(model - local[0]).max()),
+        "residual_max_abs_err": float(np.abs(residual - local[1]).max()),
+        "scale": scale,
+        "finite": bool(np.isfinite(model).all()
+                       and np.isfinite(residual).all()),
+    }
+    if not (case["finite"]
+            and case["model_max_abs_err"] <= SHARDED_MODEL_TOL * scale
+            and case["residual_max_abs_err"] <= SHARDED_RESIDUAL_TOL * scale):
+        raise PhaseError(
+            f"sharded major cycle ({fft_mode}) vs major_cycle_clean: model "
+            f"{case['model_max_abs_err'] / scale:.3e}, residual "
+            f"{case['residual_max_abs_err'] / scale:.3e} of the residual "
+            "max")
+    return case
+
+
+def torchrun_case(device, path: Path, workdir: Path, npix, asec, ref) -> dict:
+    """
+    ``torchrun --standalone --nproc-per-node 1 -m
+    ska_sdp_cip_tpu_torch.apps.pipeline_app ... -d all`` as a subprocess
+    (``python -m torch.distributed.run``, the module behind
+    ``torchrun``): its image against ``ref`` and its ``task-list.json``
+    in the reference's schema.
+    """
+    import os
+
+    import torch
+
+    rundir = workdir / "torchrun"
+    rundir.mkdir()
+    out = rundir / "image.npy"
+    command = [
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        "--nproc-per-node", "1", "-m",
+        "ska_sdp_cip_tpu_torch.apps.pipeline_app", str(path), str(out),
+        "-n", str(npix), "-p", str(asec), "-d", "all", "--device",
+        device.type,
+    ]
+    env = dict(os.environ)
+    root = str(Path(__file__).resolve().parent)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(command, cwd=rundir, env=env, capture_output=True,
+                          text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise PhaseError(f"torchrun pipeline_app failed ({proc.returncode}): "
+                         f"{proc.stderr[-2000:]}")
+    tasks = json.loads((rundir / "task-list.json").read_text())
+    names = sorted({t["name"] for t in tasks})
+    schema = sorted(tasks[0]) if tasks else []
+    case = {"command": " ".join(command[1:]), "seconds": seconds,
+            "task_names": names, "task_keys": schema,
+            **within_sharded_tol(np.load(out), ref)}
+    want = ["grid_fft_reduce", "load_shards", "plan_shards", "stage_shards"]
+    keys = sorted(["key", "worker", "status", "start", "stop", "name",
+                   "duration"])
+    if not (case["within"] and names == want and schema == keys):
+        raise PhaseError(f"torchrun pipeline_app: image {case['max_rel_err']:.3e}"
+                         f" of the max, tasks {names}, keys {schema}")
+    return case
+
+
+def phase_sharded(device, path: Path, workdir: Path, tile_paths,
+                  npix=BENCH_NPIX, asec=BENCH_ASEC, prod_problem=None,
+                  prod_npix=PROD_NPIX, prod_asec=PROD_ASEC, shards=SHARDS,
+                  clean_kw=None,
+                  b2_grids=((BENCH_NGRID, BENCH_NPIX),
+                            (PROD_NGRID, PROD_NPIX))) -> dict:
+    """
+    The multi-device path on one card: a process group of one rank
+    (NCCL for CUDA tensors, gloo for the host's, a TCP store on the
+    loopback) with one ``all_reduce`` checked, then ``shards`` shards of
+    one mesh on the card:
+
+    * ``sharded_invert_dataset`` on the slice's dataset in both FFT
+      modes against ``invert_dataset`` (:data:`SHARDED_RTOL`), with walls
+      and a breakdown (load, plan, stage, device, collectives);
+    * both modes at the production configuration (the production
+      problem's noise plus the production major cycle's five point
+      sources, written as a dataset, ``sigma="auto"``) against
+      ``invert_dataset``, beside a second ``invert_dataset`` against the
+      first (the floor B1's atomics set);
+    * ``sharded_major_cycle_clean`` (Hogbom, 3 cycles) in both modes
+      against ``major_cycle_clean``;
+    * ``sharded_invert_tile_chunks`` on the ``tiles`` phase's files in
+      both modes against ``invert_tile_chunks``;
+    * ``tpu-cip-torch -d all`` under torchrun (:func:`torchrun_case`);
+    * B2 against its plain version at the slab widths the distributed
+      mode ran (N/S and npix/S, both crops, of each (N, npix) in
+      ``b2_grids``), with the bound and ``torch.fft``'s time
+      (:func:`phase_b2`).
+    """
+    import torch
+    import torch.distributed as dist
+
+    from ska_sdp_cip_tpu_torch import VisibilityReader, invert_dataset
+    from ska_sdp_cip_tpu_torch.invert import (
+        StokesIGridderInput,
+        pixel_size_lm_from_asec,
+    )
+    from ska_sdp_cip_tpu_torch.models import (
+        MeasurementOperator,
+        major_cycle_clean,
+    )
+    from ska_sdp_cip_tpu_torch.parallel.mesh import (
+        backend_for,
+        initialize_distributed,
+        make_device_mesh,
+    )
+    from ska_sdp_cip_tpu_torch.uvw_tiling.tiled_invert import (
+        invert_tile_chunks,
+        sharded_invert_tile_chunks,
+    )
+
+    t0 = time.perf_counter()
+    initialize_distributed(backend=backend_for(device))
+    probe = torch.full((4,), 2.0, device=device)
+    dist.all_reduce(probe)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    backend = str(dist.get_backend())
+    out = {"phase": "sharded", "backend": backend,
+           "world_size": dist.get_world_size(),
+           "init_seconds": time.perf_counter() - t0,
+           "all_reduce_ok": bool((probe == 2.0 * dist.get_world_size())
+                                 .all())}
+    if not out["all_reduce_ok"] or (device.type == "cuda"
+                                    and "nccl" not in backend):
+        raise PhaseError(f"process group: backend {backend}, all_reduce "
+                         f"{probe.tolist()}")
+    mesh = make_device_mesh(shards, device=device)
+    out["mesh"] = repr(mesh)
+
+    reader = VisibilityReader(path)
+    ref = invert_dataset(reader, npix, asec, device=device)
+    out["bench"] = [
+        sharded_invert_case(device, mesh, reader, npix, asec, mode, ref,
+                            repeats=1)
+        for mode in ("replicated", "distributed")
+    ]
+    del ref
+
+    if prod_problem is not None:
+        # The production major cycle's sky (five point sources) on the
+        # production visibilities' noise: on a pure-noise image the
+        # max-relative gate reads float32 rounding magnified by the
+        # image's cancellation, which any change of summation order (or
+        # of staging path) redraws at 4-11e-6 of the max (PERF.md, §6).
+        uvw, freqs, noise, wgt = prod_problem
+        pixels, flux = point_sources(prod_npix)
+        sky = noise + sparse_predict_dft(
+            uvw, freqs, pixels, flux,
+            float(np.sin(np.radians(prod_asec / 3600.0))), prod_npix)
+        prod_path = write_problem_dataset(workdir / "production.vz",
+                                          (uvw, freqs, sky, wgt))
+        prod_reader = VisibilityReader(prod_path)
+        prod_ref = invert_dataset(prod_reader, prod_npix, prod_asec,
+                                  sigma="auto", device=device)
+        # The floor: two single-device inverts differ by B1's atomics.
+        again = invert_dataset(prod_reader, prod_npix, prod_asec,
+                               sigma="auto", device=device)
+        out["production"] = {
+            "npix": prod_npix,
+            "repeat_vs_itself": within_sharded_tol(again, prod_ref),
+            "cases": [sharded_invert_case(device, mesh, prod_reader,
+                                          prod_npix, prod_asec, mode,
+                                          prod_ref, sigma="auto")
+                      for mode in ("distributed", "replicated")],
+        }
+        del prod_ref, again
+
+    clean_kw = clean_kw or {"num_major": 3, "gain": 0.1, "minor_iter": 50}
+    gi = StokesIGridderInput.from_reader(reader)
+    op = MeasurementOperator.build(gi.uvw, gi.channel_frequencies,
+                                   gi.effective_weights(), npix,
+                                   pixel_size_lm_from_asec(asec),
+                                   device=device)
+    model, residual = major_cycle_clean(op, gi.visibilities.ravel(),
+                                        **clean_kw)
+    local = (model.cpu().numpy(), residual.cpu().numpy())
+    del op, model, residual, gi
+    out["major_cycle"] = {
+        **clean_kw,
+        "cases": [sharded_clean_case(device, mesh, reader, npix, asec, mode,
+                                     local, **clean_kw)
+                  for mode in ("replicated", "distributed")],
+    }
+
+    freqs = reader.channel_frequencies()
+    pix = pixel_size_lm_from_asec(asec)
+    tiled_ref = invert_tile_chunks(tile_paths, freqs, npix, pix,
+                                   device=device)
+    out["tiles"] = []
+    for mode in ("replicated", "distributed"):
+        timings = {}
+        image, seconds, launches, collectives = sharded_call(
+            lambda: sharded_invert_tile_chunks(
+                tile_paths, freqs, npix, pix, mesh=mesh, fft_mode=mode,
+                timings=timings),
+            mesh, device)
+        require_launches(launches, ("b1", "b2_out_crop"), device,
+                         f"sharded tiles ({mode})")
+        case = {"fft_mode": mode, "seconds": seconds, "timings": timings,
+                "launches": launches,
+                "collective_seconds": collectives["total_seconds"],
+                **within_sharded_tol(image, tiled_ref)}
+        out["tiles"].append(case)
+        if not case["within"]:
+            raise PhaseError(f"sharded tiles ({mode}) vs invert_tile_chunks "
+                             f"{case['max_rel_err']:.3e}")
+    del tiled_ref
+
+    torch_ref = invert_dataset(reader, npix, asec, sigma="auto",
+                               device=device)
+    out["torchrun"] = torchrun_case(device, path, workdir, npix, asec,
+                                    torch_ref)
+    # B2 at the slab widths of the distributed runs above, (n, npix) of
+    # ``b2_grids``: the bench transform and the production one.
+    out["b2_slab_widths"] = [
+        case
+        for n, crop in b2_grids
+        for case in phase_b2(device, n, crop, iters=5,
+                             widths=(n // shards, crop // shards))["cases"]
+    ]
+    return out
+
+
 def phase_b6(device, grids=(PROD_NGRID, BENCH_NGRID)) -> dict:
     """
     The tiled-input probe (``probes/fft_tiled.py``) at each grid: B6
@@ -2656,6 +3046,9 @@ def kernels_line(b1, b2, b3, b6, probes, production, by_path) -> list:
             first_design_ms=bench["first_design_ms"],
             production=[{k: c[k] for k in b2_keys} for c in b2["production"]
                         if c["pass"] == crop],
+            slab_widths=[{k: c[k] for k in b2_keys}
+                         for c in b2.get("slab_widths", [])
+                         if c["pass"] == crop],
         ))
     n = tiled["ngrid"]
     entries += [
@@ -2785,11 +3178,16 @@ def main() -> int:
         emit(mc)
         tiles = phase_tiles(device, path, Path(tmp))
         emit(tiles)
+        problem = production_visibilities()
+        sharded = phase_sharded(
+            device, path, Path(tmp),
+            sorted((Path(tmp) / "tiles").glob("tile_iu*chunk*.npz")),
+            prod_problem=problem)
+        emit(sharded)
         b6 = phase_b6(device)
         emit(b6)
         probes = phase_fft_probes(device)
         emit(probes)
-        problem = production_visibilities()
         p_inv, dirty = phase_production_invert(device, problem)
         emit(p_inv)
         p_pred = phase_production_predict(device, problem, dirty)
@@ -2807,7 +3205,20 @@ def main() -> int:
     emit(p_fista)
     del op, staged
     production = {"b1": p_inv["b1_check"], "b3": p_pred["b3_check"]}
+    by_sharded = {
+        f"sharded_invert_{c['fft_mode']}": c["launches"]
+        for c in sharded["bench"]}
+    by_sharded.update({
+        f"sharded_production_{c['fft_mode']}": c["launches"]
+        for c in sharded["production"]["cases"]})
+    by_sharded.update({
+        f"sharded_major_cycle_{c['fft_mode']}": c["launches"]
+        for c in sharded["major_cycle"]["cases"]})
+    by_sharded.update({f"sharded_tiles_{c['fft_mode']}": c["launches"]
+                       for c in sharded["tiles"]})
+    b2["slab_widths"] = sharded["b2_slab_widths"]
     emit({"kernels": kernels_line(b1, b2, b3, b6, probes, production, {
+        **by_sharded,
         "e2e_small": e2e["launches"],
         "predict_small": pred["small_launches"],
         "slice": sl["launches"], "predict": pred["bench"]["launches"],
@@ -2829,9 +3240,21 @@ def main() -> int:
     return 0
 
 
+def shutdown() -> None:
+    """Leave the ``sharded`` phase's process group, if it is up."""
+    try:
+        from ska_sdp_cip_tpu_torch.parallel.mesh import shutdown_distributed
+    except ImportError:
+        return
+    shutdown_distributed()
+
+
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        code = main()
     except PhaseError as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
-        sys.exit(1)
+        code = 1
+    finally:
+        shutdown()
+    sys.exit(code)

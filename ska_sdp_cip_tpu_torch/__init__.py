@@ -7,7 +7,8 @@ the same invert path (visibility dataset -> dirty image) on an NVIDIA
 Hopper card through hand-written CUDA kernels (``csrc/``), or on the
 CPU through their plain PyTorch versions, and its adjoint, predict
 (image -> visibilities), which closes the Hogbom/Clark, multiscale and
-FISTA major cycles (``models``), behind the imaging CLI
+FISTA major cycles (``models``), over one device or a mesh of shards
+on ``torch.distributed`` (``parallel``), behind the imaging CLI
 ``tpu-cip-torch`` (``apps/pipeline_app.py``). It imports ``torch`` and
 numpy only — never ``jax`` and never the JAX package — because the
 machine that carries the card has no JAX at all. Framework-free host
@@ -19,7 +20,7 @@ device on the caller's behalf.
 """
 
 from ._version import __version__
-from .invert import invert_dataset
+from .invert import invert_dataset, sharded_invert_dataset
 from .io.visibility_dataset import VisibilityReader
 from .ops.gridder import predict_visibilities
 from .wgridder import dirty2ms
@@ -32,6 +33,7 @@ __all__ = [
     "VisibilityReader",
     "MeasurementSetReader",
     "invert_dataset",
+    "sharded_invert_dataset",
     "predict_visibilities",
     "dirty2ms",
 ]

@@ -11,14 +11,20 @@ weighting, and ``--clean N`` with the Hogbom/Clark, multiscale or FISTA
 solver, writing ``<output>.model.npy``, ``.residual.npy`` and
 ``.restored.npy`` beside the dirty image.
 
-``-d/--devices`` raises ``NotImplementedError``: the multi-device path
-is still to be ported (ROADMAP.md, A9); ``-rc``/``-fc`` are parsed so
-that command lines stay compatible. ``--profile-dir`` writes a
-``torch.profiler`` trace (CPU and CUDA activities) of the invert as
-``trace.json`` in that directory.
+``-d/--devices N|all`` runs the invert, and ``--clean N``, over a mesh
+of N shards (``all``: one per rank) with ``-rc``/``-fc`` row and
+frequency chunks (``parallel/``), and writes ``task-list.json`` in the
+reference's schema. It joins the process group that ``torchrun`` sets
+up (each rank on ``cuda:LOCAL_RANK``), or runs as a world of one whose
+shards share the device; only rank 0 writes files. ``--profile-dir``
+writes a ``torch.profiler`` trace (CPU and CUDA activities) of the
+invert as ``trace.json`` in that directory.
 
     python -m ska_sdp_cip_tpu_torch.apps.pipeline_app obs.vz img.npy \\
         -n 2048 -p 5.0 --clean 2 --algorithm multiscale --device cuda
+    torchrun --standalone --nproc-per-node 4 \\
+        -m ska_sdp_cip_tpu_torch.apps.pipeline_app obs.vz img.npy \\
+        -n 10240 -p 1.1 -d all --clean 3 --checkpoint-dir ckpt
 """
 
 import argparse
@@ -32,6 +38,7 @@ from .. import __version__
 from ..invert import invert_dataset
 from ..io.visibility_dataset import VisibilityReader
 from ..ops.gridder import resolve_device
+from ..utils.task_metrics import TaskRecorder
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -158,8 +165,8 @@ def get_parser() -> argparse.ArgumentParser:
         "--devices",
         type=str,
         default=None,
-        help="Distribute over several devices: not yet available in the "
-        "port (raises)",
+        help="Number of shards to distribute over, or 'all' (one per "
+        "rank of the torchrun world)",
     )
     dist_group.add_argument(
         "-rc",
@@ -173,7 +180,8 @@ def get_parser() -> argparse.ArgumentParser:
         "--freq-chunks",
         type=int,
         default=None,
-        help="Number of frequency chunks (with -d)",
+        help="Number of frequency chunks (with -d). If None, set to "
+        "min(num_channels, num_shards).",
     )
     dist_group.add_argument(
         "--profile-dir",
@@ -203,17 +211,120 @@ def _profiled(profile_dir: Path | None):
     prof.export_chrome_trace(str(profile_dir / "trace.json"))
 
 
-def run_program(cli_args: list[str]) -> None:
-    """Run the app; the function called by the tests."""
-    args = get_parser().parse_args(cli_args)
-    if args.devices is not None:
-        raise NotImplementedError(
-            f"-d/--devices {args.devices}: the multi-device path is still "
-            "to be ported (ROADMAP.md, A9); run on one device"
+def _mesh(args):
+    """The shard mesh of ``-d``: the process group joined (torchrun's, or
+    a world of one), this rank's device, ``-d`` shards (``all``: one per
+    rank)."""
+    from ..parallel.mesh import (
+        backend_for,
+        initialize_distributed,
+        local_device,
+        make_device_mesh,
+    )
+
+    device = resolve_device(local_device(args.device))
+    initialize_distributed(backend=backend_for(device))
+    num_shards = None if args.devices == "all" else int(args.devices)
+    return make_device_mesh(num_shards, device=device)
+
+
+def _operator(args, reader, sigma, device):
+    """The single-device measurement operator of ``--clean``, on the
+    weights of the dirty image."""
+    from ..invert import StokesIGridderInput, pixel_size_lm_from_asec
+    from ..models import MeasurementOperator
+
+    gridder_input = StokesIGridderInput.from_reader(reader)
+    weights = gridder_input.effective_weights()
+    if args.weighting != "natural":
+        # The model/residual must be consistent with the weighting
+        # used for the dirty image.
+        from ..models.weighting import ImagingWeighter
+
+        weighter = ImagingWeighter(
+            args.num_pixels,
+            pixel_size_lm_from_asec(args.pixel_size),
+            scheme=args.weighting,
+            robust=args.robust,
+        ).fit(
+            gridder_input.uvw,
+            gridder_input.channel_frequencies,
+            weights,
         )
-    device = resolve_device(args.device)
+        weights = weighter.apply(
+            gridder_input.uvw,
+            gridder_input.channel_frequencies,
+            weights,
+        )
+    operator = MeasurementOperator.build(
+        gridder_input.uvw,
+        gridder_input.channel_frequencies,
+        weights,
+        args.num_pixels,
+        pixel_size_lm_from_asec(args.pixel_size),
+        epsilon=args.epsilon,
+        do_wstacking=not args.no_wstacking,
+        sigma=sigma,
+        device=device,
+    )
+    return operator, gridder_input.visibilities.ravel()
+
+
+def _clean(args, reader, sigma, device) -> tuple:
+    """``--clean`` on one device: (model, residual, psf)."""
+    operator, vis = _operator(args, reader, sigma, device)
+    if args.algorithm == "multiscale":
+        from ..models.multiscale import multiscale_clean
+
+        model, residual = multiscale_clean(
+            operator,
+            vis,
+            scales=tuple(args.scales),
+            num_major=args.clean,
+            gain=args.gain,
+            minor_iter=args.minor_iter,
+        )
+    elif args.algorithm == "fista":
+        from ..models.fista import fista_clean
+
+        model, residual, _ = fista_clean(
+            operator,
+            vis,
+            num_iter=args.clean * args.minor_iter // 10,
+        )
+    else:
+        from ..models import major_cycle_clean
+
+        model, residual = major_cycle_clean(
+            operator,
+            vis,
+            num_major=args.clean,
+            gain=args.gain,
+            minor_iter=args.minor_iter,
+            checkpoint_dir=args.checkpoint_dir,
+        )
+    # Every solver returns tensors on the operator's device.
+    return model.cpu().numpy(), residual.cpu().numpy(), operator.psf()
+
+
+def run_program(cli_args: list[str], *,
+                fft_mode: str = "replicated") -> None:
+    """Run the app; the function called by the tests. ``fft_mode`` is the
+    sharded runs' (``-d``) plane-transform mode (``parallel/launch.py``
+    passes ``--fft-mode``)."""
+    args = get_parser().parse_args(cli_args)
+    mesh = _mesh(args) if args.devices is not None else None
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    writer = mesh is None or mesh.rank == 0
     reader = VisibilityReader(args.dataset)
     sigma = args.sigma if args.sigma == "auto" else float(args.sigma)
+    imaging = dict(
+        epsilon=args.epsilon,
+        do_wstacking=not args.no_wstacking,
+        weighting=args.weighting,
+        robust=args.robust,
+        sigma=sigma,
+    )
 
     # Pre-fault the planner's host allocation arenas (utils/hostmem.py):
     # this moves the cold page faults of the first plan to start-up.
@@ -221,100 +332,81 @@ def run_program(cli_args: list[str]) -> None:
 
     prewarm_plan_arenas(reader.num_data_rows * reader.num_channels)
 
-    with _profiled(args.profile_dir):
-        image = invert_dataset(
-            reader,
-            num_pixels=args.num_pixels,
-            pixel_size_asec=args.pixel_size,
-            epsilon=args.epsilon,
-            do_wstacking=not args.no_wstacking,
-            weighting=args.weighting,
-            robust=args.robust,
-            sigma=sigma,
-            device=device,
-        )
-
-    np.save(args.output_image.with_suffix(".npy"), image)
-
-    if args.clean > 0:
-        from ..invert import StokesIGridderInput, pixel_size_lm_from_asec
-        from ..models import MeasurementOperator, major_cycle_clean
-        from ..models.restore import restore_image
-
-        gridder_input = StokesIGridderInput.from_reader(reader)
-        weights = gridder_input.effective_weights()
-        if args.weighting != "natural":
-            # The model/residual must be consistent with the weighting
-            # used for the dirty image above.
-            from ..models.weighting import ImagingWeighter
-
-            weighter = ImagingWeighter(
-                args.num_pixels,
-                pixel_size_lm_from_asec(args.pixel_size),
-                scheme=args.weighting,
-                robust=args.robust,
-            ).fit(
-                gridder_input.uvw,
-                gridder_input.channel_frequencies,
-                weights,
-            )
-            weights = weighter.apply(
-                gridder_input.uvw,
-                gridder_input.channel_frequencies,
-                weights,
-            )
-        operator = MeasurementOperator.build(
-            gridder_input.uvw,
-            gridder_input.channel_frequencies,
-            weights,
-            args.num_pixels,
-            pixel_size_lm_from_asec(args.pixel_size),
-            epsilon=args.epsilon,
-            do_wstacking=not args.no_wstacking,
-            sigma=sigma,
-            device=device,
-        )
-        vis = gridder_input.visibilities.ravel()
-        if args.algorithm == "multiscale":
-            from ..models.multiscale import multiscale_clean
-
-            model, residual = multiscale_clean(
-                operator,
-                vis,
-                scales=tuple(args.scales),
-                num_major=args.clean,
-                gain=args.gain,
-                minor_iter=args.minor_iter,
-            )
-        elif args.algorithm == "fista":
-            from ..models.fista import fista_clean
-
-            model, residual, _ = fista_clean(
-                operator,
-                vis,
-                num_iter=args.clean * args.minor_iter // 10,
+    with _profiled(args.profile_dir if writer else None):
+        if mesh is None:
+            image = invert_dataset(
+                reader,
+                num_pixels=args.num_pixels,
+                pixel_size_asec=args.pixel_size,
+                device=device,
+                **imaging,
             )
         else:
-            model, residual = major_cycle_clean(
-                operator,
-                vis,
+            from ..parallel.sharded_invert import sharded_invert_dataset
+
+            recorder = TaskRecorder()
+            image = sharded_invert_dataset(
+                reader,
+                num_pixels=args.num_pixels,
+                pixel_size_asec=args.pixel_size,
+                mesh=mesh,
+                row_chunks=args.row_chunks,
+                freq_chunks=args.freq_chunks,
+                recorder=recorder,
+                fft_mode=fft_mode,
+                **imaging,
+            )
+            if writer:
+                # Same file name / schema as the reference
+                # (reference: apps/pipeline_app.py:105-107).
+                recorder.save_json("task-list.json", indent=4,
+                                   sort_keys=True)
+
+    if writer:
+        np.save(args.output_image.with_suffix(".npy"), image)
+
+    if args.clean > 0:
+        from ..models.restore import restore_image
+
+        if mesh is None:
+            model, residual, psf = _clean(args, reader, sigma, device)
+        else:
+            # The distributed major cycle over the same mesh; its PSF
+            # comes from the sharded operator itself.
+            from ..parallel.sharded_clean import sharded_major_cycle_clean
+
+            model, residual, psf = sharded_major_cycle_clean(
+                reader,
+                args.num_pixels,
+                args.pixel_size,
+                mesh=mesh,
+                row_chunks=args.row_chunks,
+                freq_chunks=args.freq_chunks,
                 num_major=args.clean,
                 gain=args.gain,
                 minor_iter=args.minor_iter,
+                algorithm=args.algorithm,
+                scales=tuple(args.scales),
                 checkpoint_dir=args.checkpoint_dir,
+                fft_mode=fft_mode,
+                **imaging,
             )
-        psf = operator.psf()
-        base = args.output_image.with_suffix("")
-        # Every solver returns tensors on the operator's device.
-        np.save(base.with_suffix(".model.npy"), model.cpu().numpy())
-        np.save(base.with_suffix(".residual.npy"), residual.cpu().numpy())
-        restored = restore_image(model, residual, psf, device=device)
-        np.save(base.with_suffix(".restored.npy"), restored)
+        if writer:
+            base = args.output_image.with_suffix("")
+            np.save(base.with_suffix(".model.npy"), model)
+            np.save(base.with_suffix(".residual.npy"), residual)
+            restored = restore_image(model, residual, psf, device=device)
+            np.save(base.with_suffix(".restored.npy"), restored)
 
 
 def main() -> None:
     """Entry point for the pipeline app."""
-    run_program(sys.argv[1:])
+    from ..parallel.mesh import shutdown_distributed
+
+    try:
+        run_program(sys.argv[1:])
+    finally:
+        shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -6,8 +6,8 @@ Counterpart: ``ska_sdp_cip_tpu/invert.py`` (``StokesIGridderInput``,
 with the gridder replaced by the port's (``ops/gridder.py``) and an
 explicit ``device`` on every entry point. ``invert_dataset`` takes the
 counterpart's weighting schemes (natural, uniform, Briggs robust;
-``models/weighting.py``); ``sharded_invert_dataset`` is still to be
-ported (ROADMAP.md, A9).
+``models/weighting.py``); ``sharded_invert_dataset``, the multi-device
+invert (``parallel/sharded_invert.py``), is re-exported here.
 """
 
 from __future__ import annotations
@@ -184,3 +184,10 @@ def integrate_weighted_images(weighted_images) -> NDArray:
     images = [img for img, _ in weighted_images]
     weights = [weight for _, weight in weighted_images]
     return sum(images) / sum(weights)
+
+
+def sharded_invert_dataset(*args, **kwargs):
+    """Multi-device invert; see ``parallel/sharded_invert.py``."""
+    from .parallel.sharded_invert import sharded_invert_dataset as impl
+
+    return impl(*args, **kwargs)

@@ -29,14 +29,19 @@ Counterpart: ``ska_sdp_cip_tpu/ops/gridder.py``:
   stack), then one unfold-and-degrid launch for the group (kernel B3)
   into a slot accumulator -> ``_finalize``. Both loops also serve
   ``plane_group == 1``;
+* the distributed mode of ``build_invert`` and ``build_predict`` (the
+  counterpart's ``mesh_axis`` / ``num_shards`` branches) over a mesh of
+  ``parallel/mesh.py``: the plane grids reduced and scattered over the
+  shards, B2 run on column slabs of N/S and npix/S with an all-to-all
+  between the passes;
 * ``dirty_image`` on the compact staging path and
   ``predict_visibilities``, whose results come down through pinned
   buffers (``utils/staging.py``).
 
 Everything runs eagerly on the device of the staged tensors; the
 kernels' plain versions run where the tensors lie on the CPU. The
-XLA-scan gridder, the distributed (``mesh_axis``) invert and predict
-and the AOT cache are not ported (ROADMAP.md, queue A).
+XLA-scan gridder and the AOT cache are not ported (ROADMAP.md, queue
+A).
 """
 
 from __future__ import annotations
@@ -714,7 +719,7 @@ def _fft2_to_image_t(arrays, grid_re, grid_im, fmeta):
     )
 
 
-def build_invert(plan: GridderPlan):
+def build_invert(plan, *, mesh=None):
     """
     Returns ``invert(arrays, re_s, im_s) -> image``: the unnormalized
     (npix, npix) float32 dirty image from slot-order visibilities, on
@@ -724,7 +729,16 @@ def build_invert(plan: GridderPlan):
     the slot one (:func:`slot_plan_host_arrays`, host-built ``packed``
     rows, with visibilities from :func:`stage_slot_vis`), which the
     measurement operator uses.
+
+    With a ``mesh`` (``parallel/mesh.py``) of S > 1 shards this is the
+    distributed mode (:func:`_build_invert_distributed`): ``plan`` is
+    the list of this rank's shard plans, and ``invert`` takes lists of
+    their ``arrays``, ``re_s`` and ``im_s`` and returns the image of
+    every shard's visibilities, the same on every rank. Without one, or
+    with S = 1, ``plan`` is one plan and nothing changes.
     """
+    if mesh is not None and mesh.num_shards > 1:
+        return _build_invert_distributed(list(plan), mesh)
     G = plan.plane_group
     npix = plan.num_pixels
     fmeta = _fused_fft_meta(plan)
@@ -769,7 +783,7 @@ def build_invert(plan: GridderPlan):
     return invert
 
 
-def build_predict(plan: GridderPlan, *, slot_output: bool = False):
+def build_predict(plan, *, slot_output: bool = False, mesh=None):
     """
     Returns ``predict(arrays, image) -> (vis_re, vis_im)``: the exact
     adjoint of :func:`build_invert`'s operator (degridding, the
@@ -784,7 +798,15 @@ def build_predict(plan: GridderPlan, *, slot_output: bool = False):
     slot-order input. A slot's value covers only its own 128-lane
     kernel window; sum straddler pairs with :func:`slot_group_sum`
     before comparing against staged data.
+
+    With a ``mesh`` of S > 1 shards this is the distributed mode
+    (:func:`_build_predict_distributed`): ``plan`` is the list of this
+    rank's shard plans, and ``predict(arrays_list, image)`` returns one
+    ``(vis_re, vis_im)`` pair per local shard.
     """
+    if mesh is not None and mesh.num_shards > 1:
+        return _build_predict_distributed(list(plan), mesh,
+                                          slot_output=slot_output)
     G = plan.plane_group
     N = plan.ngrid
     fmeta = _fused_fft_meta_ic(plan)
@@ -872,6 +894,237 @@ def _finalize(plan: GridderPlan, arrays: dict, acc_re, acc_im) -> tuple:
     out.index_add_(1, arrays["order"].to(torch.int64),
                    torch.stack([acc_re, acc_im]))
     return out[0, : plan.num_vis_data], out[1, : plan.num_vis_data]
+
+
+def _distributed_geometry(plans: list, mesh) -> GridderPlan:
+    """
+    The plan geometry the local shard plans share, or raise: one plan
+    per local shard, one grid and one w-plane set (``nplanes``, ``w0``,
+    ``dw``: plane p must mean the same w on every shard, since the
+    distributed mode sums plane grids across shards), and ``ngrid`` and
+    ``npix`` divisible by the shard count.
+    """
+    if len(plans) != mesh.local_shards:
+        raise ValueError(f"{len(plans)} plans for {mesh.local_shards} "
+                         "local shards")
+    shared = {
+        (p.ngrid, p.num_pixels, p.pixel_size_lm, p.support, p.sigma,
+         p.wstacking, p.nplanes, p.plane_group, p.w0, p.dw, p.n_mid)
+        for p in plans
+    }
+    if len(shared) != 1:
+        raise ValueError(
+            "shard plans disagree on the grid or the w-plane set: plan "
+            "them on the global w range and pad them (pad_plans_uniform)"
+        )
+    plan = plans[0]
+    S = mesh.num_shards
+    if plan.ngrid % S or plan.num_pixels % S:
+        raise ValueError(
+            f"distributed FFT needs ngrid={plan.ngrid} and "
+            f"npix={plan.num_pixels} divisible by num_shards={S}"
+        )
+    return plan
+
+
+def _source_major(received: torch.Tensor) -> torch.Tensor:
+    """
+    An all-to-all's (S, c, w) chunks, source shard s holding columns
+    [s w, (s + 1) w) of the next pass's input rows, as that input:
+    (S w, c) row-major.
+    """
+    S, c, w = received.shape
+    return received.permute(0, 2, 1).reshape(S * w, c)
+
+
+def _column_blocks(plane: torch.Tensor, S: int) -> torch.Tensor:
+    """An (N, N) plane's S column slabs as one contiguous (S, N, N/S)
+    tensor, slab s at [s]: the collectives split dimension 0."""
+    N = plane.shape[0]
+    return plane.view(N, S, N // S).permute(1, 0, 2).contiguous()
+
+
+def _build_invert_distributed(plans: list, mesh):
+    """
+    The distributed mode of :func:`build_invert` (counterpart: its
+    ``mesh_axis`` branch), on this rank's shard ``plans``. Per plane
+    group, each local shard grids its planes (B1) and the rank sums
+    them as they are made; then per plane:
+
+    * ``psum_scatter`` of the grid into column slabs of N/S, shard s
+      receiving the reduced columns Y_s as an (N, N/S) tensor (the
+      collectives split dimension 0, so the plane is laid out as its S
+      column slabs first, :func:`_column_blocks`);
+    * the first B2 pass (x -> a), (N, N/S) -> (npix, N/S);
+    * ``all_to_all`` of its npix/S-row chunks: shard j receives rows
+      A_j of every shard's columns, laid out (N, npix/S);
+    * the second B2 pass (y -> b), (N, npix/S) -> (npix, npix/S): the
+      column slab A_j of the replicated mode's transposed image;
+    * the w-screen of that slab and accumulation.
+
+    Each column of each pass is the replicated mode's, so the modes
+    differ only in the order the shards' grids are summed. At the end
+    the slabs take the correction and are ``all_gather``-ed into the
+    (npix, npix) image.
+    """
+    plan = _distributed_geometry(plans, mesh)
+    G, npix = plan.plane_group, plan.num_pixels
+    S = mesh.num_shards
+    cols = npix // S
+    fmeta = _fused_fft_meta(plan)
+    counts = [[len(ids) for ids in group_active_blocks(p)] for p in plans]
+    nchunks = [[len(c) for c in group_tile_chunks(p)] for p in plans]
+    slabs = [slice(g * cols, (g + 1) * cols)
+             for g in mesh.addressable_shard_indices]
+
+    def grid_group(arrays_list, re_list, im_list, k):
+        """Group k's (2G, N, N) planes summed over the local shards."""
+        total = None
+        for s, p in enumerate(plans):
+            arrays = arrays_list[s]
+            planes = grid_planes(
+                arrays["packed"], re_list[s], im_list[s],
+                arrays["block_len"], arrays["cblock_ox"], arrays["block_oy"],
+                arrays["plane_wg"][k],
+                arrays["group_blocks"][k, : counts[s][k]], plan=p,
+                chunks=arrays["group_chunks"][k, : nchunks[s][k]],
+            )
+            if total is None:
+                total = planes
+            else:
+                total += planes
+        return total
+
+    def column_slabs(plane):
+        """This rank's shards' (N, N/S) slabs of the plane summed over
+        the mesh."""
+        return [slab[0] for slab in
+                mesh.psum_scatter([_column_blocks(plane, S)])]
+
+    def invert(arrays_list, re_list, im_list):
+        arrays = arrays_list[0]
+        inv_corr, nm1s = _geometry_maps(plan, arrays)
+        images = [torch.zeros((npix, cols), dtype=torch.float32,
+                              device=inv_corr.device) for _ in slabs]
+        for k in range(plan.num_groups):
+            w_g = arrays["plane_wg"][k]
+            planes = grid_group(arrays_list, re_list, im_list, k)
+            for i in range(min(G, plan.nplanes - k * G)):
+                first = [
+                    fft_first_axis_fused(re, im, arrays, meta=fmeta, sign=+1)
+                    for re, im in zip(column_slabs(planes[2 * i]),
+                                      column_slabs(planes[2 * i + 1]))
+                ]
+                a_re = mesh.all_to_all([a[0] for a in first])
+                a_im = mesh.all_to_all([a[1] for a in first])
+                del first
+                for j, sl in enumerate(slabs):
+                    img_re, img_im = fft_first_axis_fused(
+                        _source_major(a_re[j]), _source_major(a_im[j]),
+                        arrays, meta=fmeta, sign=+1,
+                    )
+                    if plan.wstacking:
+                        # nm1s is transpose-symmetric (as in build_invert).
+                        theta = (-2.0 * math.pi * w_g[i]) * nm1s[:, sl]
+                        images[j] = images[j] + (
+                            img_re * torch.cos(theta)
+                            - img_im * torch.sin(theta)
+                        )
+                    else:
+                        images[j] = images[j] + img_re
+            del planes
+        parts = [image * inv_corr[:, sl] for image, sl in zip(images, slabs)]
+        # (S, npix, npix/S) slabs of the transposed image -> the image.
+        return mesh.all_gather(parts).permute(0, 2, 1).reshape(npix, npix)
+
+    return invert
+
+
+def _build_predict_distributed(plans: list, mesh, *, slot_output: bool):
+    """
+    The distributed mode of :func:`build_predict`, the mirror of
+    :func:`_build_invert_distributed`: per plane, each local shard
+    screens its slab of the corrected image (rows A_s, transposed:
+    (npix, npix/S)), runs the first in-cropped B2 pass on it (b -> y,
+    (N, npix/S)), ``all_to_all`` of its N/S-row chunks gives shard k
+    the columns Y_k of every slab, laid out (npix, N/S), the second
+    in-cropped pass (a -> x) makes the grid's column slab (N, N/S),
+    and ``all_gather`` puts the full periodic plane together on every
+    shard; then each local shard degrids the group (B3) as today.
+    Returns one ``(vis_re, vis_im)`` pair per local shard.
+    """
+    plan = _distributed_geometry(plans, mesh)
+    G, N, npix = plan.plane_group, plan.ngrid, plan.num_pixels
+    S = mesh.num_shards
+    cols = npix // S
+    fmeta = _fused_fft_meta_ic(plan)
+    counts = [[len(ids) for ids in group_active_blocks(p)] for p in plans]
+    nchunks = [[len(c) for c in group_tile_chunks(p)] for p in plans]
+    slabs = [slice(g * cols, (g + 1) * cols)
+             for g in mesh.addressable_shard_indices]
+
+    def grid_slabs(arrays, img0, nm1s, w_p):
+        """One plane's (S, N, N/S) column slabs of the periodic grid
+        (re, im), every shard's, from the local image slabs."""
+        first_re, first_im = [], []
+        for img, sl in zip(img0, slabs):
+            if plan.wstacking:
+                theta = (2.0 * math.pi * w_p) * nm1s[:, sl]
+                img_re, img_im = img * torch.cos(theta), img * torch.sin(theta)
+            else:
+                img_re, img_im = img, torch.zeros_like(img)
+            re, im = fft_first_axis_fused(img_re, img_im, arrays, meta=fmeta,
+                                          sign=-1, prefix="fftq")
+            first_re.append(re)
+            first_im.append(im)
+        a_re = mesh.all_to_all(first_re)
+        a_im = mesh.all_to_all(first_im)
+        del first_re, first_im
+        second = [
+            fft_first_axis_fused(_source_major(re), _source_major(im),
+                                 arrays, meta=fmeta, sign=-1, prefix="fftq")
+            for re, im in zip(a_re, a_im)
+        ]
+        return (mesh.all_gather([b[0] for b in second]),
+                mesh.all_gather([b[1] for b in second]))
+
+    def predict(arrays_list, image):
+        arrays = arrays_list[0]
+        inv_corr, nm1s = _geometry_maps(plan, arrays)
+        device = inv_corr.device
+        image = torch.as_tensor(image, dtype=torch.float32, device=device)
+        # Slab s of (image * inv_corr)^T: image rows A_s, transposed.
+        img0 = [(image[sl].t() * inv_corr[:, sl]).contiguous()
+                for sl in slabs]
+        grids = torch.empty((2 * G, N, N), dtype=torch.float32, device=device)
+        accs = [torch.zeros((2, p.num_vis), dtype=torch.float32,
+                            device=device) for p in plans]
+        for k in range(plan.num_groups):
+            w_g = arrays["plane_wg"][k]
+            num_real = min(G, plan.nplanes - k * G)
+            for i in range(num_real):
+                for q, gathered in enumerate(grid_slabs(arrays, img0, nm1s,
+                                                        w_g[i])):
+                    # (S, N, N/S) slabs -> the (N, N) plane, column-wise.
+                    grids[2 * i + q].view(N, S, N // S).copy_(
+                        gathered.permute(1, 0, 2))
+            last = grids[2 * (num_real - 1) : 2 * num_real]
+            for i in range(num_real, G):
+                grids[2 * i : 2 * i + 2].copy_(last)
+            for s, p in enumerate(plans):
+                a = arrays_list[s]
+                degrid_planes(
+                    a["packed"], a["block_len"], a["cblock_ox"],
+                    a["block_oy"], grids, w_g,
+                    a["group_blocks"][k, : counts[s][k]], accs[s], plan=p,
+                    chunks=a["group_chunks"][k, : nchunks[s][k]],
+                )
+        if slot_output:
+            return [(acc[0], acc[1]) for acc in accs]
+        return [_finalize(p, a, acc[0], acc[1])
+                for p, a, acc in zip(plans, arrays_list, accs)]
+
+    return predict
 
 
 def dirty_image(

@@ -2,7 +2,9 @@
 Gridding plan: host-side geometry and binning for the gridder.
 
 Counterpart: ``ska_sdp_cip_tpu/ops/plan.py`` (``make_plan`` and
-everything it calls, ``w_range`` and ``prewarm_plan_arenas``), with its
+everything it calls, ``w_range``, ``prewarm_plan_arenas`` and the
+sharded path's ``auto_block_and_group``, ``plan_shape_maxima`` and
+``pad_plans_uniform``), with its
 two engines: the native C++ engine (``native.py``, built from
 ``csrc/cip_native.cpp``) whenever a C++ compiler is on ``PATH``, else
 the numpy path. The port cannot import the original: importing any
@@ -799,6 +801,127 @@ def make_plan(
         phase_sin=slot_phase_sin,
         order_enc=slot_order_enc,
     )
+
+
+def auto_block_and_group(num_vis: int) -> tuple[int, int]:
+    """
+    (block, bin_group) for a shard of ``num_vis`` samples (counterpart
+    copy, without its environment overrides). Sharded callers derive
+    both from the global per-shard count so every shard plans the same
+    block size and w-bin grouping.
+    """
+    return auto_block(num_vis), auto_bin_group(num_vis)
+
+
+def plan_shape_maxima(plans: list) -> dict:
+    """
+    The data-dependent shapes of a plan list, as the maxima a group of
+    shards is padded to (counterpart copy without the TPU step-table
+    width, which the port does not build). Ranks allgather these few
+    ints so every rank pads its own shards to the same global shapes
+    without loading remote data.
+    """
+    return {
+        "num_blocks": max(p.num_blocks for p in plans),
+        "max_active": max(p.max_active for p in plans),
+        "nplanes": max(p.nplanes for p in plans),
+    }
+
+
+def pad_plans_uniform(plans: list, maxima: dict | None = None) -> list:
+    """
+    Pad per-shard plans to common shapes: blocks (with their visibility
+    slots), active-table width and w-planes (counterpart
+    ``pad_plans_uniform`` without its TPU step tables). The port runs
+    each shard eagerly, so it needs only one thing of this: every shard
+    runs the same plane groups, in the same order, because the
+    distributed mode's collectives run per plane; padding the rest
+    keeps the plans equal to the counterpart's field by field.
+    Geometry (grid, support, block, plane group) must already agree;
+    ``maxima`` (:func:`plan_shape_maxima`) must dominate the local
+    shapes.
+    """
+    import dataclasses
+
+    if not plans:
+        return plans
+    geometry = {
+        (p.ngrid, p.nalloc_x, p.nalloc_y, p.support, p.patch_x, p.patch_y,
+         p.block, p.wstacking, p.plane_group)
+        for p in plans
+    }
+    if len(geometry) != 1:
+        raise ValueError(
+            "Shard plans disagree on grid geometry; they must be built "
+            "from the same imaging configuration"
+        )
+    local = plan_shape_maxima(plans)
+    if maxima is None:
+        maxima = local
+    elif any(maxima[key] < local[key] for key in local):
+        raise ValueError(
+            f"padding targets {maxima} do not dominate local plan "
+            f"shapes {local}"
+        )
+    num_blocks = maxima["num_blocks"]
+    max_active = maxima["max_active"]
+    nplanes = maxima["nplanes"]
+    block = plans[0].block
+    num_vis = num_blocks * block
+
+    def _pad1(arr, target, fill):
+        if arr is None or len(arr) == target:
+            return arr
+        out = np.full(target, fill, dtype=arr.dtype)
+        out[: len(arr)] = arr
+        return out
+
+    padded = []
+    for p in plans:
+        table = np.full((nplanes, max_active), -1, dtype=np.int32)
+        table[: p.active_table.shape[0], : p.active_table.shape[1]] = (
+            p.active_table
+        )
+        # Engine-exported columns: pad with the values the numpy path
+        # gives padding slots (x, y at support + 0.5, ws = 0, so the
+        # phase is (1, 0)).
+        packed, flip_sign = p.packed, p.flip_sign
+        phase_cos, phase_sin = p.phase_cos, p.phase_sin
+        if packed is not None and packed.shape[1] < num_vis:
+            pad_cols = np.zeros((packed.shape[0], num_vis - packed.shape[1]),
+                                np.float32)
+            pad_cols[0] = pad_cols[1] = p.support + 0.5
+            packed = np.concatenate([packed, pad_cols], axis=1)
+            flip_sign = _pad1(flip_sign, num_vis, 1.0)
+            phase_cos = _pad1(phase_cos, num_vis, 1.0)
+            phase_sin = _pad1(phase_sin, num_vis, 0.0)
+        padded.append(dataclasses.replace(
+            p,
+            packed=packed,
+            flip_sign=flip_sign,
+            phase_cos=phase_cos,
+            phase_sin=phase_sin,
+            nplanes=nplanes,
+            num_blocks=num_blocks,
+            max_active=max_active,
+            order=_pad1(p.order, num_vis, p.num_vis_data),
+            order_enc=_pad1(p.order_enc, num_vis, p.num_vis_data),
+            flip=_pad1(p.flip, num_vis, False),
+            x0=_pad1(p.x0, num_vis, p.support),
+            y0=_pad1(p.y0, num_vis, p.support),
+            fx=_pad1(p.fx, num_vis, 0.5),
+            fy=_pad1(p.fy, num_vis, 0.5),
+            ws=_pad1(p.ws, num_vis, 0.0),
+            block_start=(np.arange(num_blocks, dtype=np.int64)
+                         * block).astype(np.int32),
+            block_len=_pad1(p.block_len, num_blocks, 0),
+            block_ox=_pad1(p.block_ox, num_blocks, 0),
+            block_oy=_pad1(p.block_oy, num_blocks, 0),
+            active_table=table,
+            plane_w=(p.w0 + p.dw * np.arange(nplanes, dtype=np.float64)
+                     ).astype(np.float32),
+        ))
+    return padded
 
 
 def plan_from_fields(fields: dict) -> GridderPlan:

@@ -11,7 +11,8 @@ its float32 plain version (summation order differs; the gridding
 kernel adds with atomics), 1e-4 against the explicit DFT; exact where
 a kernel only moves data (B6, P2's ``load``) or sums another kernel's
 values in its order (tiled B2 as row-major B2, P1 as the dense pass
-P2 ``full``).
+P2 ``full``). B2 also runs at the distributed mode's slab widths, and
+the distributed invert on 2 shards of an NCCL world of one.
 """
 
 import numpy as np
@@ -567,3 +568,67 @@ def test_tiled_invert_on_card_matches_cpu(cuda, tmp_path):
     ref = invert_tile_chunks(paths, freqs, 128, pixel, device="cpu")
     assert np.isfinite(got).all() and got.shape == ref.shape
     assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+#: The distributed mode's slab widths (N/S, npix/S) of two transforms at
+#: S = 4: the bench one (4096 -> 2048) and a 960 -> 480 one (n1 = 30).
+SLAB_CASES = [(4096, 2048, 4), (960, 480, 4)]
+
+
+@pytest.mark.parametrize("n,npix,shards", SLAB_CASES,
+                         ids=[f"{n}_S{s}" for n, _, s in SLAB_CASES])
+@pytest.mark.parametrize("crop", ["out", "in"])
+def test_fft_kernel_at_slab_widths_matches_plain(cuda, n, npix, shards,
+                                                 crop):
+    """B2, out-cropped (invert) and in-cropped (predict), at the column
+    widths N/S and npix/S of the distributed mode's slabs."""
+    plan = make_fft_plan(n, shifted=True)
+    window = ((n - npix) // 2, npix)
+    if crop == "out":
+        meta = tfc.fused_pass_meta(plan, window)
+        sign, prefix, rows = +1, "fftp", n
+    else:
+        meta = tfc.fused_pass_meta(plan, None, in_crop=window)
+        sign, prefix, rows = -1, "fftq", npix
+    host = fft_plan_arrays(plan, prefix="fft")
+    host.update(tfc.fused_pass_kernel_arrays(plan, meta, sign=sign,
+                                             prefix=prefix))
+    f = tg.stage_arrays(host, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n + shards)
+    for m in (n // shards, npix // shards):
+        re = torch.randn((rows, m), generator=gen, device=cuda)
+        im = torch.randn((rows, m), generator=gen, device=cuda)
+        launches = tfc.LAUNCHES + tfc.IN_CROP_LAUNCHES
+        got = tfc.fft_first_axis_fused(re, im, f, meta=meta, sign=sign,
+                                       prefix=prefix)
+        torch.cuda.synchronize()
+        assert tfc.LAUNCHES + tfc.IN_CROP_LAUNCHES == launches + 1
+        _rel_close(got, tfc.fft_first_axis_reference(re, im, f, meta=meta,
+                                                     sign=sign))
+
+
+def test_distributed_invert_on_card_matches_invert_dataset(cuda, tmp_path):
+    """S = 2 shards in one process (an NCCL world of one) on the card, in
+    the distributed FFT mode and the replicated one, against
+    ``invert_dataset`` on the card at the reference's tolerance (rtol
+    1e-5, atol 1e-5 of the max); both go through B1 and B2."""
+    from ska_sdp_cip_tpu_torch import VisibilityReader, invert_dataset
+    from ska_sdp_cip_tpu_torch.io.synth import make_synthetic_dataset
+    from ska_sdp_cip_tpu_torch.parallel import (
+        make_device_mesh,
+        sharded_invert_dataset,
+    )
+
+    path = make_synthetic_dataset(tmp_path / "obs.vz", num_times=6,
+                                  num_antennas=16, seed=4321)
+    reader = VisibilityReader(path)
+    want = invert_dataset(reader, 128, 30.0, device=cuda)
+    mesh = make_device_mesh(2, device=cuda)
+    for mode in ("distributed", "replicated"):
+        before = tcg.LAUNCHES, tfc.LAUNCHES
+        got = sharded_invert_dataset(reader, 128, 30.0, mesh=mesh,
+                                     row_chunks=2, freq_chunks=1,
+                                     fft_mode=mode)
+        assert tcg.LAUNCHES > before[0] and tfc.LAUNCHES > before[1]
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())

@@ -9,8 +9,9 @@ The torch port end to end on the CPU, against the JAX package.
   without w-stacking.
 * The port imports and runs with jax and ml_dtypes unavailable, as on
   the machine that carries the card: its planner engine, staging, tile
-  store, task metrics and the ``tpu-cip-reorder-uvw-torch`` console
-  script too.
+  store, task metrics, the ``tpu-cip-reorder-uvw-torch`` console script
+  and the multi-device path (``parallel/*``, ``graft_entry``'s dry run)
+  too.
 * The copied VZ reader and synthetic data give the JAX package's arrays.
 """
 
@@ -157,6 +158,10 @@ from ska_sdp_cip_tpu_torch.utils import staging, task_metrics
 uvw_reorder_app.get_parser().parse_args(["obs.vz", "-t", "1", "2", "3"])
 task_metrics.TaskRecorder()
 staging.device_put_parallel({"x": np.zeros(2)}, "cpu")
+from ska_sdp_cip_tpu_torch import graft_entry, sharded_invert_dataset
+from ska_sdp_cip_tpu_torch.parallel import launch, mesh, sharded_clean
+graft_entry.dryrun_multichip(2, "cpu")
+launch.get_parser().parse_args(["--", "obs.vz", "out.npy"])
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                 ("jax", "jaxlib", "ml_dtypes", "ska_sdp_cip_tpu")
                 and sys.modules[m] is not None)

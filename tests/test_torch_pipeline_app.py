@@ -13,7 +13,9 @@ side on its XLA path).
   the JAX CLI's: the dirty image to 2 x 1.03e-5 of its max (the JAX
   package's Pallas-vs-XLA gap, doubled), model, residual and restored
   image to 1e-4 of their max;
-* ``-d 2`` raises ``NotImplementedError``; ``--version`` prints;
+* ``-d 2 --device cpu`` writes ``invert_dataset``'s image (rtol 1e-5)
+  and ``task-list.json`` in the reference's schema; ``--version``
+  prints;
 * ``python -m ska_sdp_cip_tpu_torch.apps.pipeline_app`` runs with jax,
   jaxlib, ml_dtypes and the JAX package unimportable, and
   ``--profile-dir`` writes a trace.
@@ -117,11 +119,29 @@ def test_clean_matches_jax_cli(dataset_path, tmp_path, monkeypatch,
         assert model.min() >= 0
 
 
-def test_devices_raise_and_version(dataset_path, tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="A9"):
-        tapp.run_program(_args(dataset_path, tmp_path / "d.npy", "-d", "2",
-                               "-rc", "2", "-fc", "1", "--device", "cpu"))
-    assert not (tmp_path / "d.npy").exists()
+def test_devices_raise_and_version(dataset_path, tmp_path, monkeypatch,
+                                   capsys):
+    """``-d 2 --device cpu`` (two shards on a gloo world of one) writes
+    the image of ``invert_dataset`` at the reference's tolerance and a
+    ``task-list.json`` in the reference's schema; ``-d`` with ``--device
+    cuda`` and no card raises."""
+    monkeypatch.chdir(tmp_path)
+    tapp.run_program(_args(dataset_path, tmp_path / "d.npy", "-d", "2",
+                           "-rc", "2", "-fc", "1", "--device", "cpu"))
+    want = invert_dataset(VisibilityReader(dataset_path), NPIX, ASEC,
+                          sigma="auto", device="cpu")
+    np.testing.assert_allclose(np.load(tmp_path / "d.npy"), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+    tasks = json.loads((tmp_path / "task-list.json").read_text())
+    assert [t["name"] for t in tasks] == [
+        "load_shards", "plan_shards", "stage_shards", "grid_fft_reduce"]
+    assert set(tasks[0]) == {"key", "worker", "status", "start", "stop",
+                             "name", "duration"}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            tapp.run_program(_args(dataset_path, tmp_path / "c.npy", "-d",
+                                   "2", "--device", "cuda"))
+        assert not (tmp_path / "c.npy").exists()
     with pytest.raises(SystemExit):
         tapp.run_program(["--version"])
     assert capsys.readouterr().out.strip() == tapp.__version__

@@ -15,7 +15,8 @@ CPU, against the JAX package's: port versions of
 * ``invert_tile_chunks`` on the CPU matches the port's
   ``invert_dataset`` and the JAX ``invert_tile_chunks`` within the
   reference's own tolerance (atol 1e-4 of the max, rtol 1e-3, at
-  epsilon 1e-5); ``sharded_invert_tile_chunks`` waits for ROADMAP.md A9.
+  epsilon 1e-5); ``sharded_invert_tile_chunks`` on a mesh of shards (in
+  one gloo process), empty groups included, equals it at rtol 1e-5.
 """
 
 from pathlib import Path
@@ -282,8 +283,37 @@ def test_tiled_invert_matches_jax(dataset_path, port_tiles, jax_tiles):
         assert got.shape == want.shape and got.dtype == want.dtype
 
 
-def test_sharded_tiled_invert_waits_for_a9(port_tiles):
-    with pytest.raises(NotImplementedError, match="A9"):
-        ttiled.sharded_invert_tile_chunks(port_tiles, np.ones(1), 64, 1e-5)
+@pytest.mark.parametrize("fft_mode", ["replicated", "distributed"])
+def test_sharded_tiled_invert_waits_for_a9(port_tiles, dataset_path,
+                                           fft_mode):
+    """``sharded_invert_tile_chunks`` (A9, done) on 4 shards, and on more
+    shards than chunk files (empty groups), equals
+    ``invert_tile_chunks`` at the reference's tolerance (rtol 1e-5,
+    atol 1e-5 of the max)."""
+    from ska_sdp_cip_tpu_torch.parallel.mesh import make_device_mesh
+
+    freqs = VisibilityReader(dataset_path).channel_frequencies()
+    pixel = pixel_size_lm_from_asec(PIXEL_SIZE_ASEC)
+    want = ttiled.invert_tile_chunks(port_tiles, freqs, NUM_PIXELS, pixel,
+                                     device="cpu")
+    # More shards than files (a power of two: the distributed mode needs
+    # one dividing ngrid and npix): some shards hold no file.
+    many = 1 << len(port_tiles).bit_length()
+    groups = ttiled.balanced_groups(port_tiles, many)
+    assert min(map(len, groups)) == 0
+    for shards in (4, many):
+        timings = {}
+        got = ttiled.sharded_invert_tile_chunks(
+            port_tiles, freqs, NUM_PIXELS, pixel, fft_mode=fft_mode,
+            mesh=make_device_mesh(shards, device="cpu"), timings=timings,
+            repeats=2,
+        )
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+        assert {"load_s", "plan_s", "stage_s", "compile_first_s",
+                "execute_s"} <= set(timings)
+    with pytest.raises(ValueError, match="No tile chunk"):
+        ttiled.sharded_invert_tile_chunks([], freqs, 64, pixel,
+                                          device="cpu")
     with pytest.raises(ValueError, match="No visibilities"):
         ttiled.invert_tile_chunks([], np.ones(1), 64, 1e-5, device="cpu")
