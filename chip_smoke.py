@@ -60,7 +60,20 @@ then runs these phases and prints one JSON object per phase:
    after a warm run, a per-stage breakdown (with the planner that ran,
    whether the image came down into a pinned buffer, and the seconds
    of the path not taken in each direction: the pageable download and
-   the pinned upload) and a profile of one call;
+   the pinned upload) and a profile of one call; then ``ms``: the same
+   dataset written as a MeasurementSet v2 (:func:`write_measurement_set`:
+   DATA in TiledShapeStMan, FLAG, WEIGHT_SPECTRUM and UVW in
+   TiledColumnStMan, TIME in IncrementalStMan, the subtables in
+   StandardStMan; its seconds, bytes and tile shapes), read back by
+   ``VisibilityReader`` through the casacore-free ``_NativeMSBackend``
+   (every column bit-equal to the VZ's, seconds per column),
+   ``tpu-cip-ingest-torch`` at the default and at 10000-row blocks (each
+   VZ bit-equal to the source), ``tpu-cip-torch obs.ms`` on the card
+   against the VZ's ``invert_dataset`` (rtol 1e-5, atol 1e-5 of the
+   max) with B1's and B2's launches equal to ``slice``'s, the median CLI
+   wall of 3 calls after a warm one, the partitioned reads of a sharded
+   run and of the reorder (each sub-reader decodes the MS again) and a
+   breakdown with the MS read + Stokes beside the VZ's;
 8. ``major_cycle``: ``MeasurementOperator.build`` + ``major_cycle_clean(
    num_major=3, minor_iter=100)`` on the same dataset, gated on the
    residual (below 0.6 x the dirty peak) and on the brightest CLEAN
@@ -144,6 +157,7 @@ import contextlib
 import json
 import math
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1145,6 +1159,408 @@ def phase_slice(device, path: Path, dataset_seconds: float, seed=1234,
     results["breakdown"] = slice_breakdown(reader, npix, asec, device)
     results["profile"] = profile_call(run, device)
     return results
+
+
+#: The ``ms`` phase's MeasurementSet: each tiled column in a manager of
+#: its own (the reader maps one (type, group) to one ``table.f<seq>``),
+#: DATA in TiledShapeStMan as the CASA filler binds it, TIME in
+#: IncrementalStMan; (column, VZ file, manager, group, value type name).
+MS_MAIN_COLUMNS = (
+    ("UVW", "uvw", "TiledColumnStMan", "TiledUVW", "Double"),
+    ("TIME", "time", "IncrementalStMan", "ISMData", "Double"),
+    ("DATA", "data", "TiledShapeStMan", "TiledData", "Complex"),
+    ("FLAG", "flag", "TiledColumnStMan", "TiledFlag", "Bool"),
+    ("WEIGHT_SPECTRUM", "weight_spectrum", "TiledColumnStMan",
+     "TiledWgtSpectrum", "Float"),
+    ("WEIGHT", "weight", "TiledColumnStMan", "TiledWeight", "Float"),
+)
+#: Big-endian dtypes of the cells (AipsIO's canonical byte order).
+MS_DTYPES = {"Double": ">f8", "Complex": ">c8", "Float": ">f4",
+             "Int": ">i4", "Bool": "u1"}
+#: casacore AipsIO's magic number before a top-level object.
+AIPSIO_MAGIC = 0xBEBEBEBE
+
+
+def _aipsio_string(text: str) -> bytes:
+    raw = text.encode()
+    return struct.pack(">I", len(raw)) + raw
+
+
+def _aipsio_frame(typ: str, version: int, payload: bytes) -> bytes:
+    """One AipsIO object: [uInt length][String type][uInt version]
+    payload, the length counting everything after itself."""
+    body = _aipsio_string(typ) + struct.pack(">I", version) + payload
+    return struct.pack(">I", len(body)) + body
+
+
+def _iposition(shape) -> bytes:
+    return _aipsio_frame("IPosition", 2, struct.pack(
+        f">I{len(shape)}q", len(shape), *shape))
+
+
+def _column_desc(name, type_name, shape, dm_type, dm_group, *,
+                 ndim=None) -> bytes:
+    """A ColumnDesc frame: scalar when ``shape`` is None, a fixed-shape
+    direct array for a shape (casacore order, fastest axis first), a
+    variable-shape array of ``ndim`` axes when ``shape`` is ()."""
+    from ska_sdp_cip_tpu_torch.io import casacore_tables as ct
+
+    codes = {"Bool": ct.TP_BOOL, "Int": ct.TP_INT, "Float": ct.TP_FLOAT,
+             "Double": ct.TP_DOUBLE, "Complex": ct.TP_COMPLEX}
+    is_array = shape is not None
+    if not is_array:
+        options, ndim = 0, 0
+    elif shape:
+        options, ndim = ct.OPT_DIRECT | ct.OPT_FIXEDSHAPE, len(shape)
+    else:
+        options = 0
+    payload = (_aipsio_string(
+        f"{'Array' if is_array else 'Scalar'}ColumnDesc<{type_name}>")
+        + struct.pack(">I", 1) + _aipsio_string(name) + _aipsio_string("")
+        + _aipsio_string(dm_type) + _aipsio_string(dm_group)
+        + struct.pack(">3i", codes[type_name], options, ndim))
+    if is_array:
+        payload += _iposition(shape)
+    return _aipsio_frame("ColumnDesc", 1, payload)
+
+
+def _write_table_dat(path: Path, num_rows: int, descs: list) -> None:
+    path.mkdir(parents=True, exist_ok=True)
+    table = _aipsio_frame("Table", 2, struct.pack(">2I", num_rows, 0)
+                          + _aipsio_string(path.name)
+                          + _aipsio_frame("TableDesc", 1, b"".join(descs)))
+    (path / "table.dat").write_bytes(struct.pack(">I", AIPSIO_MAGIC) + table)
+
+
+def _tile_cube(values: np.ndarray, tile: tuple, type_name: str) -> bytes:
+    """The TSM hypercube of ``values`` (rows first, numpy order): a
+    Fortran-ordered grid of Fortran-ordered tiles over cell + (rows,),
+    ``tile`` in casacore order; Bool tiles bit-packed. Whole tiles at
+    once: the grid is numpy's C order over the reversed axes."""
+    rev = tuple(reversed(tile))
+    counts = [-(-n // t) for n, t in zip(values.shape, rev)]
+    padded = np.zeros([n * t for n, t in zip(counts, rev)],
+                      MS_DTYPES[type_name])
+    padded[tuple(slice(0, n) for n in values.shape)] = values
+    split = padded.reshape([d for nt in zip(counts, rev) for d in nt])
+    rank = len(rev)
+    tiles = np.ascontiguousarray(split.transpose(
+        [2 * a for a in range(rank)] + [2 * a + 1 for a in range(rank)]))
+    if type_name == "Bool":
+        return np.packbits(tiles.reshape(int(np.prod(counts)), -1), axis=1,
+                           bitorder="little").tobytes()
+    return tiles.tobytes()
+
+
+def _write_tiled_column(path: Path, seq: int, dm_type: str,
+                        values: np.ndarray, tile: tuple, type_name: str):
+    """``table.f<seq>`` (the manager's header: TSSM holds the hypercube
+    shape and then the tile shape, TSM the tile shape) and its cube file
+    ``table.f<seq>_TSM0``."""
+    cube = tuple(reversed(values.shape))
+    shapes = (cube, tile) if dm_type == "TiledShapeStMan" else (tile,)
+    header = _aipsio_frame(dm_type, 1, b"".join(_iposition(s)
+                                                for s in shapes))
+    (path / f"table.f{seq}").write_bytes(
+        struct.pack(">I", AIPSIO_MAGIC) + header)
+    (path / f"table.f{seq}_TSM0").write_bytes(
+        _tile_cube(values, tile, type_name))
+
+
+def _write_ism_column(path: Path, seq: int, values: np.ndarray) -> None:
+    """One scalar Double column in IncrementalStMan: one bucket holding
+    the value at each change point and its index, then the ISMIndex
+    object (64-bit row boundaries)."""
+    from ska_sdp_cip_tpu_torch.io import casacore_tables as ct
+
+    starts = np.flatnonzero(np.r_[True, values[1:] != values[:-1]])
+    n = len(starts)
+    index_offset = 4 + 8 * n
+    used = index_offset + 4 + 8 * n
+    bucket_size = max(512, -(-used // 512) * 512)
+    bucket = bytearray(bucket_size)
+    bucket[:used] = (
+        struct.pack(">I", index_offset)
+        + values[starts].astype(">f8").tobytes() + struct.pack(">I", n)
+        + starts.astype(">u4").tobytes()
+        + (4 + 8 * np.arange(n)).astype(">u4").tobytes())
+    header = _aipsio_frame("IncrementalStMan", 5, struct.pack(
+        ">?4I", True, bucket_size, 1, 1, 0))
+    index = _aipsio_frame("ISMIndex", 2, struct.pack(
+        ">2I2qII", 1, 2, 0, len(values), 1, 0))
+    head = struct.pack(">I", AIPSIO_MAGIC) + header
+    (path / f"table.f{seq}").write_bytes(
+        head + bytes(ct._SSM_HEADER_AREA - len(head)) + bytes(bucket)
+        + index)
+
+
+def _write_ssm_table(path: Path, columns: list) -> None:
+    """A one-row subtable in one StandardStMan bucket: ``columns`` is
+    (name, type name, value, indirect); an indirect array stores its
+    Int64 offset into the aux file ``table.f0i``, whose cell is
+    [uInt ndim][uInt dims][big-endian values]; an SSMIndex object in a
+    second bucket maps the row to bucket 0."""
+    from ska_sdp_cip_tpu_torch.io import casacore_tables as ct
+
+    descs = [_column_desc(name, type_name, () if indirect else None,
+                          "StandardStMan", "StandardStMan",
+                          ndim=np.ndim(value) if indirect else None)
+             for name, type_name, value, indirect in columns]
+    _write_table_dat(path, 1, descs)
+    widths = [8 if indirect else np.dtype(MS_DTYPES[type_name]).itemsize
+              for _, type_name, _, indirect in columns]
+    bucket_size = 512
+    rows_per_bucket = bucket_size // sum(widths)
+    bucket, aux = bytearray(bucket_size), bytearray(16)
+    offset = 0
+    for (_, type_name, value, indirect), width in zip(columns, widths):
+        value = np.asarray(value, MS_DTYPES[type_name])
+        if indirect:
+            cell = struct.pack(f">{value.ndim + 1}I", value.ndim,
+                               *reversed(value.shape)) + value.tobytes()
+            raw = struct.pack(">q", len(aux))
+            aux += cell
+        else:
+            raw = value.tobytes()
+        bucket[offset:offset + len(raw)] = raw
+        offset += width * rows_per_bucket
+    index = _aipsio_frame("SSMIndex", 1, struct.pack(">3I", 1, 0, 0))
+    header = _aipsio_frame("StandardStMan", 2, struct.pack(
+        ">7i", bucket_size, 2, 1, 0, -1, 1, 1))
+    head = struct.pack(">I", AIPSIO_MAGIC) + header
+    (path / "table.f0").write_bytes(
+        head + bytes(ct._SSM_HEADER_AREA - len(head)) + bytes(bucket)
+        + index + bytes(bucket_size - len(index)))
+    (path / "table.f0i").write_bytes(bytes(aux))
+
+
+def ms_tile_shapes(columns: dict, tile_bytes: int) -> dict:
+    """Each tiled column's tile shape (casacore order): every
+    correlation, every channel (half of them for WEIGHT_SPECTRUM, so its
+    tiles also form a grid along frequency), and as many rows as make
+    about ``tile_bytes`` (at most the table's)."""
+    shapes = {}
+    for name, key, dm_type, _, type_name in MS_MAIN_COLUMNS:
+        if dm_type == "IncrementalStMan" or key not in columns:
+            continue
+        cell = list(reversed(columns[key].shape[1:]))
+        if name == "WEIGHT_SPECTRUM":
+            cell[1] = -(-cell[1] // 2)
+        bits = 1 if type_name == "Bool" else 8 * np.dtype(
+            MS_DTYPES[type_name]).itemsize
+        rows = max(1, 8 * tile_bytes // (bits * int(np.prod(cell))))
+        shapes[name] = (*cell, min(rows, len(columns[key])))
+    return shapes
+
+
+def write_measurement_set(path: Path, columns: dict,
+                          tile_bytes: int = 1 << 20) -> dict:
+    """
+    Write ``columns`` (VZ arrays: ``uvw``, ``time``, ``data``, ``flag``,
+    ``weight_spectrum`` and/or ``weight``, ``chan_freq``, ``corr_types``)
+    as a MeasurementSet v2 in the casacore table format that
+    ``io/casacore_tables.py`` reads: the main table's columns bound as
+    :data:`MS_MAIN_COLUMNS` says (TiledShapeStMan, TiledColumnStMan and
+    IncrementalStMan), big-endian cells, and the subtables
+    SPECTRAL_WINDOW (CHAN_FREQ, NUM_CHAN), POLARIZATION (CORR_TYPE,
+    NUM_CORR) and FIELD as one-bucket StandardStMan tables with indirect
+    array cells. Numpy and stdlib only; the big columns are written as
+    whole tiles. Returns each tiled column's tile shape.
+    """
+    path = Path(path)
+    num_rows = len(columns["uvw"])
+    tiles = ms_tile_shapes(columns, tile_bytes)
+    descs, bound = [], []
+    for name, key, dm_type, group, type_name in MS_MAIN_COLUMNS:
+        if key not in columns:
+            continue
+        cell = tuple(reversed(columns[key].shape[1:]))
+        if dm_type == "TiledShapeStMan":
+            descs.append(_column_desc(name, type_name, (), dm_type, group,
+                                      ndim=len(cell)))
+        else:
+            descs.append(_column_desc(name, type_name, cell or None,
+                                      dm_type, group))
+        bound.append((key, dm_type, type_name, tiles.get(name)))
+    _write_table_dat(path, num_rows, descs)
+    for seq, (key, dm_type, type_name, tile) in enumerate(bound):
+        values = np.asarray(columns[key])
+        if dm_type == "IncrementalStMan":
+            _write_ism_column(path, seq, values)
+        else:
+            _write_tiled_column(path, seq, dm_type, values, tile, type_name)
+    freqs = np.asarray(columns["chan_freq"])
+    corr = np.asarray(columns["corr_types"])
+    _write_ssm_table(path / "SPECTRAL_WINDOW", [
+        ("CHAN_FREQ", "Double", freqs, True),
+        ("NUM_CHAN", "Int", len(freqs), False)])
+    _write_ssm_table(path / "POLARIZATION", [
+        ("CORR_TYPE", "Int", corr, True), ("NUM_CORR", "Int", len(corr),
+                                           False)])
+    _write_ssm_table(path / "FIELD", [
+        ("PHASE_DIR", "Double", np.zeros((1, 2)), True),
+        ("SOURCE_ID", "Int", 0, False)])
+    return tiles
+
+
+def vz_columns(path: Path) -> dict:
+    """A VZ dataset's arrays by file stem, plus its ``corr_types``."""
+    columns = {p.stem: np.load(p) for p in sorted(Path(path).glob("*.npy"))}
+    meta = json.loads((Path(path) / "metadata.json").read_text())
+    columns["corr_types"] = np.asarray(meta["corr_types"], np.int32)
+    return columns
+
+
+def bit_equal(a, b) -> bool:
+    """Same dtype, shape and bytes."""
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.ascontiguousarray(a).tobytes()
+            == np.ascontiguousarray(b).tobytes())
+
+
+def disk_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def partition_read_seconds(dataset: Path, rows: int, chans: int) -> float:
+    """Seconds to read every sub-reader of ``partition(rows, chans)`` and
+    convert it to Stokes I, as the shards of a sharded run do."""
+    from ska_sdp_cip_tpu_torch import VisibilityReader
+    from ska_sdp_cip_tpu_torch.invert import StokesIGridderInput
+
+    t = time.perf_counter()
+    for sub in VisibilityReader(dataset).partition(rows, chans):
+        StokesIGridderInput.from_reader(sub)
+    return time.perf_counter() - t
+
+
+READER_COLUMNS = ("uvw", "time", "visibilities", "flags", "weights",
+                  "channel_frequencies")
+
+
+def phase_ms(device, path: Path, workdir: Path, slice_launches: dict,
+             npix=BENCH_NPIX, asec=BENCH_ASEC, repeats=3,
+             row_blocks=(None, 10000), tile_bytes=1 << 20) -> dict:
+    """
+    The slice's dataset as a MeasurementSet v2
+    (:func:`write_measurement_set`), then: ``VisibilityReader`` on it
+    (the backend must be the casacore-free ``_NativeMSBackend``; every
+    column and the corr types bit-equal to the VZ's; seconds per
+    column); ``tpu-cip-ingest-torch`` in process at each of
+    ``row_blocks`` (None: the default), each VZ it writes bit-equal to
+    the source, array for array; ``tpu-cip-torch obs.ms`` in process on
+    ``device`` (no ``--device`` on the card: its default) against
+    ``invert_dataset`` of the VZ at rtol 1e-5, atol 1e-5 of the max,
+    with B1's and B2's launches equal to ``slice_launches``, the median
+    CLI wall of ``repeats`` calls after the first, and a breakdown: MS
+    read + Stokes beside the VZ's, then plan, upload, device, download.
+    """
+    import shutil
+
+    from ska_sdp_cip_tpu_torch import VisibilityReader, invert_dataset
+    from ska_sdp_cip_tpu_torch.apps.ingest_app import run_program
+    from ska_sdp_cip_tpu_torch.invert import StokesIGridderInput
+
+    columns = vz_columns(path)
+    ms = workdir / "obs.ms"
+    t = time.perf_counter()
+    tiles = write_measurement_set(ms, columns, tile_bytes)
+    out = {"phase": "ms", "num_rows": len(columns["uvw"]),
+           "num_vis": int(columns["data"].shape[0] * columns["data"].shape[1]),
+           "write_seconds": time.perf_counter() - t,
+           "ms_bytes": disk_bytes(ms), "vz_bytes": disk_bytes(path),
+           "tile_shapes": {k: list(v) for k, v in tiles.items()},
+           "managers": {name: dm for name, key, dm, _, _ in MS_MAIN_COLUMNS
+                        if key in columns}}
+    del columns
+
+    vz = VisibilityReader(path)
+    reader = VisibilityReader(ms)
+    out["backend"] = type(reader._metadata.backend).__name__
+    if out["backend"] != "_NativeMSBackend":
+        raise PhaseError(f"ms: read by {out['backend']}, not the "
+                         "casacore-free _NativeMSBackend")
+    seconds, unequal = {}, []
+    for name in READER_COLUMNS:
+        t = time.perf_counter()
+        got = getattr(reader, name)()
+        seconds[name] = time.perf_counter() - t
+        if not bit_equal(got, getattr(vz, name)()):
+            unequal.append(name)
+    corr = reader._metadata.backend.corr_types()
+    if corr != tuple(vz._metadata.backend.corr_types()):
+        unequal.append("corr_types")
+    out["read_seconds"] = seconds
+    out["decode_seconds"] = sum(seconds.values())
+    if unequal:
+        raise PhaseError(f"ms: columns differ from the VZ's: {unequal}")
+    del reader
+
+    out["ingest"] = []
+    for block in row_blocks:
+        target = workdir / "obs_ms.vz"
+        argv = [str(ms), str(target)]
+        if block is not None:
+            argv += ["--row-block", str(block)]
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            run_program(argv)
+        run = {"row_block": block, "wall_seconds": time.perf_counter() - t}
+        names = sorted(p.name for p in path.glob("*.npy"))
+        run["files"] = names
+        run["bit_equal"] = (
+            names == sorted(p.name for p in target.glob("*.npy"))
+            and all(bit_equal(np.load(path / n), np.load(target / n))
+                    for n in names))
+        shutil.rmtree(target)
+        out["ingest"].append(run)
+        if not run["bit_equal"]:
+            raise PhaseError(f"ms: ingest at row block {block} is not the "
+                             "source VZ")
+
+    image_path = workdir / "dirty_ms.npy"
+    argv = [ms, image_path, "-n", npix, "-p", asec]
+    if str(device) != "cuda":
+        argv += ["--device", device]
+    first = cli_call(device, argv)
+    launches = first["launches"]
+    image = np.load(image_path)
+    # The CLI's sigma ("auto"; 2.0, invert_dataset's default, at bench).
+    ref = invert_dataset(vz, npix, asec, sigma="auto", device=device)
+    out.update({"npix": npix, "pixel_asec": asec,
+                "first_call_seconds": first["wall_seconds"],
+                "launches": launches,
+                "vs_vz_invert": within_sharded_tol(image, ref)})
+    if not out["vs_vz_invert"]["within"]:
+        raise PhaseError(f"ms: the MS image against the VZ invert "
+                         f"{out['vs_vz_invert']}")
+    require_launches(launches, ("b1", "b2_out_crop"), device, "ms")
+    for key in ("b1", "b2_out_crop"):
+        if launches[key] != slice_launches[key]:
+            raise PhaseError(f"ms: {key} launched {launches[key]} times, "
+                             f"{slice_launches[key]} in slice")
+    walls = [cli_call(device, argv)["wall_seconds"] for _ in range(repeats)]
+    out["cli_wall_seconds"] = walls
+    out["median_cli_wall_seconds"] = statistics.median(walls)
+
+    # Each sub-reader opens its own backend, so on an MS every shard of
+    # -d S (partition(2, 2) at S = 4) and every time interval of the
+    # reorder (-n 4: partition(4, 1)) decodes the columns again.
+    out["partition_read_stokes_seconds"] = {
+        f"{fmt}_{rows}x{chans}": partition_read_seconds(dataset, rows, chans)
+        for rows, chans in ((2, 2), (4, 1))
+        for fmt, dataset in (("ms", ms), ("vz", path))}
+    t = time.perf_counter()
+    StokesIGridderInput.from_reader(VisibilityReader(path))
+    breakdown = {"vz_read_stokes_seconds": time.perf_counter() - t}
+    breakdown.update(slice_breakdown(VisibilityReader(ms), npix, asec,
+                                     device))
+    breakdown["ms_read_stokes_seconds"] = breakdown.pop(
+        "read_stokes_seconds")
+    out["breakdown"] = breakdown
+    shutil.rmtree(ms)
+    return out
 
 
 def profile_call(fn, device, top: int = 8, sessions: int = 1) -> dict:
@@ -3174,6 +3590,8 @@ def main() -> int:
         path, dataset_seconds = make_dataset(Path(tmp))
         sl = phase_slice(device, path, dataset_seconds)
         emit(sl)
+        ms = phase_ms(device, path, Path(tmp), sl["launches"])
+        emit(ms)
         mc = phase_major_cycle(device, path)
         emit(mc)
         tiles = phase_tiles(device, path, Path(tmp))
@@ -3221,7 +3639,8 @@ def main() -> int:
         **by_sharded,
         "e2e_small": e2e["launches"],
         "predict_small": pred["small_launches"],
-        "slice": sl["launches"], "predict": pred["bench"]["launches"],
+        "slice": sl["launches"], "ms": ms["launches"],
+        "predict": pred["bench"]["launches"],
         "major_cycle": mc["launches"], "tiles": tiles["launches"],
         "production_invert": p_inv["launches"],
         "production_predict": p_pred["launches"],

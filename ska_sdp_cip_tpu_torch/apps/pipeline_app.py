@@ -52,7 +52,8 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "dataset",
         type=Path,
-        help="Path to the input visibility dataset (VZ directory)",
+        help="Path to the input visibility dataset (VZ directory, or "
+        "MeasurementSet v2)",
     )
     parser.add_argument(
         "output_image",

@@ -36,7 +36,7 @@ def get_parser() -> argparse.ArgumentParser:
         "dataset",
         type=Path,
         help="Path to the input visibility dataset (VZ directory, or "
-        "MeasurementSet v2 if python-casacore is installed)",
+        "MeasurementSet v2)",
     )
     parser.add_argument(
         "-t",

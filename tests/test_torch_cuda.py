@@ -12,7 +12,8 @@ kernel adds with atomics), 1e-4 against the explicit DFT; exact where
 a kernel only moves data (B6, P2's ``load``) or sums another kernel's
 values in its order (tiled B2 as row-major B2, P1 as the dense pass
 P2 ``full``). B2 also runs at the distributed mode's slab widths, and
-the distributed invert on 2 shards of an NCCL world of one.
+the distributed invert on 2 shards of an NCCL world of one; a small
+MeasurementSet's invert on the card is held to its VZ's.
 """
 
 import numpy as np
@@ -632,3 +633,33 @@ def test_distributed_invert_on_card_matches_invert_dataset(cuda, tmp_path):
         assert tcg.LAUNCHES > before[0] and tfc.LAUNCHES > before[1]
         np.testing.assert_allclose(got, want, rtol=1e-5,
                                    atol=1e-5 * np.abs(want).max())
+
+
+def test_ms_invert_on_card_matches_vz_invert(cuda, tmp_path):
+    """A small MeasurementSet (``chip_smoke.write_measurement_set``, read
+    by the casacore-free ``_NativeMSBackend``) inverted on the card
+    through B1 and B2, against the invert of its VZ on the card: 1e-5 of
+    the max (B1 adds with atomics)."""
+    import importlib.util
+    from pathlib import Path
+
+    from ska_sdp_cip_tpu_torch import VisibilityReader, invert_dataset
+    from ska_sdp_cip_tpu_torch.io.synth import make_synthetic_dataset
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    vz = make_synthetic_dataset(tmp_path / "obs.vz", num_times=6,
+                                num_antennas=16, seed=4321)
+    ms = tmp_path / "obs.ms"
+    chip_smoke.write_measurement_set(ms, chip_smoke.vz_columns(vz),
+                                     tile_bytes=8192)
+    reader = VisibilityReader(ms)
+    assert type(reader._metadata.backend).__name__ == "_NativeMSBackend"
+    before = tcg.LAUNCHES, tfc.LAUNCHES
+    got = invert_dataset(reader, 128, 30.0, device=cuda)
+    assert tcg.LAUNCHES > before[0] and tfc.LAUNCHES > before[1]
+    want = invert_dataset(VisibilityReader(vz), 128, 30.0, device=cuda)
+    assert np.isfinite(got).all() and got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()

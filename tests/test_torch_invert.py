@@ -11,8 +11,12 @@ The torch port end to end on the CPU, against the JAX package.
   the machine that carries the card: its planner engine, staging, tile
   store, task metrics, the ``tpu-cip-reorder-uvw-torch`` console script
   and the multi-device path (``parallel/*``, ``graft_entry``'s dry run)
-  too.
-* The copied VZ reader and synthetic data give the JAX package's arrays.
+  too, and a small MeasurementSet written, read by the casacore-free
+  reader, ingested back to its VZ bit for bit and inverted to the VZ's
+  image.
+* The copied VZ reader and synthetic data give the JAX package's
+  arrays; a MeasurementSet whose ``table.dat`` does not parse raises
+  ``CasacoreFormatError``.
 """
 
 import ast
@@ -39,6 +43,7 @@ from ska_sdp_cip_tpu_torch.invert import (
     pixel_size_lm_from_asec,
 )
 from ska_sdp_cip_tpu_torch.io import synth as tsynth
+from ska_sdp_cip_tpu_torch.io.casacore_tables import CasacoreFormatError
 from ska_sdp_cip_tpu_torch.ops.dft import dirty_image_dft
 
 torch.set_num_threads(1)
@@ -162,11 +167,33 @@ from ska_sdp_cip_tpu_torch import graft_entry, sharded_invert_dataset
 from ska_sdp_cip_tpu_torch.parallel import launch, mesh, sharded_clean
 graft_entry.dryrun_multichip(2, "cpu")
 launch.get_parser().parse_args(["--", "obs.vz", "out.npy"])
+import tempfile
+from pathlib import Path
+import chip_smoke
+from ska_sdp_cip_tpu_torch import VisibilityReader, invert_dataset
+from ska_sdp_cip_tpu_torch.apps import ingest_app
+from ska_sdp_cip_tpu_torch.io.synth import make_synthetic_dataset
+with tempfile.TemporaryDirectory() as tmp:
+    vz = make_synthetic_dataset(Path(tmp) / "s.vz", num_times=3,
+                                num_antennas=8)
+    ms = Path(tmp) / "s.ms"
+    chip_smoke.write_measurement_set(ms, chip_smoke.vz_columns(vz),
+                                     tile_bytes=2048)
+    ms_reader = VisibilityReader(ms)
+    backend = type(ms_reader._metadata.backend).__name__
+    ingest_app.run_program([str(ms), str(Path(tmp) / "i.vz")])
+    ingested = all(chip_smoke.bit_equal(np.load(p), np.load(Path(tmp) / "i.vz"
+                                                            / p.name))
+                   for p in vz.glob("*.npy"))
+    ms_img = invert_dataset(ms_reader, 64, 40.0, device="cpu")
+    vz_img = invert_dataset(VisibilityReader(vz), 64, 40.0, device="cpu")
+    ms_err = float(np.abs(ms_img - vz_img).max())
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                 ("jax", "jaxlib", "ml_dtypes", "ska_sdp_cip_tpu")
                 and sys.modules[m] is not None)
 print(json.dumps({"err": float(np.abs(img - ref).max() / np.abs(ref).max()),
-                  "loaded": loaded}))
+                  "loaded": loaded, "backend": backend,
+                  "ingested": ingested, "ms_err": ms_err}))
 """
 
 
@@ -180,6 +207,8 @@ def test_port_runs_without_jax():
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["loaded"] == []
     assert result["err"] <= 1e-4
+    assert result["backend"] == "_NativeMSBackend"
+    assert result["ingested"] and result["ms_err"] == 0.0
 
 
 def test_port_sources_import_no_jax():
@@ -237,7 +266,7 @@ def test_synth_and_reader_match_jax(tmp_path):
     ms = tmp_path / "fake.ms"
     ms.mkdir()
     (ms / "table.dat").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(CasacoreFormatError, match="Table"):
         VisibilityReader(ms)
     assert ska_sdp_cip_tpu_torch.__version__ == ska_sdp_cip_tpu.__version__
     assert ska_sdp_cip_tpu_torch.MeasurementSetReader is VisibilityReader
