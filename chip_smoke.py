@@ -22,11 +22,14 @@ then runs these phases and prints one JSON object per phase:
    the small plans (:func:`small_plans`: every tile an edge tile,
    footprints across the periodic edge beside interior tiles, split
    hot tiles; G = 1 and 2) and on the bench plan's largest plane group,
-   with w-stacking (G = 2) and without it (G = 1, B4), each with its
-   time, the zeroing of its planes (``zero_ms``), the time of the fold
-   that left the path (``fold_ms``) and a bound that does not depend on
-   the design (:func:`gridding_work`), the G = 2 group also at 2 to 32
-   blocks a chunk (``chunk_sweep_ms``); then the whole bench-size image
+   with w-stacking (G = 2) and without it (G = 1, B4), each launched
+   twice and required to give the same bits, each with its time, a
+   zeroing of its planes that the kernel no longer needs (``zero_ms``),
+   the time of the fold that left the path (``fold_ms``) and a bound
+   that does not depend on the design (:func:`gridding_work`), the
+   G = 2 group also at 2 to 32 blocks a column piece
+   (``chunk_sweep_ms``), and both work lists' lengths
+   (``bench_geometry``); then the whole bench-size image
    of the noise-like bench visibilities against a float64 DFT at 256
    random pixels (``bench_dft``, gated at the 1e-4 contract);
 3. ``b2``: the fused first-axis DFT kernel against its plain version at
@@ -57,7 +60,8 @@ then runs these phases and prints one JSON object per phase:
    device="cuda")`` on a 5,836,800-visibility synthetic dataset, with
    the kernels' launch counts, the brightest source's peak position, a
    float64 DFT spot check of 448 pixels, the median wall time of 3 runs
-   after a warm run, a per-stage breakdown (with the planner that ran,
+   after a warm run, one more call that must give the first's bits, a
+   per-stage breakdown (with the planner that ran,
    whether the image came down into a pinned buffer, and the seconds
    of the path not taken in each direction: the pageable download and
    the pinned upload) and a profile of one call; then ``ms``: the same
@@ -69,8 +73,8 @@ then runs these phases and prints one JSON object per phase:
    (every column bit-equal to the VZ's, seconds per column),
    ``tpu-cip-ingest-torch`` at the default and at 10000-row blocks (each
    VZ bit-equal to the source), ``tpu-cip-torch obs.ms`` on the card
-   against the VZ's ``invert_dataset`` (rtol 1e-5, atol 1e-5 of the
-   max) with B1's and B2's launches equal to ``slice``'s, the median CLI
+   against the VZ's ``invert_dataset`` (bit for bit, and at rtol 1e-5,
+   atol 1e-5 of the max) with B1's and B2's launches equal to ``slice``'s, the median CLI
    wall of 3 calls after a warm one, the partitioned reads of a sharded
    run and of the reorder (each sub-reader decodes the MS again) and a
    breakdown with the MS read + Stokes beside the VZ's;
@@ -94,7 +98,8 @@ then runs these phases and prints one JSON object per phase:
    all-to-all between the passes) against ``invert_dataset`` at rtol
    1e-5, atol 1e-5 of the max, with walls and a breakdown (load, plan,
    stage, device, collectives); both modes at the production
-   configuration (below) against ``invert_dataset``; the Hogbom
+   configuration (below) against ``invert_dataset``, and that
+   ``invert_dataset`` against itself, bit for bit; the Hogbom
    ``sharded_major_cycle_clean`` (3 cycles of 50) in both modes against
    ``major_cycle_clean`` (model within 2e-4, residual within 2e-3 of
    the residual's max); ``sharded_invert_tile_chunks`` on the tiles in
@@ -118,8 +123,10 @@ then runs these phases and prints one JSON object per phase:
     configuration (258,048 visibilities, 10240 px at 1.1 asec,
     ``sigma="auto"`` = 1.5, a 15360^2 grid, support 8): ``dirty_image``
     (float64 DFT at 256 pixels, B1 against its plain version on the
-    largest plane group, median wall of 3 calls, breakdown, launch
-    counts, profile), ``predict_visibilities`` (the adjoint identity,
+    largest plane group, median wall of 3 calls, one more call bit-equal
+    to the first, breakdown, launch counts, profile),
+    ``predict_visibilities`` (the adjoint identity, also on two more
+    dirty images, which must be bit-equal to the first,
     with a witness on three noise images that replaces B2 by its plain
     version and by the exact transform and swaps predict's pass order,
     and for the dirty image as I; five point sources
@@ -398,7 +405,7 @@ def group_args(plan, arrays, re_s, im_s, k):
 
 
 def group_chunks(plan, arrays, k, chunk_blocks=None):
-    """Plane group ``k``'s B1/B3 chunk table on the arrays' device: the
+    """Plane group ``k``'s B3 chunk table on the arrays' device: the
     staged one, or one cut at ``chunk_blocks`` blocks a chunk."""
     import torch
 
@@ -415,37 +422,68 @@ def group_chunks(plan, arrays, k, chunk_blocks=None):
     return torch.from_numpy(table).to(arrays["packed"].device)
 
 
+def group_grid_chunks(plan, arrays, k, chunk_blocks=None):
+    """Plane group ``k``'s B1 work list on the arrays' device: the staged
+    one, or one cut at ``chunk_blocks`` blocks a column piece."""
+    import torch
+
+    from ska_sdp_cip_tpu_torch.ops import gridder
+
+    if chunk_blocks is None:
+        count = len(gridder.group_grid_chunks(plan)[k])
+        return arrays["group_grid_chunks"][k, :count]
+    table = gridder.grid_chunks(plan, gridder.group_active_blocks(plan)[k],
+                                chunk_blocks)
+    return torch.from_numpy(table).to(arrays["packed"].device)
+
+
 #: Blocks a chunk at which the b1 and b3 phases time the bench group:
 #: the measurement behind ``ops/gridder.py:CHUNK_BLOCKS``.
 CHUNK_SWEEP = (2, 4, 8, 16, 32)
 
 
-def chunk_sweep(plan, arrays, k, launch) -> dict:
-    """``launch(chunks)``'s time on plane group ``k`` with its tile runs
-    cut at each of :data:`CHUNK_SWEEP` blocks a chunk (on the card)."""
+def chunk_sweep(plan, arrays, k, launch, table=group_chunks) -> dict:
+    """``launch(chunks)``'s time on plane group ``k`` with the work list
+    ``table(plan, arrays, k, R)`` cut at each R of :data:`CHUNK_SWEEP`
+    (on the card), and each list's length."""
     if arrays["packed"].device.type != "cuda":
         return {}
     from ska_sdp_cip_tpu_torch.probes.common import cuda_ms
 
     out = {}
     for blocks in CHUNK_SWEEP:
-        chunks = group_chunks(plan, arrays, k, blocks)
+        chunks = table(plan, arrays, k, blocks)
         out[str(blocks)] = cuda_ms(lambda: launch(chunks), iters=3)
+        out[f"chunks_{blocks}"] = int(chunks.shape[0])
     return out
+
+
+def same_bits(a, b) -> bool:
+    """Two float32 tensors equal bit for bit (NaNs and signed zeros
+    included), on their device."""
+    import torch
+
+    return (a.shape == b.shape and a.dtype == b.dtype == torch.float32
+            and torch.equal(a.view(torch.int32), b.view(torch.int32)))
 
 
 def compare_group(plan, args, chunks, *, time_it: bool,
                   iters: int = 3) -> dict:
     """B1 kernel vs its folded plain version on one plane group, plane by
-    plane; timed, also the zeroing of the planes the kernel receives
-    (``zero_ms``) and the fold that left the path (``fold_ms``: the
-    2G planes of the plain version's alloc frame)."""
+    plane, and a second launch on the same inputs, which must give the
+    same bits; timed, also a zeroing of the planes (``zero_ms``: the
+    pass the kernel no longer needs, its output arriving unzeroed) and
+    the fold that left the path (``fold_ms``: the 2G planes of the
+    plain version's alloc frame)."""
     import torch
 
     from ska_sdp_cip_tpu_torch.ops import cuda_gridder as cg
     from ska_sdp_cip_tpu_torch.probes.common import cuda_ms
 
     got = cg.grid_planes(*args, plan=plan, chunks=chunks)
+    again = cg.grid_planes(*args, plan=plan, chunks=chunks)
+    repeat_bit_equal = same_bits(got, again)
+    del again
     ref = cg.grid_planes_folded_reference(*args, plan=plan)
     worst_rel, worst_abs = 0.0, 0.0
     for p in range(ref.shape[0]):
@@ -457,6 +495,7 @@ def compare_group(plan, args, chunks, *, time_it: bool,
         "G": G,
         "active_blocks": len(ids),
         "chunks": int(chunks.shape[0]),
+        "repeat_bit_equal": repeat_bit_equal,
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         **bound(*gridding_work(plan, ids, G, degrid=False)),
@@ -478,6 +517,8 @@ def compare_group(plan, args, chunks, *, time_it: bool,
         del alloc
     if not worst_rel <= KERNEL_RTOL:
         raise PhaseError(f"B1 vs plain {worst_rel:.3e} > {KERNEL_RTOL}")
+    if not repeat_bit_equal:
+        raise PhaseError("B1: two launches on the same inputs differ")
     return out
 
 
@@ -536,24 +577,38 @@ def largest_group(plan) -> int:
     return int(np.argmax([len(x) for x in group_active_blocks(plan)]))
 
 
-def small_cases(device, compare) -> list:
+def small_cases(device, compare, table=group_chunks) -> list:
     """``compare(plan, arrays, re_s, im_s, k, chunks)`` on every plane
-    group of every :func:`small_plans` plan."""
+    group of every :func:`small_plans` plan, ``chunks`` from
+    ``table``."""
     cases = []
     for name, (problem, npix, asec, kw, blocks) in small_plans().items():
         plan, arrays, re_s, im_s = staged_problem(*problem, npix, asec,
                                                   device, **kw)
         for k in range(plan.num_groups):
-            chunks = group_chunks(plan, arrays, k, blocks)
+            chunks = table(plan, arrays, k, blocks)
             cases.append({"plan": name, "group": k, **compare(
                 plan, arrays, re_s, im_s, k, chunks)})
     return cases
 
 
 def bench_geometry(plan) -> dict:
+    """The plan's shape and, for its largest plane group, both work
+    lists: B3's chunks (with how many are split or edge chunks, the rows
+    a scratch of shared rows would have held) and B1's rectangles (with
+    how many hold runs, and their sources at most)."""
+    from ska_sdp_cip_tpu_torch.ops import gridder
     from ska_sdp_cip_tpu_torch.ops.gridder import group_active_blocks
 
+    ids = group_active_blocks(plan)[largest_group(plan)]
+    b3 = gridder.tile_chunks(plan, ids)
+    b1 = gridder.grid_chunks(plan, ids)
     return {
+        "largest_group_b3_chunks": int(b3.shape[0]),
+        "largest_group_b3_split_or_edge": int((b3[:, 2] != 0).sum()),
+        "largest_group_b1_chunks": int(b1.shape[0]),
+        "largest_group_b1_chunks_with_runs": int((b1[:, 5] > 0).sum()),
+        "largest_group_b1_max_sources": int((b1[:, 5::2] > 0).sum(1).max()),
         "ngrid": plan.ngrid,
         "nalloc": [plan.nalloc_x, plan.nalloc_y],
         "support": plan.support,
@@ -581,19 +636,21 @@ def phase_b1(device, bench: dict, bench_w0: dict) -> dict:
         return compare_group(plan, group_args(plan, arrays, re_s, im_s, k),
                              chunks, time_it=time_it)
 
-    results = {"phase": "b1", "cases": small_cases(device, grid_case)}
+    results = {"phase": "b1",
+               "cases": small_cases(device, grid_case, group_grid_chunks)}
     for key, problem in (("bench", bench), ("bench_w0", bench_w0)):
         plan, arrays = problem["plan"], problem["arrays"]
         k = largest_group(plan)
         results[f"{key}_geometry"] = bench_geometry(plan)
         results[key] = {"group": k, **grid_case(
             plan, arrays, problem["re_s"], problem["im_s"], k,
-            group_chunks(plan, arrays, k), time_it=True)}
+            group_grid_chunks(plan, arrays, k), time_it=True)}
     plan, arrays = bench["plan"], bench["arrays"]
     k = results["bench"]["group"]
     args = group_args(plan, arrays, bench["re_s"], bench["im_s"], k)
     results["bench"]["chunk_sweep_ms"] = chunk_sweep(
-        plan, arrays, k, lambda c: cg.grid_planes(*args, plan=plan, chunks=c))
+        plan, arrays, k, lambda c: cg.grid_planes(*args, plan=plan, chunks=c),
+        group_grid_chunks)
     results["bench_dft"] = bench_dft_check(
         bench["plan"], bench["arrays"], bench["re_s"], bench["im_s"],
         bench["uvw"], bench["freqs"], bench["vis"] * bench["wgt"], device,
@@ -1152,6 +1209,9 @@ def phase_slice(device, path: Path, dataset_seconds: float, seed=1234,
     if offset.max() > 1:
         raise PhaseError(f"peak at {peak}, brightest source at {expected}")
     require_launches(launches, ("b1", "b2_out_crop"), device, "slice")
+    results["repeat_bit_equal"] = bit_equal(image, run())
+    if not results["repeat_bit_equal"]:
+        raise PhaseError("slice: two invert_dataset calls differ")
     rel = dft_spot_check(reader, image, expected, pix, device)
     results["dft_spot_check"] = rel
     if not rel["max_rel_err"] <= DFT_RTOL:
@@ -1451,7 +1511,8 @@ def phase_ms(device, path: Path, workdir: Path, slice_launches: dict,
     ``row_blocks`` (None: the default), each VZ it writes bit-equal to
     the source, array for array; ``tpu-cip-torch obs.ms`` in process on
     ``device`` (no ``--device`` on the card: its default) against
-    ``invert_dataset`` of the VZ at rtol 1e-5, atol 1e-5 of the max,
+    ``invert_dataset`` of the VZ, bit for bit (and at rtol 1e-5, atol
+    1e-5 of the max),
     with B1's and B2's launches equal to ``slice_launches``, the median
     CLI wall of ``repeats`` calls after the first, and a breakdown: MS
     read + Stokes beside the VZ's, then plan, upload, device, download.
@@ -1531,8 +1592,12 @@ def phase_ms(device, path: Path, workdir: Path, slice_launches: dict,
     out.update({"npix": npix, "pixel_asec": asec,
                 "first_call_seconds": first["wall_seconds"],
                 "launches": launches,
-                "vs_vz_invert": within_sharded_tol(image, ref)})
-    if not out["vs_vz_invert"]["within"]:
+                "vs_vz_invert": {**within_sharded_tol(image, ref),
+                                 "bit_equal": bit_equal(image, ref)}})
+    if not (out["vs_vz_invert"]["within"]
+            and out["vs_vz_invert"]["bit_equal"]):
+        # The MS's columns are the VZ's bits and the kernels sum in a
+        # fixed order: the two images are the same bits.
         raise PhaseError(f"ms: the MS image against the VZ invert "
                          f"{out['vs_vz_invert']}")
     require_launches(launches, ("b1", "b2_out_crop"), device, "ms")
@@ -1908,7 +1973,8 @@ def phase_planner(device, configs=None) -> dict:
     (:func:`compare_plans`, the slot export and the compact one), the
     seconds of each planner, and ``stage_slot_vis`` (1e-6 of the max)
     and the uniform-weighting density (rtol 1e-12) on each, with their
-    seconds. Fails unless the engine is in use.
+    seconds, and whether the engine's density repeats bit for bit
+    (recorded only). Fails unless the engine is in use.
     """
     from ska_sdp_cip_tpu_torch import native
     from ska_sdp_cip_tpu_torch.models.weighting import ImagingWeighter
@@ -1965,6 +2031,10 @@ def phase_planner(device, configs=None) -> dict:
                 weighter.accumulate_density, uvw, freqs, wgt)
         row["density_equal_rtol_1e-12"] = bool(
             np.allclose(density, dens_ref, rtol=1e-12, atol=0))
+        # The engine (the reference's, verbatim) adds float64 with
+        # atomics: whether two of its densities match is recorded only.
+        row["engine_density_repeat_bit_equal"] = bit_equal(
+            density, weighter.accumulate_density(uvw, freqs, wgt))
         out["configs"][name] = row
         if not (row["slot"]["equal"] and row["compact"]["equal"]
                 and row["stage_rel_err"] <= 1e-6
@@ -2454,8 +2524,8 @@ def phase_sharded(device, path: Path, workdir: Path, tile_paths,
     * both modes at the production configuration (the production
       problem's noise plus the production major cycle's five point
       sources, written as a dataset, ``sigma="auto"``) against
-      ``invert_dataset``, beside a second ``invert_dataset`` against the
-      first (the floor B1's atomics set);
+      ``invert_dataset``, beside a second ``invert_dataset``, which must
+      give the first's bits;
     * ``sharded_major_cycle_clean`` (Hogbom, 3 cycles) in both modes
       against ``major_cycle_clean``;
     * ``sharded_invert_tile_chunks`` on the ``tiles`` phase's files in
@@ -2532,12 +2602,17 @@ def phase_sharded(device, path: Path, workdir: Path, tile_paths,
         prod_reader = VisibilityReader(prod_path)
         prod_ref = invert_dataset(prod_reader, prod_npix, prod_asec,
                                   sigma="auto", device=device)
-        # The floor: two single-device inverts differ by B1's atomics.
+        # B1 sums in a fixed order: a second invert gives the same bits.
         again = invert_dataset(prod_reader, prod_npix, prod_asec,
                                sigma="auto", device=device)
+        repeat = {**within_sharded_tol(again, prod_ref),
+                  "bit_equal": bit_equal(again, prod_ref)}
+        if not repeat["bit_equal"]:
+            raise PhaseError(f"sharded: invert_dataset against itself at "
+                             f"production {repeat}")
         out["production"] = {
             "npix": prod_npix,
-            "repeat_vs_itself": within_sharded_tol(again, prod_ref),
+            "repeat_vs_itself": repeat,
             "cases": [sharded_invert_case(device, mesh, prod_reader,
                                           prod_npix, prod_asec, mode,
                                           prod_ref, sigma="auto")
@@ -2776,6 +2851,9 @@ def phase_production_invert(device, problem, npix=PROD_NPIX,
     image, first, launches, walls = timed_calls(run, device, repeats)
     require_launches(launches, ("b1", "b2_out_crop"), device,
                      "production invert")
+    repeat_bit_equal = bit_equal(image, run())
+    if not repeat_bit_equal:
+        raise PhaseError("production: two dirty_image calls differ")
     pts = np.random.default_rng(1).integers(0, npix, size=(dft_pixels, 2))
     ref = dft_at_pixels(uvw, freqs, vis * wgt, pts, pix, npix, device)
     err = float(np.abs(image[pts[:, 0], pts[:, 1]] - ref).max())
@@ -2784,7 +2862,7 @@ def phase_production_invert(device, problem, npix=PROD_NPIX,
     k = largest_group(plan)
     b1_check = {"group": k, **compare_group(
         plan, group_args(plan, arrays, re_s, im_s, k),
-        group_chunks(plan, arrays, k), time_it=True)}
+        group_grid_chunks(plan, arrays, k), time_it=True)}
     del arrays, re_s, im_s
     out = {
         "phase": "production", "part": "invert", "npix": npix,
@@ -2793,6 +2871,7 @@ def phase_production_invert(device, problem, npix=PROD_NPIX,
         "first_call_seconds": first, "wall_seconds": walls,
         "median_wall_seconds": statistics.median(walls),
         "launches": launches,
+        "repeat_bit_equal": repeat_bit_equal,
         "dft_check": {"pixels": dft_pixels, "max_abs_err": err,
                       "rel_to_sampled_max": err / float(np.abs(ref).max())},
         "b1_check": b1_check,
@@ -2821,8 +2900,8 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
     |lhs - rhs| / (|I| |D|) <= 1e-6 (its dot product cancels, so the
     reading relative to |lhs|, ``adjoint_rel``, is float32 rounding
     magnified and only printed), also
-    read on ``spread`` more dirty images (B1's atomics move the
-    image's last bits from run to run), on three noise images with both
+    read on ``spread`` more dirty images, which must give the first's
+    bits (B1 sums in a fixed order), on three noise images with both
     operators' B2 passes done by the kernel, its plain version and the
     exact transform, and with predict's passes in the other order
     (:func:`adjoint_witness`), and for I = the dirty image itself
@@ -2855,16 +2934,14 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
     weighted = (vis * wgt).astype(np.complex128)
     lhs = float(np.vdot(image.astype(np.float64), dirty.astype(np.float64)))
     rhs = float(np.real(np.vdot(model.astype(np.complex128), weighted)))
-    # B1 adds with atomics, so the dirty image changes in its last bits
-    # from run to run, and the noise image's dot product cancels: the
-    # identity read on ``spread`` more dirty images shows that spread.
-    lhs_more = [
-        float(np.vdot(image.astype(np.float64),
-                      dirty_image(uvw, freqs, vis, wgt, npix, pix,
-                                  sigma="auto", device=device)
-                      .astype(np.float64)))
-        for _ in range(spread)
-    ]
+    # B1 sums in a fixed order, so more dirty images give the first's
+    # bits and the identity read on them does not move.
+    more = [dirty_image(uvw, freqs, vis, wgt, npix, pix, sigma="auto",
+                        device=device) for _ in range(spread)]
+    spread_bit_equal = all(bit_equal(d, dirty) for d in more)
+    lhs_more = [float(np.vdot(image.astype(np.float64), d.astype(np.float64)))
+                for d in more]
+    del more
     # I = the dirty image: <D, D> has no cancellation, so this reading
     # is the operators' float32 mismatch itself.
     d64 = dirty.astype(np.float64)
@@ -2903,6 +2980,7 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
         "adjoint_rel": abs(lhs - rhs) / abs(lhs),
         "adjoint_rel_other_dirty_images": [abs(x - rhs) / abs(x)
                                            for x in lhs_more],
+        "other_dirty_images_bit_equal": spread_bit_equal,
         # |lhs| / (|I| |D|): how far the noise image's dot product
         # cancels, which scales every float32 error in D up to the
         # identity's reading.
@@ -2928,6 +3006,9 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
                          f"(limit {ADJOINT_NORM_TOL}), I = the dirty image "
                          f"{out['adjoint_rel_dirty_image']:.3e} (limit "
                          f"{DFT_RTOL})")
+    if not spread_bit_equal:
+        raise PhaseError("production: dirty_image called again differs "
+                         "from the first")
     if not out["sparse_dft_check"]["rel_to_max"] <= DFT_RTOL:
         raise PhaseError(f"production predict vs DFT "
                          f"{out['sparse_dft_check']['rel_to_max']:.3e}")
@@ -3415,10 +3496,11 @@ def kernels_line(b1, b2, b3, b6, probes, production, by_path) -> list:
                 "library_ms")
     prod_keys = ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
                  "bound_by", "library_ms")
-    # B1/B3 (and B4/B5): also the zeroing of B1's planes and the fold or
-    # unfold that left the path, timed on the same planes.
+    # B1/B3 (and B4/B5): also a zeroing of B1's planes (which B1 no
+    # longer needs) and the fold or unfold that left the path, timed on
+    # the same planes; B1's two launches' bit equality.
     grid_keys = ("group", "G", "active_blocks", "chunks", "max_rel_err",
-                 "zero_ms", "fold_ms")
+                 "repeat_bit_equal", "zero_ms", "fold_ms")
     b2_keys = ("n", "m", "rows_in", *prod_keys, "two_launch_floor_ms",
                "gb_per_s", "gb_per_s_with_z", "first_design_ms")
 

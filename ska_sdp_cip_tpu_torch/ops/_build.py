@@ -126,8 +126,9 @@ def _declare(lib) -> None:
         ctypes.c_float,
         ctypes.c_void_p,
     )
-    lib.cip_grid_planes.argtypes = [ptr] * 10 + [c_int, ptr, c_int, ptr] + [
-        c_int, c_int, c_int, c_int, c_int,
+    lib.cip_grid_planes.argtypes = [ptr] * 10 + [c_int, c_int, ptr, c_int,
+                                                 ptr] + [
+        c_int, c_int, c_int, c_int, c_int, c_int,
         c_float, c_float, c_float,
         c_int, c_int, ptr,
     ]

@@ -178,17 +178,20 @@ def grid_planes(
     the slot-order visibilities; ``block_len/ox/oy`` the plan's
     per-block int32 tables; ``blocks`` the int32 ids of the blocks
     active on any plane of the group (-1 entries are skipped by the
-    plain version); ``chunks`` the kernel's (first, count, flags) table
-    over ``blocks`` (``ops/gridder.py:tile_chunks``), required on CUDA
-    tensors. Returns (2G, ngrid, ngrid) f32 periodic planes ordered
-    re_0, im_0, re_1, ...
+    plain version); ``chunks`` the kernel's work list over ``blocks``
+    (``ops/gridder.py:grid_chunks``: destination rectangles that
+    partition the grid, each with the tile runs that reach it),
+    required on CUDA tensors. Returns (2G, ngrid, ngrid) f32 periodic
+    planes ordered re_0, im_0, re_1, ...; on the card every cell's sum
+    runs in an order fixed by the plan and ``chunks``, so repeat calls
+    give the same bits.
     """
     _check_inputs(plan, packed, re, im, block_len, block_ox, block_oy,
                   w_g, blocks)
     if packed.device.type == "cuda":
         return _grid_planes_cuda(
             packed, re, im, block_len, block_ox, block_oy, w_g, blocks,
-            _check_chunks(chunks, blocks), plan=plan,
+            _check_chunks(chunks, blocks, "grid_chunks"), plan=plan,
         )
     if packed.device.type == "cpu":
         return grid_planes_folded_reference(
@@ -198,27 +201,66 @@ def grid_planes(
     raise ValueError(f"unsupported device {packed.device}")
 
 
-def _check_chunks(chunks, blocks) -> torch.Tensor:
-    """The chunk table as the kernels read it, or raise."""
+def _check_chunks(chunks, blocks, builder: str) -> torch.Tensor:
+    """The work list as a kernel reads it (``ops/gridder.py:<builder>``:
+    (n, 3) rows for B3, (n, 4 + 2S) for B1), or raise."""
     if chunks is None:
         raise ValueError("the CUDA kernels need the chunk table of "
-                         "ops/gridder.py:tile_chunks (chunks=...)")
+                         f"ops/gridder.py:{builder} (chunks=...)")
+    width_ok = (chunks.shape[-1] == 3 if builder == "tile_chunks"
+                else chunks.shape[-1] >= 6 and chunks.shape[-1] % 2 == 0)
     if (chunks.device != blocks.device or chunks.dtype != torch.int32
-            or chunks.dim() != 2 or chunks.shape[1] != 3):
-        raise ValueError("chunks must be an int32 (n, 3) tensor on the "
-                         "device of blocks")
+            or chunks.dim() != 2 or not width_ok):
+        raise ValueError(f"chunks must be an int32 table of "
+                         f"ops/gridder.py:{builder} on the device of blocks")
     return chunks.contiguous()
 
 
 def _column_group(plan: GridderPlan) -> int:
-    """Footprint columns a lane group covers in the kernels (their CS)."""
+    """Footprint columns a lane group covers in B3 (its CS)."""
     return 8 if plan.support <= 8 else 16
 
 
+#: B1's slots of a block selected at a time and selected visibilities
+#: staged at a time (``csrc/grid.cu``'s kWindow and kBatch).
+GRID_WINDOW = 1024
+GRID_BATCH = 128
+
+#: Widest B1 destination rectangle that runs reach, in columns
+#: (``ops/gridder.py:grid_chunks`` cuts wider ones): the columns of the
+#: planes a warp holds in shared memory.
+GRID_PIECE_COLS = 64
+
+
+def grid_piece_cols(plan: GridderPlan) -> int:
+    """The columns of B1's shared planes for ``plan``."""
+    return min(plan.patch_y, GRID_PIECE_COLS)
+
+
+def _grid_shared_bytes(plan: GridderPlan, G: int) -> int:
+    """B1's shared memory (``csrc/grid.cu``'s Layout): two buffers of
+    GRID_BATCH staged visibilities (vis * amps, footprint start, W + W
+    factors), a window's selected slots with their ballots and offsets,
+    and the 2G planes of a (tile_x, :func:`grid_piece_cols`) rectangle,
+    rows that width + W floats apart."""
+    W = plan.support
+    floats = 2 * GRID_BATCH * (2 * G + 1 + 2 * W + 1)
+    floats += GRID_WINDOW + 2 * (GRID_WINDOW // 32) + 1
+    floats += 2 * G * plan.tile_x * (grid_piece_cols(plan) + W)
+    return 4 * floats
+
+
+def _degrid_shared_bytes(plan: GridderPlan, G: int) -> int:
+    """B3's shared memory: two sets of 2G patch windows, rows patch_y +
+    CS floats apart."""
+    stride = plan.patch_y + _column_group(plan)
+    return 2 * 2 * G * plan.patch_x * stride * 4
+
+
 def _check_kernel_shape(plan: GridderPlan, G: int, name: str,
-                        buffers: int) -> None:
-    """Raise unless the B1/B3 kernels are built for G and ``buffers``
-    sets of 2G patch windows fit in a thread block's shared memory."""
+                        smem: int) -> None:
+    """Raise unless the B1/B3 kernels are built for G and ``smem`` bytes
+    of shared memory fit in a thread block."""
     if G not in KERNEL_GROUPS:
         raise ValueError(
             f"the {name} kernel is built for plane groups {KERNEL_GROUPS}, "
@@ -232,12 +274,10 @@ def _check_kernel_shape(plan: GridderPlan, G: int, name: str,
         raise ValueError(f"float32(2 / {plan.support}) rounds down")
     if plan.patch_y % 4:
         raise ValueError(f"patch_y {plan.patch_y} is not a multiple of 4")
-    stride = plan.patch_y + _column_group(plan)
-    smem = buffers * 2 * G * plan.patch_x * stride * 4
     if smem > SHARED_BYTES:
         raise ValueError(
-            f"patch ({plan.patch_x}, {plan.patch_y}) x {G} planes x "
-            f"{buffers} needs {smem} B of shared memory, above the "
+            f"the {name} kernel at patch ({plan.patch_x}, {plan.patch_y}) "
+            f"x {G} planes needs {smem} B of shared memory, above the "
             f"{SHARED_BYTES} B a block has"
         )
 
@@ -248,12 +288,20 @@ def _grid_planes_cuda(packed, re, im, block_len, block_ox, block_oy, w_g,
     from . import _build
 
     G = w_g.shape[0]
-    _check_kernel_shape(plan, G, "B1", buffers=1)
+    _check_kernel_shape(plan, G, "B1", _grid_shared_bytes(plan, G))
+    span = max(plan.tile_x, grid_piece_cols(plan)) + 2 * plan.support
+    if not span <= plan.ngrid < 1 << 15:
+        # A footprint must meet a rectangle on one side only, and the
+        # kernel packs a footprint's start into 16 bits.
+        raise ValueError(f"the B1 kernel takes grids of {span} to 32767 "
+                         f"cells, got {plan.ngrid}")
     rows = [packed[i].contiguous() for i in range(3)]
     cols = [t.contiguous() for t in (re, im, block_len, block_ox, block_oy,
                                      blocks, w_g)]
     N = plan.ngrid
-    out = torch.zeros((2 * G, N, N), dtype=torch.float32,
+    # The work list's rectangles partition the grid: every cell is
+    # written, so the planes need no zeroing.
+    out = torch.empty((2 * G, N, N), dtype=torch.float32,
                       device=packed.device)
     lib = _build.load_library()
     k = _constants(plan)
@@ -262,9 +310,10 @@ def _grid_planes_cuda(packed, re, im, block_len, block_ox, block_oy, w_g,
         rows[0].data_ptr(), rows[1].data_ptr(), rows[2].data_ptr(),
         cols[0].data_ptr(), cols[1].data_ptr(), cols[2].data_ptr(),
         cols[3].data_ptr(), cols[4].data_ptr(), cols[5].data_ptr(),
-        chunks.data_ptr(), int(chunks.shape[0]), cols[6].data_ptr(),
-        int(G), out.data_ptr(), int(plan.block), int(plan.patch_x),
-        int(plan.patch_y), int(plan.tile_x), int(plan.support), k["beta"],
+        chunks.data_ptr(), int(chunks.shape[0]), int(chunks.shape[1]),
+        cols[6].data_ptr(), int(G), out.data_ptr(), int(plan.block),
+        int(plan.patch_x), int(plan.patch_y), int(plan.tile_x),
+        int(grid_piece_cols(plan)), int(plan.support), k["beta"],
         k["inv_half"], k["inv_whalf"], int(bool(plan.wstacking)), int(N),
         stream,
     )
@@ -368,8 +417,10 @@ def degrid_planes(
     at ``w_g`` and ADD the summed contributions into ``acc`` (in place;
     returned). The adjoint of :func:`grid_planes`.
 
-    ``packed``, ``block_len/ox/oy``, ``w_g``, ``blocks`` and ``chunks``
-    are as in :func:`grid_planes`; ``grids`` is the (2G, ngrid, ngrid)
+    ``packed``, ``block_len/ox/oy``, ``w_g`` and ``blocks`` are as in
+    :func:`grid_planes`; ``chunks`` is B3's (first, count, flags) table
+    over ``blocks`` (``ops/gridder.py:tile_chunks``), required on CUDA
+    tensors; ``grids`` is the (2G, ngrid, ngrid)
     f32 stack of (already transformed) periodic planes ordered re_0,
     im_0, re_1, ...; ``acc`` is the (2, num_vis) f32 slot accumulator
     (re, im). Every slot belongs to exactly one block, so a block's
@@ -387,7 +438,7 @@ def degrid_planes(
     if device.type == "cuda":
         return _degrid_planes_cuda(
             packed, block_len, block_ox, block_oy, grids, w_g, blocks, acc,
-            _check_chunks(chunks, blocks), plan=plan,
+            _check_chunks(chunks, blocks, "tile_chunks"), plan=plan,
         )
     if device.type == "cpu":
         return degrid_planes_folded_reference(
@@ -403,7 +454,7 @@ def _degrid_planes_cuda(packed, block_len, block_ox, block_oy, grids, w_g,
     from . import _build
 
     G = w_g.shape[0]
-    _check_kernel_shape(plan, G, "B3", buffers=2)
+    _check_kernel_shape(plan, G, "B3", _degrid_shared_bytes(plan, G))
     if not (grids.is_contiguous() and acc.is_contiguous()):
         raise ValueError("grids and acc must be contiguous")
     if grids.data_ptr() % 16:

@@ -17,8 +17,8 @@ Counterpart: ``ska_sdp_cip_tpu/ops/gridder.py``:
   ``ops/cuda_gridder.py``, inside the kernels' plain versions: the
   kernels write and read the periodic grid themselves);
 * the plane-group branch of ``build_invert``: per group of G planes,
-  gridding and fold (kernel B1, ``ops/cuda_gridder.py``, over the tile
-  chunks of :func:`tile_chunks`) -> two fused first-axis DFT passes per
+  gridding and fold (kernel B1, ``ops/cuda_gridder.py``, over the
+  destination rectangles of :func:`grid_chunks`) -> two fused first-axis DFT passes per
   plane (kernel B2, ``ops/fft_cuda.py``; the counterpart's
   ``_fft2_to_image_fused_t``) -> w-screen correction -> accumulate ->
   ``finalize_image``;
@@ -58,6 +58,7 @@ from .cuda_gridder import (  # noqa: F401  (the fold stays importable here,
     _fold_wraps,
     _unfold_wraps,
     degrid_planes,
+    grid_piece_cols,
     grid_planes,
     pack_plan_columns,
 )
@@ -164,19 +165,30 @@ def group_active_blocks(plan: GridderPlan) -> list:
     return groups
 
 
-#: Blocks per chunk of a tile run, the unit of work of B1 and B3: a run
-#: longer than this is split over thread blocks, so that the uv centre's
-#: tile (83 blocks in the bench plan's largest group) does not hold one
-#: SM. Picked on the card: ``chip_smoke.py`` times the bench group's B1
-#: and B3 at R = 2 to 32 (``chunk_sweep_ms``).
+#: Blocks per chunk, the knob of both work lists: B3 cuts a tile run
+#: into chunks of at most this many blocks (:func:`tile_chunks`), and B1
+#: cuts a destination rectangle into one column piece per this many
+#: blocks its sources hold (:func:`grid_chunks`), so that the uv
+#: centre's tile (83 blocks in the bench plan's largest group) does not
+#: hold one SM. Picked on the card: ``chip_smoke.py`` times the bench
+#: group's B1 and B3 at R = 2 to 32 (``chunk_sweep_ms``).
 CHUNK_BLOCKS = 8
 
-#: Chunk flags: the tile's run is split over more than one chunk (every
-#: patch row is added atomically) ...
+#: Chunk flags of :func:`tile_chunks`, which describe a chunk and drive
+#: no kernel (B3 reads only first and count): the tile's run is split
+#: over more than one chunk ...
 CHUNK_SPLIT = 1
 #: ... and the tile holds an alloc row or column that the wrap fold
-#: moves or targets, [0, 2W) or [N, N + 2W) (likewise).
+#: moves or targets, [0, 2W) or [N, N + 2W).
 CHUNK_EDGE = 2
+
+#: Fields of a B1 chunk row before its sources: the destination
+#: rectangle (row0, nrows, col0, ncols) on the periodic grid.
+GRID_CHUNK_HEAD = 4
+#: Narrowest column piece a heavy B1 destination is cut into.
+MIN_PIECE_COLS = 8
+#: Widest B1 chunk that no source reaches (its cells are zero-filled).
+ZERO_CHUNK_COLS = 2048
 
 
 def _edge_tiles(plan: GridderPlan, ox, oy) -> np.ndarray:
@@ -237,13 +249,171 @@ def group_tile_chunks(plan: GridderPlan,
             for ids in group_active_blocks(plan)]
 
 
+def _band_edges(ngrid: int, step: int, support: int) -> np.ndarray:
+    """Edges of the periodic bands B1's destinations are cut from: 0, N
+    and every i * step - W inside, so that a tile's home rows (or its
+    window's columns), shifted by the fold's -W, make one band."""
+    inner = np.arange(1, ngrid // step + 2) * step - support
+    return np.unique(np.r_[0, ngrid, inner[(inner > 0) & (inner < ngrid)]])
+
+
+def _interval_bands(start, length: int, edges: np.ndarray,
+                    ngrid: int) -> tuple:
+    """(item, band, overlap) for the periodic intervals [start, start +
+    length) mod N of every item against the bands [edges[j],
+    edges[j + 1]): each band an interval meets, with the cells they
+    share."""
+    start = np.asarray(start, np.int64) % ngrid
+    length = min(int(length), ngrid)
+    nbands = len(edges) - 1
+    parts = []
+    for lo, hi in ((start, np.minimum(start + length, ngrid)),
+                   (np.zeros_like(start),
+                    np.maximum(start + length - ngrid, 0))):
+        item = np.flatnonzero(hi > lo)
+        lo, hi = lo[item], hi[item]
+        b0 = np.searchsorted(edges, lo, "right") - 1
+        count = np.searchsorted(edges, hi - 1, "right") - b0
+        rank = np.arange(count.sum()) - np.repeat(np.cumsum(count) - count,
+                                                  count)
+        band = np.repeat(b0, count) + rank
+        overlap = (np.minimum(np.repeat(hi, count), edges[band + 1])
+                   - np.maximum(np.repeat(lo, count), edges[band]))
+        parts.append((np.repeat(item, count), band, overlap))
+    item, band, overlap = (np.concatenate(x) for x in zip(*parts))
+    # An interval of almost N cells can meet one band in both parts.
+    key, inverse = np.unique(item * nbands + band, return_inverse=True)
+    return key // nbands, key % nbands, np.bincount(inverse, overlap)
+
+
+def grid_chunks(plan: GridderPlan, ids,
+                chunk_blocks: int = CHUNK_BLOCKS) -> np.ndarray:
+    """
+    The B1 work list of one plane group, over ``ids``, the group's
+    sorted active block ids: (n, 4 + 2S) int32 rows (row0, nrows, col0,
+    ncols, first_1, count_1, ..., first_S, count_S). Each row is a
+    destination rectangle of the periodic N x N grid and the tile runs
+    (``first``, ``count`` over ``ids``; ``count`` 0 past the last) whose
+    patches reach it after the fold, in run order. The rectangles
+    partition the grid: every cell is written by exactly one chunk, so
+    the kernel needs no atomics and no zeroed output, and a cell's sum
+    runs over its sources, blocks and slots in this order, whatever
+    order the chunks run in.
+
+    The rectangles are cut from bands of at most ``tile_x`` rows and
+    ``patch_y`` columns whose edges sit at the tiles' home rows and
+    windows shifted by -W (:func:`_band_edges`): an interior tile feeds
+    its own band and, with its last ``patch_x - tile_x`` rows, the next.
+    A band pair that some run reaches is one destination, cut into
+    column pieces of at least :data:`MIN_PIECE_COLS` and at most
+    :func:`grid_piece_cols` columns (the kernel's shared planes), one
+    per ``chunk_blocks`` blocks its sources hold (each counted by the
+    share of its patch inside the rectangle); pieces come heaviest
+    first. The rest of the grid follows as source-free rectangles of at
+    most :data:`ZERO_CHUNK_COLS` columns, which the kernel fills with
+    zeros.
+    """
+    if chunk_blocks < 1:
+        raise ValueError(f"chunk_blocks must be >= 1, got {chunk_blocks}")
+    N, W = plan.ngrid, plan.support
+    redges = _band_edges(N, plan.tile_x, W)
+    cedges = _band_edges(N, plan.patch_y, W)
+    nrb, ncb = len(redges) - 1, len(cedges) - 1
+    ids = np.asarray(ids, np.int64)
+    # Tile runs: consecutive ids with one patch origin.
+    ox = plan.block_ox[ids].astype(np.int64)
+    oy = plan.block_oy[ids].astype(np.int64)
+    key = ox * plan.nalloc_y + oy
+    starts = (np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+              if ids.size else np.zeros(0, np.int64))
+    counts = np.diff(np.r_[starts, ids.size])
+    r_run, r_band, r_cells = _interval_bands(ox[starts] - W, plan.patch_x,
+                                             redges, N)
+    c_run, c_band, c_cells = _interval_bands(oy[starts] - W, plan.patch_y,
+                                             cedges, N)
+    # Every (run, row band, column band) a run's patch reaches.
+    per_run = np.bincount(c_run, minlength=starts.size)
+    c_first = np.cumsum(per_run) - per_run
+    rep = per_run[r_run]
+    t_run = np.repeat(r_run, rep)
+    pick = c_first[t_run] + np.arange(rep.sum()) - np.repeat(
+        np.cumsum(rep) - rep, rep)
+    t_dest = np.repeat(r_band, rep) * ncb + c_band[pick]
+    t_work = (counts[t_run] * np.repeat(r_cells, rep) * c_cells[pick]
+              / (plan.patch_x * plan.patch_y))
+    order = np.lexsort((t_run, t_dest))
+    t_run, t_dest, t_work = t_run[order], t_dest[order], t_work[order]
+    dests, d_first, d_nsrc = np.unique(t_dest, return_index=True,
+                                       return_counts=True)
+    S = max(int(d_nsrc.max(initial=0)), 1)
+    sources = np.zeros((dests.size, S, 2), np.int64)
+    slot = np.arange(t_run.size) - np.repeat(d_first, d_nsrc)
+    dest_of = np.repeat(np.arange(dests.size), d_nsrc)
+    sources[dest_of, slot, 0] = starts[t_run]
+    sources[dest_of, slot, 1] = counts[t_run]
+    work = np.bincount(dest_of, t_work, minlength=dests.size)
+    rb, cb = dests // ncb, dests % ncb
+    col0, ncols = cedges[cb], cedges[cb + 1] - cedges[cb]
+    widest = grid_piece_cols(plan)
+    pieces = np.clip(np.ceil(work / chunk_blocks).astype(np.int64),
+                     -(-ncols // widest),
+                     np.maximum(ncols // MIN_PIECE_COLS, -(-ncols // widest)))
+    d = np.repeat(np.arange(dests.size), pieces)
+    i = np.arange(d.size) - np.repeat(np.cumsum(pieces) - pieces, pieces)
+    lo = col0[d] + ncols[d] * i // pieces[d]
+    hi = col0[d] + ncols[d] * (i + 1) // pieces[d]
+    busy = np.concatenate([
+        np.stack([redges[rb[d]], redges[rb[d] + 1] - redges[rb[d]], lo,
+                  hi - lo], axis=1),
+        sources[d].reshape(d.size, 2 * S)], axis=1)
+    busy = busy[np.argsort(-(work[d] / pieces[d]), kind="stable")]
+    # Source-free rectangles: stretches of unreached column bands.
+    free = np.ones((nrb, ncb + 2), bool)
+    free[:, [0, -1]] = False
+    free[rb, cb + 1] = False
+    edge = np.diff(free.astype(np.int8), axis=1)
+    z_rb, z_lo = np.nonzero(edge == 1)
+    z_hi = np.nonzero(edge == -1)[1]
+    z_col0, z_end = cedges[z_lo], cedges[z_hi]
+    z_pieces = -(-(z_end - z_col0) // ZERO_CHUNK_COLS)
+    z = np.repeat(np.arange(z_rb.size), z_pieces)
+    zi = np.arange(z.size) - np.repeat(np.cumsum(z_pieces) - z_pieces,
+                                       z_pieces)
+    z_lo = z_col0[z] + zi * ZERO_CHUNK_COLS
+    z_hi = np.minimum(z_lo + ZERO_CHUNK_COLS, z_end[z])
+    zero = np.zeros((z.size, GRID_CHUNK_HEAD + 2 * S), np.int64)
+    zero[:, 0] = redges[z_rb[z]]
+    zero[:, 1] = redges[z_rb[z] + 1] - redges[z_rb[z]]
+    zero[:, 2] = z_lo
+    zero[:, 3] = z_hi - z_lo
+    return np.concatenate([busy, zero]).astype(np.int32)
+
+
+def group_grid_chunks(plan: GridderPlan,
+                      chunk_blocks: int = CHUNK_BLOCKS) -> list:
+    """:func:`grid_chunks` of every plane group's active blocks."""
+    return [grid_chunks(plan, ids, chunk_blocks)
+            for ids in group_active_blocks(plan)]
+
+
+def _stack_tables(tables: list, width: int) -> np.ndarray:
+    """Per-group int32 tables in one (groups, rows, width) array, padded
+    with zero rows (and zero columns) to the largest."""
+    rows = max(max((len(t) for t in tables), default=0), 1)
+    out = np.zeros((len(tables), rows, width), np.int32)
+    for k, table in enumerate(tables):
+        out[k, : len(table), : table.shape[1]] = table
+    return out
+
+
 def plan_host_arrays(plan: GridderPlan, device, *, invert: bool = True,
                      predict: bool = False) -> dict:
     """
     Host (numpy) arrays of a plan that the port's invert and predict
     read on ``device``: the per-block tables, the (num_groups, G) plane
-    w's, the per-group active block lists (padded with -1) and their
-    B1/B3 chunk tables (:func:`tile_chunks`, padded with zero rows), the
+    w's, the per-group active block lists (padded with -1), their B3
+    chunk tables (:func:`tile_chunks`) and B1 work lists
+    (:func:`grid_chunks`), each padded with zero rows, the
     quadrature rule, and the first-axis DFT factors of the passes that
     run there — on a CUDA device the fused kernel's, ``fftp_*`` for the
     ``invert`` and ``fftq_*`` for the ``predict``; on the CPU the plain
@@ -257,12 +427,7 @@ def plan_host_arrays(plan: GridderPlan, device, *, invert: bool = True,
     for k, ids in enumerate(lists):
         group_blocks[k, : len(ids)] = ids
     tables = [tile_chunks(plan, ids) for ids in lists]
-    group_chunks = np.zeros(
-        (len(tables), max(max((len(t) for t in tables), default=0), 1), 3),
-        np.int32,
-    )
-    for k, table in enumerate(tables):
-        group_chunks[k, : len(table)] = table
+    grid_tables = [grid_chunks(plan, ids) for ids in lists]
     arrays = {
         "block_len": plan.block_len.astype(np.int32),
         "cblock_ox": plan.block_ox.astype(np.int32),
@@ -271,7 +436,9 @@ def plan_host_arrays(plan: GridderPlan, device, *, invert: bool = True,
         # outside every block's ES window (zero contributions).
         "plane_wg": wg.astype(np.float32).reshape(-1, G),
         "group_blocks": group_blocks,
-        "group_chunks": group_chunks,
+        "group_chunks": _stack_tables(tables, 3),
+        "group_grid_chunks": _stack_tables(
+            grid_tables, max(t.shape[1] for t in grid_tables)),
     }
     arrays.update(_quad_arrays(plan))
     fft_plan = make_fft_plan(plan.ngrid, shifted=True)
@@ -743,7 +910,7 @@ def build_invert(plan, *, mesh=None):
     npix = plan.num_pixels
     fmeta = _fused_fft_meta(plan)
     counts = [len(ids) for ids in group_active_blocks(plan)]
-    nchunks = [len(c) for c in group_tile_chunks(plan)]
+    nchunks = [len(c) for c in group_grid_chunks(plan)]
 
     def invert(arrays, re_s, im_s):
         inv_corr, nm1s = _geometry_maps(plan, arrays)
@@ -762,7 +929,7 @@ def build_invert(plan, *, mesh=None):
                 w_g,
                 arrays["group_blocks"][k, : counts[k]],
                 plan=plan,
-                chunks=arrays["group_chunks"][k, : nchunks[k]],
+                chunks=arrays["group_grid_chunks"][k, : nchunks[k]],
             )
             # Planes of a ragged final group beyond nplanes are empty.
             for i in range(min(G, plan.nplanes - k * G)):
@@ -973,7 +1140,7 @@ def _build_invert_distributed(plans: list, mesh):
     cols = npix // S
     fmeta = _fused_fft_meta(plan)
     counts = [[len(ids) for ids in group_active_blocks(p)] for p in plans]
-    nchunks = [[len(c) for c in group_tile_chunks(p)] for p in plans]
+    nchunks = [[len(c) for c in group_grid_chunks(p)] for p in plans]
     slabs = [slice(g * cols, (g + 1) * cols)
              for g in mesh.addressable_shard_indices]
 
@@ -987,7 +1154,7 @@ def _build_invert_distributed(plans: list, mesh):
                 arrays["block_len"], arrays["cblock_ox"], arrays["block_oy"],
                 arrays["plane_wg"][k],
                 arrays["group_blocks"][k, : counts[s][k]], plan=p,
-                chunks=arrays["group_chunks"][k, : nchunks[s][k]],
+                chunks=arrays["group_grid_chunks"][k, : nchunks[s][k]],
             )
             if total is None:
                 total = planes

@@ -7,11 +7,13 @@ with a card: ``python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py`` (``--noconftest``: the suite's conftest
 imports jax, which such a machine need not have).
 Tolerances: 1e-5 of the reference's max between a float32 kernel and
-its float32 plain version (summation order differs; the gridding
-kernel adds with atomics), 1e-4 against the explicit DFT; exact where
+its float32 plain version (the two sum in different orders), 1e-4
+against the explicit DFT; exact where
 a kernel only moves data (B6, P2's ``load``) or sums another kernel's
 values in its order (tiled B2 as row-major B2, P1 as the dense pass
-P2 ``full``). B2 also runs at the distributed mode's slab widths, and
+P2 ``full``) and between two launches of the gridding kernel on the
+same inputs (it sums every cell in an order fixed by its work list).
+B2 also runs at the distributed mode's slab widths, and
 the distributed invert on 2 shards of an NCCL world of one; a small
 MeasurementSet's invert on the card is held to its VZ's.
 """
@@ -58,7 +60,8 @@ def _small(seed=23, num_times=3, num_antennas=10, num_channels=2):
 #: B1/B3 plans (``tests/test_torch_grid_schedule.py``'s): name ->
 #: (problem size, npix, asec, plan options, blocks a chunk). "small":
 #: every tile an edge tile; "edge": footprints across the periodic edge
-#: beside interior tiles; "split": hot tiles split over chunks of two.
+#: beside interior tiles; "split": hot tiles split over chunks of two
+#: (B3) and over column pieces (B1).
 GRID_PLANS = {
     "small": ((3, 10, 2), 96, 40.0, {}, None),
     "edge": ((4, 16, 3), 256, 20.0, {}, None),
@@ -73,9 +76,22 @@ def _grid_problem(cuda, name, wstack):
     plan = make_plan(uvw, freqs, npix, pixel, do_wstacking=wstack,
                      export_packed=False, **kw)
     arrays, re_s, im_s = tg.stage_compact(plan, uvw, freqs, vis * wgt, cuda)
-    chunks = [torch.from_numpy(c).to(cuda)
-              for c in tg.group_tile_chunks(plan, blocks or tg.CHUNK_BLOCKS)]
+    blocks = blocks or tg.CHUNK_BLOCKS
+    chunks = {
+        "grid": [torch.from_numpy(c).to(cuda)
+                 for c in tg.group_grid_chunks(plan, blocks)],
+        "degrid": [torch.from_numpy(c).to(cuda)
+                   for c in tg.group_tile_chunks(plan, blocks)],
+    }
     return plan, arrays, re_s, im_s, chunks
+
+
+def _grid_args(plan, arrays, re_s, im_s, k, ids):
+    return (
+        arrays["packed"], re_s, im_s, arrays["block_len"],
+        arrays["cblock_ox"], arrays["block_oy"], arrays["plane_wg"][k],
+        arrays["group_blocks"][k, : len(ids)],
+    )
 
 
 def _launches(degrid, G):
@@ -93,13 +109,9 @@ def test_grid_kernel_matches_plain(cuda, wstack, name):
     G = plan.plane_group
     assert G == (2 if wstack else 1)
     for k, ids in enumerate(tg.group_active_blocks(plan)):
-        args = (
-            arrays["packed"], re_s, im_s, arrays["block_len"],
-            arrays["cblock_ox"], arrays["block_oy"], arrays["plane_wg"][k],
-            arrays["group_blocks"][k, : len(ids)],
-        )
+        args = _grid_args(plan, arrays, re_s, im_s, k, ids)
         before = _launches(False, G)
-        got = tcg.grid_planes(*args, plan=plan, chunks=chunks[k])
+        got = tcg.grid_planes(*args, plan=plan, chunks=chunks["grid"][k])
         torch.cuda.synchronize()
         assert _launches(False, G) == before + 1
         ref = tcg.grid_planes_folded_reference(*args, plan=plan)
@@ -127,7 +139,8 @@ def test_degrid_kernel_matches_plain(cuda, wstack, name):
         )
         acc = torch.zeros((2, plan.num_vis), device=cuda)
         before = _launches(True, G)
-        got = tcg.degrid_planes(*args, acc, plan=plan, chunks=chunks[k])
+        got = tcg.degrid_planes(*args, acc, plan=plan,
+                                chunks=chunks["degrid"][k])
         torch.cuda.synchronize()
         assert _launches(True, G) == before + 1
         ref = tcg.degrid_planes_folded_reference(
@@ -135,6 +148,21 @@ def test_degrid_kernel_matches_plain(cuda, wstack, name):
         )
         scale = ref.abs().max()
         assert float((got - ref).abs().max() / scale) <= 1e-5
+
+
+@pytest.mark.parametrize("name", list(GRID_PLANS))
+@pytest.mark.parametrize("wstack", [False, True], ids=["G1", "G2"])
+def test_grid_kernel_repeats_bit_for_bit(cuda, wstack, name):
+    """Two B1 (B4 at G = 1) launches on the same inputs give the same
+    bits: every cell's sum runs in the work list's order."""
+    plan, arrays, re_s, im_s, chunks = _grid_problem(cuda, name, wstack)
+    for k, ids in enumerate(tg.group_active_blocks(plan)):
+        args = _grid_args(plan, arrays, re_s, im_s, k, ids)
+        once = tcg.grid_planes(*args, plan=plan, chunks=chunks["grid"][k])
+        twice = tcg.grid_planes(*args, plan=plan, chunks=chunks["grid"][k])
+        torch.cuda.synchronize()
+        assert once.abs().max() > 0
+        assert torch.equal(once.view(torch.int32), twice.view(torch.int32))
 
 
 def test_kernels_need_the_chunk_table(cuda):
@@ -639,7 +667,8 @@ def test_ms_invert_on_card_matches_vz_invert(cuda, tmp_path):
     """A small MeasurementSet (``chip_smoke.write_measurement_set``, read
     by the casacore-free ``_NativeMSBackend``) inverted on the card
     through B1 and B2, against the invert of its VZ on the card: 1e-5 of
-    the max (B1 adds with atomics)."""
+    the max (the reader's columns are the VZ's, so the two are expected
+    to agree bit for bit)."""
     import importlib.util
     from pathlib import Path
 

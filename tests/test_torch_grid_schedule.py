@@ -2,23 +2,29 @@
 The schedule of kernels B1 (``csrc/grid.cu``) and B3 (``csrc/degrid.cu``)
 held on the CPU, where no CUDA kernel runs.
 
-* (a) The work list (``ops/gridder.py:tile_chunks``): every active block
-  of a plane group in exactly one chunk, one patch origin per chunk,
-  consecutive blocks, at most R a chunk; the split flag on every chunk
-  of a tile that has more than one, and the edge flag on exactly the
-  tiles whose patch holds an alloc row or column in [0, 2W) or
-  [N, N + 2W).
-* (b) A torch model of B1's partition: per chunk, each visibility's
-  candidate footprint (the kernel's window: the W cells after
-  floor(pos - W/2), clipped to the patch) is added into the chunk's
-  patch, which is then flushed onto the periodic grid at row
-  (ox + r - W) mod N and column (oy + c - W) mod N, rows
-  [patch_x - tile_x, tile_x) of unsplit interior tiles as stores and
-  the rest as additions. The model checks that no cell it stores is
-  written by any other chunk, and is held against
-  ``_fold_wraps o grid_planes_reference`` and against the JAX group
-  kernel in interpret mode folded by the JAX package's ``_fold_wraps``,
-  at 1e-5 of each plane's max.
+* (a) The work lists. B3's (``ops/gridder.py:tile_chunks``): every
+  active block of a plane group in exactly one chunk, one patch origin
+  per chunk, consecutive blocks, at most R a chunk; the split flag on
+  every chunk of a tile that has more than one, and the edge flag on
+  exactly the tiles whose patch holds an alloc row or column in
+  [0, 2W) or [N, N + 2W). B1's (``ops/gridder.py:grid_chunks``): the
+  destination rectangles partition the periodic grid, at most tile_x
+  rows and, where a run reaches them, ``grid_piece_cols`` columns (the
+  kernel's shared planes); each lists, in
+  run order, every tile run whose patch reaches it after the fold.
+* (b) A torch model of B1's schedule: per chunk, per source run in
+  order, each visibility's candidate footprint (the kernel's window:
+  the W cells after floor(pos - W/2), clipped to the patch) lands at
+  row (ox + r - W) mod N and column (oy + c - W) mod N; the cells inside
+  the chunk's rectangle are added in slot order by the warp that owns
+  the row (bands of 32 // W rows), and the rectangle is stored once.
+  The model checks that the rectangles cover every cell once, and is
+  held against ``_fold_wraps o grid_planes_reference`` and against the
+  JAX group kernel in interpret mode folded by the JAX package's
+  ``_fold_wraps``, at 1e-5 of each plane's max. Run with its chunks and
+  each chunk's warps in shuffled orders (seeded) it gives the same
+  bits: the order of every cell's sum is fixed by the plan and the work
+  list, not by the order the work runs in.
 * (c) The same for B3: each chunk's windows read from the periodic grid
   with modular addressing, rows summed first, then columns, then the
   planes, held against ``degrid_planes_reference`` of the unfolded
@@ -89,11 +95,11 @@ def problem(request):
             "im": im, "grids": grids, "uvw": uvw, "freqs": freqs}
 
 
-def _group_inputs(p, k):
+def _group_inputs(p, k, builder=tg.tile_chunks):
     plan = p["port"]
     ids = tg.group_active_blocks(plan)[k]
     w_g = tg.plan_host_arrays(plan, "cpu")["plane_wg"][k]
-    return ids, tg.tile_chunks(plan, ids, p["R"]), w_g
+    return ids, builder(plan, ids, p["R"]), w_g
 
 
 def _footprints(plan, packed, slots):
@@ -139,41 +145,77 @@ def _periodic(plan, ox, oy):
             (oy + torch.arange(plan.patch_y) - W) % N)
 
 
-def grid_model(plan, packed, re, im, ids, chunks, w_g):
-    """B1's partition on the periodic grid (see the module docstring);
-    raises if a stored row is written by another chunk."""
-    N, G = plan.ngrid, len(w_g)
-    PX, PY = plan.patch_x, plan.patch_y
-    out = torch.zeros((2 * G, N * N))
-    stored = torch.zeros(N * N, dtype=torch.int64)
-    added = torch.zeros(N * N, dtype=torch.int64)
-    exclusive = torch.zeros(PX, dtype=torch.bool)
-    exclusive[PX - plan.tile_x : plan.tile_x] = True
-    for first, count, flags in chunks.tolist():
-        slots, ox, oy = _chunk_slots(plan, ids, first, count)
-        assert all(plan.block_ox[b] == ox and plan.block_oy[b] == oy
-                   for b in ids[first : first + count])
-        rows, ax, cols, ay = _footprints(plan, packed, slots)
-        cell = (rows[:, :, None] * PY + cols[:, None, :]).reshape(-1)
-        patch = torch.zeros((2 * G, PX * PY))
-        for p, amp in enumerate(_amps(plan, packed, slots, w_g)):
-            for q, vis in enumerate((re[slots], im[slots])):
-                # ax * (vis * amp) first, then * ay: the kernel's order.
-                val = (ax * (vis * amp)[:, None])[:, :, None] * ay[:, None, :]
-                patch[2 * p + q].index_add_(0, cell, val.reshape(-1))
-        prow, pcol = _periodic(plan, ox, oy)
-        target = (prow[:, None] * N + pcol[None, :]).reshape(-1)
-        store = (exclusive[:, None].expand(PX, PY).reshape(-1)
-                 if flags == 0 else torch.zeros(PX * PY, dtype=torch.bool))
-        out[:, target[store]] = patch[:, store]
-        stored[target[store]] += 1
-        add = ~store
-        out.index_add_(1, target[add], patch[:, add])
-        nonzero = (patch[:, add] != 0).any(dim=0)
-        added[target[add][nonzero]] += 1
-    owned = stored > 0
-    assert int(stored.max()) <= 1 and not bool((added[owned] > 0).any())
-    return out.reshape(2 * G, N, N)
+def _grid_staged(plan, packed, re, im, first, count, ids, w_g, row0, col0):
+    """One source run's slots in slot order as the kernel stages them for
+    a rectangle at (row0, col0): the rectangle-local start (lr, lc) of
+    each footprint after the fold, in (-W, N - W], its ES factors ax, ay
+    (zero off the patch) and its 2G vis * amp."""
+    N, W = plan.ngrid, plan.support
+    k = tcg._constants(plan)
+    slots, ox, oy = _chunk_slots(plan, ids, first, count)
+    origin, fac = [], []
+    for pos, size, o in ((packed[0][slots], plan.patch_x, ox - row0),
+                         (packed[1][slots], plan.patch_y, oy - col0)):
+        start = torch.floor(pos - 0.5 * W).to(torch.int64) + 1
+        cells = start[:, None] + torch.arange(W)[None, :]
+        f = es_kernel((cells.to(torch.float32) - pos[:, None])
+                      * k["inv_half"], k["beta"])
+        fac.append(torch.where((cells >= 0) & (cells < size), f,
+                               torch.zeros_like(f)))
+        local = (o + start - W) % N
+        origin.append(torch.where(local > N - W, local - N, local))
+    amps = _amps(plan, packed, slots, w_g)
+    va = torch.stack([vis * amp for amp in amps
+                      for vis in (re[slots], im[slots])], dim=1)
+    return origin[0], origin[1], fac[0], fac[1], va
+
+
+def grid_model(plan, packed, re, im, ids, chunks, w_g, seed=None):
+    """B1's schedule on the periodic grid (see the module docstring): a
+    chunk's visibilities whose footprint meets its rectangle, in slot
+    order; warp w of the chunk owns rows [w * H, w * H + H), H = 32 //
+    W, and adds each footprint cell in those rows, one visibility after
+    the other (amps not all zero), into the rectangle's planes, which
+    are stored once. With a ``seed`` the chunks, and each chunk's warps,
+    run in a shuffled order. Raises unless the rectangles cover each
+    cell once."""
+    N, G, W = plan.ngrid, len(w_g), plan.support
+    band = 32 // W
+    out = torch.full((2 * G, N, N), float("nan"))
+    written = torch.zeros((N, N), dtype=torch.int64)
+    rng = np.random.default_rng(seed)
+    order = (rng.permutation(len(chunks)) if seed is not None
+             else range(len(chunks)))
+    fi, fj = torch.meshgrid(torch.arange(W), torch.arange(W), indexing="ij")
+    for n in order:
+        row0, nrows, col0, ncols = chunks[n, :4].tolist()
+        written[row0 : row0 + nrows, col0 : col0 + ncols] += 1
+        patch = torch.zeros((2 * G, nrows * ncols))
+        staged = [_grid_staged(plan, packed, re, im, first, count, ids,
+                               w_g, row0, col0)
+                  for first, count in chunks[n, 4:].reshape(-1, 2).tolist()
+                  if count > 0]
+        if staged:
+            lr, lc, ax, ay, va = (torch.cat(x) for x in zip(*staged))
+            keep = (lr < nrows) & (lc < ncols) & (va != 0).any(dim=1)
+            lr, lc, ax, ay, va = (x[keep] for x in (lr, lc, ax, ay, va))
+            rows = lr[:, None, None] + fi[None]  # (vis, W, W)
+            cols = lc[:, None, None] + fj[None]
+            on = (rows >= 0) & (rows < nrows) & (cols >= 0) & (cols < ncols)
+            # ax * (vis * amp) first, then * ay: the kernel's order.
+            val = (ax[:, None, :, None] * va[:, :, None, None]
+                   * ay[:, None, None, :])  # (vis, 2G, W, W)
+            warps = -(-nrows // band)
+            for w in (rng.permutation(warps) if seed is not None
+                      else range(warps)):
+                # Warp w's cells, one visibility after the other.
+                mine = on & (rows >= w * band) & (rows < (w + 1) * band)
+                patch.index_add_(1, (rows * ncols + cols)[mine],
+                                 val.permute(1, 0, 2, 3)[:, mine])
+        out[:, row0 : row0 + nrows, col0 : col0 + ncols] = patch.view(
+            2 * G, nrows, ncols)
+    assert bool((written == 1).all())
+    return out
 
 
 def degrid_model(plan, packed, grids, ids, chunks, w_g):
@@ -248,12 +290,45 @@ def test_edge_flag_follows_the_wrap_rule(problem):
             assert bool(flags & tg.CHUNK_EDGE) == edge
 
 
+@pytest.mark.parametrize("R", [1, 2, 8])
+def test_grid_chunks_partition_the_grid(problem, R):
+    plan = problem["port"]
+    N, W = plan.ngrid, plan.support
+    for ids in tg.group_active_blocks(plan):
+        chunks = tg.grid_chunks(plan, ids, R)
+        assert chunks.dtype == np.int32 and chunks.shape[1] % 2 == 0
+        cover = np.zeros((N, N), np.int64)
+        key = plan.block_ox[ids].astype(np.int64) * 10**6 + plan.block_oy[ids]
+        starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+        for row0, nrows, col0, ncols, *src in chunks.tolist():
+            cover[row0 : row0 + nrows, col0 : col0 + ncols] += 1
+            assert 1 <= nrows <= plan.tile_x
+            firsts = [f for f, c in zip(src[::2], src[1::2]) if c > 0]
+            if firsts:
+                assert ncols <= tcg.grid_piece_cols(plan)
+            assert firsts == sorted(firsts)
+            # Every run whose patch reaches the rectangle (a column piece
+            # keeps its band's runs, which may miss the piece).
+            reach = []
+            for i, f in enumerate(starts):
+                b = ids[f]
+                rows = (plan.block_ox[b] + np.arange(plan.patch_x) - W) % N
+                cols = (plan.block_oy[b] + np.arange(plan.patch_y) - W) % N
+                if (((rows >= row0) & (rows < row0 + nrows)).any()
+                        and ((cols >= col0) & (cols < col0 + ncols)).any()):
+                    end = starts[i + 1] if i + 1 < len(starts) else len(ids)
+                    reach.append((int(f), int(end - f)))
+            got = [(f, c) for f, c in zip(src[::2], src[1::2]) if c > 0]
+            assert set(reach) <= set(got)
+        assert (cover == 1).all()
+
+
 @pytest.mark.parametrize("k", [0, 1, 2])
 def test_grid_partition_model_matches_plain_and_jax(problem, k):
     plan, port = problem["plan"], problem["port"]
     assert plan.plane_group == 2 and plan.num_groups == 3
     t = torch.from_numpy
-    ids, chunks, w_g = _group_inputs(problem, k)
+    ids, chunks, w_g = _group_inputs(problem, k, tg.grid_chunks)
     packed = t(np.ascontiguousarray(problem["packed4"][:3]))
     re, im = t(problem["re"]), t(problem["im"])
     model = grid_model(port, packed, re, im, ids, chunks, w_g)
@@ -269,6 +344,22 @@ def test_grid_partition_model_matches_plain_and_jax(problem, k):
     for q in range(model.shape[0]):
         assert _rel(model[q], plain[q]) <= RTOL
         assert _rel(model[q], jg._fold_wraps(plan, jax_planes[q])) <= RTOL
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+@pytest.mark.parametrize("k", [0, 1, 2])
+def test_grid_model_is_bit_equal_in_shuffled_order(problem, k, seed):
+    """The chunks and each chunk's warps in a shuffled order give the
+    planes of the table's order, bit for bit."""
+    port = problem["port"]
+    t = torch.from_numpy
+    ids, chunks, w_g = _group_inputs(problem, k, tg.grid_chunks)
+    packed = t(np.ascontiguousarray(problem["packed4"][:3]))
+    re, im = t(problem["re"]), t(problem["im"])
+    ordered = grid_model(port, packed, re, im, ids, chunks, w_g)
+    shuffled = grid_model(port, packed, re, im, ids, chunks, w_g, seed=seed)
+    assert ordered.abs().max() > 0
+    assert torch.equal(ordered.view(torch.int32), shuffled.view(torch.int32))
 
 
 @pytest.mark.parametrize("k", [0, 1, 2])
@@ -319,3 +410,9 @@ def test_plans_cross_the_edge_and_split_the_hot_tile(problem):
         assert size.max() > problem["R"]
         mine = chunks[key[chunks[:, 0]] == hot]
         assert len(mine) > 1 and (mine[:, 2] & tg.CHUNK_SPLIT).all()
+        # B1 cuts the hot tile's rectangle into column pieces.
+        grid = tg.grid_chunks(plan, ids, problem["R"])
+        hot_first = int(np.flatnonzero(key == hot)[0])
+        pieces = grid[(grid[:, 4::2] == hot_first).any(axis=1)
+                      & (grid[:, 5::2] > 0).any(axis=1)]
+        assert len(np.unique(pieces[:, 0])) < len(pieces)
