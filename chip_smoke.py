@@ -21,7 +21,8 @@ then runs these phases and prints one JSON object per phase:
    itself) against its folded plain version, on every plane group of
    the small plans (:func:`small_plans`: every tile an edge tile,
    footprints across the periodic edge beside interior tiles, split
-   hot tiles; G = 1 and 2) and on the bench plan's largest plane group,
+   hot tiles, grids of 64, 32 and 72 cells, supports 5 and 7; G = 1 and
+   2) and on the bench plan's largest plane group,
    with w-stacking (G = 2) and without it (G = 1, B4), each launched
    twice and required to give the same bits, each with its time, a
    zeroing of its planes that the kernel no longer needs (``zero_ms``),
@@ -49,7 +50,12 @@ then runs these phases and prints one JSON object per phase:
    unfold that left the path as ``fold_ms`` and the same chunk sweep;
 5. ``e2e_small``: ``dirty_image`` on the card against the explicit DFT
    (``dirty_image_dft``) on a 256 px check plan, without w-stacking
-   (through B4) and with it (B1), with the launch counts of each;
+   (through B4) and with it (B1), with the launch counts of each; then
+   ``e2e_tiny``: ``invert_dataset`` at 32 px / 60 asec, 16 px / 120
+   asec and 36 px / 60 asec (grids of 64, 32 and 72 cells, narrower
+   than a B1 patch), each with and without w-stacking, against the
+   port's CPU path (1e-5 of the max) and the float64 DFT (1e-4), a
+   second call gated bit-equal;
 6. ``predict``: ``predict_visibilities`` on the card against
    ``predict_dft`` on a 256 px check plan (through B5, then B3, with
    launch counts); at bench size the adjoint
@@ -136,7 +142,14 @@ then runs these phases and prints one JSON object per phase:
     cycle (``psf_patch`` 2048) on visibilities of five point sources,
     with the ``major_cycle`` gates; the noise image's adjoint identity is
     gated as |lhs - rhs| / (|I| |D|) <= 1e-6, the dirty image's as
-    |lhs - rhs| / |lhs| <= 1e-4;
+    |lhs - rhs| / |lhs| <= 1e-4; then ``large``, with the card's cached
+    memory handed back first: ``invert_dataset`` of the slice's dataset
+    at 16384 px / 0.5 asec (a 32768^2 grid; :func:`phase_large`): wall,
+    breakdown, peak memory, a float64 DFT spot check, B1 on each plane
+    group against its bound and on the largest against its plain
+    version (twice, bit-equal), one ``MeasurementOperator`` predict with
+    the noise-image adjoint gate, B3 against its plain version, and B2
+    at n = 32768 against its plain version and ``torch.fft``;
 12. ``solvers`` (three parts): ``cli``, ``tpu-cip-torch`` in process
     on the slice's dataset at 2048 px (robust and uniform dirty images
     against a float64 DFT of the reweighted visibilities; ``--clean 2
@@ -334,13 +347,20 @@ def emit(obj: dict) -> None:
 
 
 def rel_err(got, ref) -> tuple[float, float]:
-    """(max abs error, max abs error / max |ref|) of two tensors/arrays."""
+    """(max abs error, max abs error / max |ref|) of two tensors/arrays,
+    in float64: on the card when both lie there, else on the host, in
+    pieces of 2^26 values (a 32768^2 plane's float64 copies at once
+    would take 25.8 GB)."""
     import torch
 
-    got = torch.as_tensor(got, dtype=torch.float64)
-    ref = torch.as_tensor(ref, dtype=torch.float64)
-    err = float((got.cpu() - ref.cpu()).abs().max())
-    scale = float(ref.abs().max())
+    got, ref = torch.as_tensor(got), torch.as_tensor(ref)
+    if got.device != ref.device:
+        got, ref = got.cpu(), ref.cpu()
+    pairs = list(zip(got.reshape(-1).split(1 << 26),
+                     ref.reshape(-1).split(1 << 26)))
+    err = max((float((g.double() - r.double()).abs().max())
+               for g, r in pairs), default=0.0)
+    scale = max((float(r.abs().max()) for _, r in pairs), default=0.0)
     return err, err / scale if scale else err
 
 
@@ -546,8 +566,11 @@ def small_plans() -> dict:
     96 px at 40 asec, every tile an edge tile; ``edge``: 256 px at 20
     asec, footprints across the periodic edge beside interior tiles;
     ``split``: 256 px at 12 asec in 32-slot blocks, two blocks a chunk,
-    so the hot tiles are split. Each without (G = 1) and with (G = 2)
-    w-stacking.
+    so the hot tiles are split; ``tiny64``, ``tiny32`` and ``tiny72``:
+    32 px at 60 asec, 16 px at 120 asec and 36 px at 60 asec, grids
+    narrower than a patch; ``eps3`` and ``eps5``: ``edge`` at epsilon
+    1e-3 and 1e-5 (supports 5 and 7, B1's generic kernel). Each without
+    (G = 1) and with (G = 2) w-stacking.
     """
     small, wide = small_visibilities(), small_visibilities(4, 16, 3)
     plans = {}
@@ -556,6 +579,12 @@ def small_plans() -> dict:
         plans[f"small_w{w}"] = (small, 96, 40.0, kw, None)
         plans[f"edge_w{w}"] = (wide, 256, 20.0, kw, None)
         plans[f"split_w{w}"] = (wide, 256, 12.0, {**kw, "block": 32}, 2)
+        for name, npix, asec in (("tiny64", 32, 60.0), ("tiny32", 16, 120.0),
+                                 ("tiny72", 36, 60.0)):
+            plans[f"{name}_w{w}"] = (wide, npix, asec, kw, None)
+        for name, eps in (("eps3", 1e-3), ("eps5", 1e-5)):
+            plans[f"{name}_w{w}"] = (wide, 256, 20.0, {**kw, "epsilon": eps},
+                                     None)
     return plans
 
 
@@ -691,7 +720,8 @@ def bench_dft_check(plan, arrays, re_s, im_s, uvw, freqs, wvis, device,
     return out
 
 
-def phase_b2(device, n=4096, npix=2048, iters=10, widths=None) -> dict:
+def phase_b2(device, n=4096, npix=2048, iters=10, widths=None,
+             first_design=True) -> dict:
     """
     B2 against its plain version: the invert's out-cropped pass (n rows
     -> npix, sign +1, ``fftp_*``) and predict's in-cropped pass (npix
@@ -707,7 +737,8 @@ def phase_b2(device, n=4096, npix=2048, iters=10, widths=None) -> dict:
     complex64 input packed outside the timing, zero-padded to n,
     uncentred and uncropped), the achieved GB/s and, out-cropped, the
     first design's time (P2 ``full``, the dense pass, on the same
-    input; P2 runs the out-cropped pass only). It also holds the kernel
+    input; P2 runs the out-cropped pass only; left out with
+    ``first_design=False``). It also holds the kernel
     and the plain version against the exact transform (complex128) on
     the first 256 columns, and checks that two runs of the kernel are
     equal bit for bit.
@@ -731,9 +762,10 @@ def phase_b2(device, n=4096, npix=2048, iters=10, widths=None) -> dict:
     for meta, sign, prefix, _ in passes.values():
         host.update(fft_cuda.fused_pass_kernel_arrays(fplan, meta, sign=sign,
                                                       prefix=prefix))
-    # P2 ``full`` (the first design) reads the dense factors.
-    host.update(fft_cuda.fused_pass_host_arrays(
-        fplan, passes["out_crop"][0], sign=+1, prefix="fftp"))
+    if first_design:
+        # P2 ``full`` (the first design) reads the dense factors.
+        host.update(fft_cuda.fused_pass_host_arrays(
+            fplan, passes["out_crop"][0], sign=+1, prefix="fftp"))
     f = stage_arrays(host, device)
     gen = torch.Generator(device=device).manual_seed(3)
     results = {"phase": "b2", "n": n, "crop": npix, "cases": []}
@@ -795,7 +827,7 @@ def phase_b2(device, n=4096, npix=2048, iters=10, widths=None) -> dict:
                 case["gb_per_s"] = io / case["ms"] / 1e6
                 case["gb_per_s_with_z"] = floor / case["ms"] / 1e6
                 case["first_design_ms"] = None
-                if name == "out_crop":
+                if name == "out_crop" and first_design:
                     case["first_design_ms"] = cuda_ms(
                         lambda: ablation("full", re, im, f, meta=meta),
                         iters=iters,
@@ -948,6 +980,66 @@ def phase_e2e_small(device, npix=256) -> dict:
         require_launches(launches, ("b1", "b2_out_crop") if wstack
                          else ("b4", "b2_out_crop"), device, "e2e_small")
     results["launches"] = results["cases"][0]["launches"]
+    return results
+
+
+#: The ``e2e_tiny`` phase's images, (npix, asec): grids of 64, 32 and 72
+#: cells, each narrower than a B1 patch (48 x 128).
+TINY_IMAGES = ((32, 60.0), (16, 120.0), (36, 60.0))
+
+
+def phase_e2e_tiny(device, workdir: Path, images=TINY_IMAGES) -> dict:
+    """
+    ``invert_dataset`` on grids narrower than a patch: a 4 x 120 x 3
+    synthetic dataset at each of :data:`TINY_IMAGES`, with w-stacking
+    (B1) and without it (B4), against the port's CPU path (1e-5 of the
+    max) and the float64 DFT of the same weighted visibilities (1e-4),
+    and a second call gated bit-equal to the first.
+    """
+    import torch
+
+    from ska_sdp_cip_tpu_torch import VisibilityReader, invert_dataset
+    from ska_sdp_cip_tpu_torch.invert import StokesIGridderInput
+    from ska_sdp_cip_tpu_torch.ops.dft import dirty_image_dft
+
+    path, _ = make_dataset(workdir, size=(4, 16, 3))
+    reader = VisibilityReader(path)
+    gi = StokesIGridderInput.from_reader(reader)
+    weights = gi.effective_weights()
+    cpu = torch.device("cpu")
+    results = {"phase": "e2e_tiny", "num_vis": int(gi.visibilities.size),
+               "cases": []}
+    for npix, asec in images:
+        pix = float(np.sin(np.radians(asec / 3600.0)))
+        for wstack in (False, True):
+            def run(dev, wstack=wstack, npix=npix, asec=asec):
+                return invert_dataset(reader, npix, asec,
+                                      do_wstacking=wstack, device=dev)
+
+            reset_launches()
+            got = run(device)
+            launches = read_launches()
+            again = run(device)
+            ref = run(cpu)
+            dft = dirty_image_dft(gi.uvw, gi.channel_frequencies,
+                                  gi.visibilities, weights, npix, pix,
+                                  apply_w=wstack) / weights.sum()
+            _, rel_cpu = rel_err(got, ref)
+            _, rel_dft = rel_err(got, dft)
+            case = {"npix": npix, "pixel_asec": asec, "wstacking": wstack,
+                    "rel_to_cpu": rel_cpu, "rel_to_dft": rel_dft,
+                    "repeat_bit_equal": bit_equal(got, again),
+                    "launches": launches}
+            results["cases"].append(case)
+            if not (np.isfinite(got).all() and rel_cpu <= KERNEL_RTOL
+                    and rel_dft <= DFT_RTOL and case["repeat_bit_equal"]):
+                raise PhaseError(f"e2e_tiny {npix} px at {asec} asec "
+                                 f"(w-stacking {wstack}): {case}")
+            require_launches(launches, ("b1", "b2_out_crop") if wstack
+                             else ("b4", "b2_out_crop"), device, "e2e_tiny")
+    results["launches"] = {
+        key: sum(c["launches"][key] for c in results["cases"])
+        for key in results["cases"][0]["launches"]}
     return results
 
 
@@ -3133,6 +3225,176 @@ def phase_production_major_cycle(device, problem, npix=PROD_NPIX,
     return out
 
 
+#: The ``large`` phase's image: 16384 px at 0.5 asec, the first size at
+#: which the default sigma 2 gives a grid of 32768 cells (or more).
+LARGE_NPIX, LARGE_ASEC = 16384, 0.5
+
+
+def free_device_memory(device) -> None:
+    """Synchronize and hand the caching allocator's free blocks back to
+    the card, so the next step's large planes find room."""
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def peak_gib(device):
+    import torch
+
+    if device.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_large(device, path: Path, seed=1234, npix=LARGE_NPIX,
+                asec=LARGE_ASEC, b2_widths=None) -> dict:
+    """
+    The main path at 16384 px / 0.5 asec on the slice's dataset (a
+    32768^2 grid, support 6, sigma 2, w-stacking, plane groups of 2):
+    ``invert_dataset`` once (wall, launch counts, peak memory), the
+    brightest source's peak, a float64 DFT spot check (1e-4 of the image
+    max) and a per-stage breakdown; B1 on every plane group (ms, against
+    the bytes bound) and, on the largest, against its plain version
+    (1e-5 of the max) and launched twice, gated bit-equal; then
+    ``MeasurementOperator.build`` and one ``forward`` (predict) of a
+    standard-normal image I, gated on the adjoint identity
+    |<I, D> - Re<v, G I>| / (|I| |D|) <= 1e-6 (D the invert's image
+    unnormalized, v the weighted visibilities), and B3 against its plain
+    version on the largest plane group of random planes; last B2 at
+    n = 32768 (both crops, at m = 32768 and 16384 by default) against
+    its plain version and ``torch.fft``.
+    """
+    import torch
+
+    from ska_sdp_cip_tpu_torch import VisibilityReader, invert_dataset
+    from ska_sdp_cip_tpu_torch.invert import StokesIGridderInput
+    from ska_sdp_cip_tpu_torch.models import MeasurementOperator
+    from ska_sdp_cip_tpu_torch.ops import cuda_gridder as cg
+    from ska_sdp_cip_tpu_torch.ops.gridder import group_active_blocks
+    from ska_sdp_cip_tpu_torch.probes.common import cuda_ms
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    free_device_memory(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reader = VisibilityReader(path)
+    pix = float(np.sin(np.radians(asec / 3600.0)))
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    image = invert_dataset(reader, npix, asec, device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    require_launches(launches, ("b1", "b2_out_crop"), device, "large invert")
+    expected = expected_pixel(seed, npix, asec)
+    peak = np.unravel_index(int(np.argmax(image)), image.shape)
+    out = {"phase": "large", "npix": npix, "pixel_asec": asec,
+           "num_vis": int(reader.num_data_rows * reader.num_channels),
+           "wall_seconds": wall, "launches": launches,
+           "peak_invert_gib": peak_gib(device),
+           "peak_pixel": [int(p) for p in peak],
+           "expected_pixel": [int(e) for e in expected],
+           "finite": bool(np.isfinite(image).all()),
+           "shape": list(image.shape)}
+    if image.shape != (npix, npix) or not out["finite"]:
+        raise PhaseError("large image has the wrong shape or non-finite "
+                         "values")
+    if np.abs(np.asarray(peak) - expected).max() > 1:
+        raise PhaseError(f"large: peak at {peak}, brightest source at "
+                         f"{expected}")
+    out["dft_spot_check"] = dft_spot_check(reader, image, expected, pix,
+                                           device)
+    if not out["dft_spot_check"]["max_rel_err"] <= DFT_RTOL:
+        raise PhaseError(f"large image vs DFT "
+                         f"{out['dft_spot_check']['max_rel_err']:.3e}")
+    free_device_memory(device)
+    out["breakdown"] = slice_breakdown(reader, npix, asec, device)
+
+    gi = StokesIGridderInput.from_reader(reader)
+    weights = gi.effective_weights()
+    free_device_memory(device)
+    plan, arrays, re_s, im_s = staged_problem(
+        gi.uvw, gi.channel_frequencies, gi.visibilities, weights, npix,
+        asec, device)
+    out["plan"] = plan_summary(plan)
+    out["b1_groups"] = []
+    for k, ids in enumerate(group_active_blocks(plan)):
+        args = group_args(plan, arrays, re_s, im_s, k)
+        chunks = group_grid_chunks(plan, arrays, k)
+        row = {"group": k, "active_blocks": len(ids),
+               "chunks": int(chunks.shape[0]),
+               **bound(*gridding_work(plan, ids, plan.plane_group,
+                                      degrid=False))}
+        if device.type == "cuda":
+            row["ms"] = cuda_ms(
+                lambda: cg.grid_planes(*args, plan=plan, chunks=chunks),
+                iters=3)
+        out["b1_groups"].append(row)
+    k = largest_group(plan)
+    out["b1_check"] = {"group": k, **compare_group(
+        plan, group_args(plan, arrays, re_s, im_s, k),
+        group_grid_chunks(plan, arrays, k), time_it=True, iters=2)}
+    del arrays, re_s, im_s
+
+    free_device_memory(device)
+    t0 = time.perf_counter()
+    op = MeasurementOperator.build(gi.uvw, gi.channel_frequencies, weights,
+                                   npix, pix, device=device)
+    sync()
+    out["operator_build_seconds"] = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(WITNESS_SEEDS[0])
+    noise = torch.randn((npix, npix), generator=gen, device=device)
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    model_re, model_im = op.forward(noise)
+    sync()
+    out["predict_seconds"] = time.perf_counter() - t0
+    out["predict_launches"] = read_launches()
+    require_launches(out["predict_launches"], ("b3", "b2_in_crop"), device,
+                     "large predict")
+    f64 = dict(dtype=torch.float64, device=device)
+    dirty = torch.as_tensor(image, **f64) * float(weights.sum())
+    weighted = np.asarray(gi.visibilities, np.complex128).ravel() \
+        * weights.ravel()
+    lhs = float((noise.double() * dirty).sum())
+    rhs = float((model_re.double() * torch.as_tensor(weighted.real, **f64)
+                 + model_im.double()
+                 * torch.as_tensor(weighted.imag, **f64)).sum())
+    norms = float(noise.double().norm() * dirty.norm())
+    out["adjoint"] = {"lhs": lhs, "rhs": rhs,
+                      "rel": abs(lhs - rhs) / abs(lhs),
+                      "cancellation": abs(lhs) / norms,
+                      "err_over_norms": abs(lhs - rhs) / norms,
+                      "limit": ADJOINT_NORM_TOL,
+                      "finite": bool(torch.isfinite(model_re).all()
+                                     and torch.isfinite(model_im).all())}
+    del noise, dirty, model_re, model_im
+    if not (out["adjoint"]["finite"]
+            and out["adjoint"]["err_over_norms"] <= ADJOINT_NORM_TOL):
+        raise PhaseError(f"large adjoint identity: {out['adjoint']}")
+    free_device_memory(device)
+    grids = random_grids(op.plan, device, seed=6)
+    k = largest_group(op.plan)
+    out["b3_check"] = {"group": k, **compare_degrid(
+        op.plan, op.arrays, grids, k, group_chunks(op.plan, op.arrays, k),
+        time_it=True, iters=2)}
+    del op, grids
+
+    free_device_memory(device)
+    out["b2"] = phase_b2(device, plan.ngrid, npix, iters=3,
+                         widths=b2_widths, first_design=False)["cases"]
+    out["peak_gib"] = peak_gib(device)
+    free_device_memory(device)
+    return out
+
+
 CLI_OUTPUTS = (".npy", ".model.npy", ".residual.npy", ".restored.npy")
 
 
@@ -3482,7 +3744,8 @@ def kernel_entry(name, source, replaces, launches, by_path=None, **nums):
     return entry
 
 
-def kernels_line(b1, b2, b3, b6, probes, production, by_path) -> list:
+def kernels_line(b1, b2, b3, b6, probes, production, large,
+                 by_path) -> list:
     """
     One entry per kernel of the port: launches on its path (the main
     paths for B1-B3, the probe phases for B6, tiled B2 and P1-P3), its
@@ -3490,7 +3753,9 @@ def kernels_line(b1, b2, b3, b6, probes, production, by_path) -> list:
     bound and the library call's time (null where no PyTorch call
     computes the same function), all from this run; B1-B3 also at the
     production shapes (``production``: the B1 and B3 checks of the
-    production phase, B2's production cases of the b2 phase).
+    production phase, B2's production cases of the b2 phase) and at the
+    large image's (``large``: the large phase's B1 and B3 checks, B1's
+    time on each plane group, its B2 cases at n = 32768).
     """
     row_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
@@ -3526,6 +3791,8 @@ def kernels_line(b1, b2, b3, b6, probes, production, by_path) -> list:
             count("b1", "slice"), paths("b1"),
             **grid_row(b1["bench"], row_keys + grid_keys),
             production=grid_row(production["b1"], grid_keys + prod_keys),
+            large=grid_row(large["b1_check"], grid_keys + prod_keys),
+            large_groups=large["b1_groups"],
         ),
         kernel_entry(
             "grid_planes[G=1]", "grid.cu",
@@ -3547,6 +3814,8 @@ def kernels_line(b1, b2, b3, b6, probes, production, by_path) -> list:
             slab_widths=[{k: c[k] for k in b2_keys}
                          for c in b2.get("slab_widths", [])
                          if c["pass"] == crop],
+            large=[{k: c[k] for k in b2_keys} for c in large["b2"]
+                   if c["pass"] == crop],
         ))
     n = tiled["ngrid"]
     entries += [
@@ -3564,6 +3833,7 @@ def kernels_line(b1, b2, b3, b6, probes, production, by_path) -> list:
             count("b3", "major_cycle"), paths("b3"),
             **grid_row(b3["bench"], row_keys + grid_keys),
             production=grid_row(production["b3"], grid_keys + prod_keys),
+            large=grid_row(large["b3_check"], grid_keys + prod_keys),
         ),
         kernel_entry(
             "degrid_planes[G=1]", "degrid.cu",
@@ -3665,6 +3935,9 @@ def main() -> int:
     del bench_w0
     e2e = phase_e2e_small(device)
     emit(e2e)
+    with tempfile.TemporaryDirectory() as tmp:
+        tiny = phase_e2e_tiny(device, Path(tmp))
+    emit(tiny)
     pred = phase_predict(device, bench)
     emit(pred)
     del bench
@@ -3695,6 +3968,8 @@ def main() -> int:
         del dirty
         p_mc = phase_production_major_cycle(device, problem)
         emit(p_mc)
+        large = phase_large(device, path)
+        emit(large)
         cli = phase_solvers_cli(device, path, Path(tmp))
         emit(cli)
     op, staged, sources, build = production_operator(device, problem)
@@ -3717,9 +3992,12 @@ def main() -> int:
     by_sharded.update({f"sharded_tiles_{c['fft_mode']}": c["launches"]
                        for c in sharded["tiles"]})
     b2["slab_widths"] = sharded["b2_slab_widths"]
-    emit({"kernels": kernels_line(b1, b2, b3, b6, probes, production, {
+    emit({"kernels": kernels_line(b1, b2, b3, b6, probes, production, large, {
         **by_sharded,
         "e2e_small": e2e["launches"],
+        "e2e_tiny": tiny["launches"],
+        "large_invert": large["launches"],
+        "large_predict": large["predict_launches"],
         "predict_small": pred["small_launches"],
         "slice": sl["launches"], "ms": ms["launches"],
         "predict": pred["bench"]["launches"],

@@ -66,7 +66,16 @@
 //     The product order is ax * (vis * amp) * ay, the TPU kernel's;
 //   * rows and columns are addressed modulo N, so footprints that cross
 //     the periodic edge, and tiles whose patch wraps, need no other
-//     path.
+//     path. A footprint's start is kept rectangle-local, in (-W, nrows)
+//     x (-W, ncols): a start within W - 1 cells below N is one that wraps
+//     into the rectangle's first rows or columns. That is exact because
+//     no rectangle spans more than N - W + 1 rows or columns, so no
+//     footprint meets one on both sides (the work list's rule). Grid
+//     offsets are 64-bit, and the 16-bit fields of a staged start hold
+//     rectangle-local values, so N is bounded by the card's memory
+//     only. A grid narrower than a patch (N < max(tile_x, patch_y))
+//     takes the generic kernel with a true modulo (kMod), where a
+//     patch-relative offset reaches 2N and beyond.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,8 +98,10 @@ __device__ __forceinline__ float es_kernel(float z, float beta) {
   return expf(beta * sqrtf(t) - beta);
 }
 
-// x mod n, for x in [-n, 2n).
+// x mod n: for x in [-n, 2n), or with kMod for any x >= -n.
+template <bool kMod>
 __device__ __forceinline__ int wrap(int x, int n) {
+  if (kMod) return x < 0 ? x + n : x % n;
   return x < 0 ? x + n : (x >= n ? x - n : x);
 }
 
@@ -140,8 +151,9 @@ struct Layout {
   }
 };
 
-// W > 0: the support, unrolled; W = 0: any support up to 16.
-template <int G, int W>
+// W > 0: the support, unrolled; W = 0: any support up to 16. kMod: a
+// grid narrower than a patch (true modulo wraps).
+template <int G, int W, bool kMod>
 __global__ void __launch_bounds__(kMaxThreads)
 grid_chunks_kernel(const float* __restrict__ xpos,
                    const float* __restrict__ ypos,
@@ -213,10 +225,10 @@ grid_chunks_kernel(const float* __restrict__ xpos,
     // The rectangle-local row and column of the run's patch cell (0, 0),
     // modulo N: alloc row r lands on periodic (r - W) mod N.
     const int b_first = blocks[first];
-    const int prow = wrap((block_ox[b_first] - support - row0) % ngrid,
-                          ngrid);
-    const int pcol = wrap((block_oy[b_first] - support - col0) % ngrid,
-                          ngrid);
+    const int prow = wrap<false>(
+        (block_ox[b_first] - support - row0) % ngrid, ngrid);
+    const int pcol = wrap<false>(
+        (block_oy[b_first] - support - col0) % ngrid, ngrid);
     for (int bi = 0; bi < count; ++bi) {
       const int b = blocks[first + bi];
       const int len = block_len[b];
@@ -242,11 +254,11 @@ grid_chunks_kernel(const float* __restrict__ xpos,
             // that float32(2/W) rounds up, so the cells either side
             // evaluate to exactly zero).
             const int lr = signed_start(
-                wrap(prow + static_cast<int>(floorf(xs[i] - half)) + 1,
-                     ngrid), kw, ngrid);
+                wrap<kMod>(prow + static_cast<int>(floorf(xs[i] - half)) + 1,
+                           ngrid), kw, ngrid);
             const int lc = signed_start(
-                wrap(pcol + static_cast<int>(floorf(ys[i] - half)) + 1,
-                     ngrid), kw, ngrid);
+                wrap<kMod>(pcol + static_cast<int>(floorf(ys[i] - half)) + 1,
+                           ngrid), kw, ngrid);
             const unsigned m = __ballot_sync(
                 kFull, wbase + e < len && lr < nrows && lc < ncols);
             if (lane == 0) masks[e >> 5] = m;
@@ -320,8 +332,13 @@ grid_chunks_kernel(const float* __restrict__ xpos,
                                                 inv_half, beta)
                                 : 0.0f;
               }
-              const int lr = signed_start(wrap(prow + r0, ngrid), kw, ngrid);
-              const int lc = signed_start(wrap(pcol + c0, ngrid), kw, ngrid);
+              const int lr =
+                  signed_start(wrap<kMod>(prow + r0, ngrid), kw, ngrid);
+              const int lc =
+                  signed_start(wrap<kMod>(pcol + c0, ngrid), kw, ngrid);
+              // Selected: lr in (-W, nrows), lc in (-W, ncols), and the
+              // work list keeps rectangles that runs reach within
+              // tile_x x grid_piece_cols, so both fit 16 bits at any N.
               p = (lr + kw) << 16 | (lc + kw);
             }
           }
@@ -383,7 +400,7 @@ grid_chunks_kernel(const float* __restrict__ xpos,
   }
 }
 
-template <int G, int W>
+template <int G, int W, bool kMod>
 cudaError_t launch(const float* xpos, const float* ypos, const float* ws,
                    const float* vis_re, const float* vis_im,
                    const int32_t* block_len, const int32_t* block_ox,
@@ -398,19 +415,19 @@ cudaError_t launch(const float* xpos, const float* ypos, const float* ws,
   // A warp a band, and at least 256 threads (the window's selection
   // loads kWindow / 256 slots a thread).
   const int threads = 32 * max((max_rows + band - 1) / band, kWindow / 256 * 2);
+  // A footprint's W cells are distinct cells of the period.
   if (kw < 1 || kw > 16 || threads > kMaxThreads ||
-      chunk_width < kHead + 2 || ngrid < max(max_rows, max_cols) + 2 * kw ||
-      ngrid >= (1 << 15)) {
+      chunk_width < kHead + 2 || ngrid < kw) {
     return cudaErrorInvalidValue;
   }
   const Layout lay(G, kw, max_rows, max_cols + kw);
   const size_t smem = sizeof(float) * lay.total;
   cudaError_t err = cudaFuncSetAttribute(
-      grid_chunks_kernel<G, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      grid_chunks_kernel<G, W, kMod>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   if (num_chunks > 0) {
-    grid_chunks_kernel<G, W><<<num_chunks, threads, smem, stream>>>(
+    grid_chunks_kernel<G, W, kMod><<<num_chunks, threads, smem, stream>>>(
         xpos, ypos, ws, vis_re, vis_im, block_len, block_ox, block_oy,
         blocks, chunks, chunk_width, w_g, out, block, patch_x, patch_y,
         max_rows, max_cols, support, beta, inv_half, inv_whalf, wstacking,
@@ -419,8 +436,9 @@ cudaError_t launch(const float* xpos, const float* ypos, const float* ws,
   return cudaGetLastError();
 }
 
-// The kernel for this support: unrolled at W = 6 and 8 (the bench and
-// production supports), else the generic one.
+// The kernel for this support and grid: unrolled at W = 6 and 8 (the
+// bench and production supports), else the generic one; a grid
+// narrower than a patch takes the generic one with a true modulo.
 template <int G>
 cudaError_t launch_w(int support, const float* xpos, const float* ypos,
                      const float* ws, const float* vis_re,
@@ -439,9 +457,10 @@ cudaError_t launch_w(int support, const float* xpos, const float* ypos,
                          max_cols, support, beta, inv_half, inv_whalf,
                          wstacking, ngrid, stream);
   };
-  if (support == 6) return run(launch<G, 6>);
-  if (support == 8) return run(launch<G, 8>);
-  return run(launch<G, 0>);
+  if (ngrid < max(max_rows, patch_y)) return run(launch<G, 0, true>);
+  if (support == 6) return run(launch<G, 6, false>);
+  if (support == 8) return run(launch<G, 8, false>);
+  return run(launch<G, 0, false>);
 }
 
 }  // namespace

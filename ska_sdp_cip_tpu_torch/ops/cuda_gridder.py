@@ -289,12 +289,9 @@ def _grid_planes_cuda(packed, re, im, block_len, block_ox, block_oy, w_g,
 
     G = w_g.shape[0]
     _check_kernel_shape(plan, G, "B1", _grid_shared_bytes(plan, G))
-    span = max(plan.tile_x, grid_piece_cols(plan)) + 2 * plan.support
-    if not span <= plan.ngrid < 1 << 15:
-        # A footprint must meet a rectangle on one side only, and the
-        # kernel packs a footprint's start into 16 bits.
-        raise ValueError(f"the B1 kernel takes grids of {span} to 32767 "
-                         f"cells, got {plan.ngrid}")
+    # Any grid: the work list's rectangles (ops/gridder.py:grid_chunks)
+    # keep every footprint start rectangle-local, and the planes' size
+    # is bounded by the card's memory alone.
     rows = [packed[i].contiguous() for i in range(3)]
     cols = [t.contiguous() for t in (re, im, block_len, block_ox, block_oy,
                                      blocks, w_g)]
@@ -396,7 +393,11 @@ def grid_planes_folded_reference(
         packed, re, im, block_len, block_ox, block_oy, w_g, blocks,
         plan=plan,
     )
-    return torch.stack([_fold_wraps(plan, p) for p in planes])
+    # Plane by plane into one stack: one fold's temporaries at a time.
+    out = planes.new_empty((planes.shape[0], plan.ngrid, plan.ngrid))
+    for q, p in enumerate(planes):
+        out[q] = _fold_wraps(plan, p)
+    return out
 
 
 def degrid_planes(

@@ -98,6 +98,12 @@ def stage_arrays(host: dict, device) -> dict:
     return device_put_parallel(host, device)
 
 
+#: Most (pixel, quadrature node) terms the w-taper correction holds at
+#: once: it runs over row slabs of the image (one slab at the bench
+#: size; at 16384 px the whole image's would take 21.5 GB a temporary).
+CORRECTION_TERMS = 1 << 28
+
+
 def _geometry_maps(plan: GridderPlan, arrays: dict) -> tuple:
     """
     Image-domain maps ``(inv_corr, nm1s)``: the fused uv-taper x
@@ -119,7 +125,10 @@ def _geometry_maps(plan: GridderPlan, arrays: dict) -> tuple:
     r2 = axis[:, None] ** 2 + axis[None, :] ** 2
     nm1 = -r2 / (1.0 + torch.sqrt(torch.clamp(1.0 - r2, min=0.0)))
     if plan.wstacking:
-        cw = correction(plan.dw * (nm1 - plan.n_mid), nodes, folded, support)
+        k = plan.dw * (nm1 - plan.n_mid)
+        rows = max(1, CORRECTION_TERMS // (npix * nodes.shape[0]))
+        cw = torch.cat([correction(k[r : r + rows], nodes, folded, support)
+                        for r in range(0, npix, rows)])
         corr = corr * cw * (nm1 + 1.0)
     return 1.0 / corr, nm1 - plan.n_mid
 
@@ -249,12 +258,19 @@ def group_tile_chunks(plan: GridderPlan,
             for ids in group_active_blocks(plan)]
 
 
-def _band_edges(ngrid: int, step: int, support: int) -> np.ndarray:
+def _band_edges(ngrid: int, step: int, support: int,
+                widest: int) -> np.ndarray:
     """Edges of the periodic bands B1's destinations are cut from: 0, N
     and every i * step - W inside, so that a tile's home rows (or its
-    window's columns), shifted by the fold's -W, make one band."""
+    window's columns), shifted by the fold's -W, make one band; a band
+    wider than ``widest`` is cut into equal parts."""
     inner = np.arange(1, ngrid // step + 2) * step - support
-    return np.unique(np.r_[0, ngrid, inner[(inner > 0) & (inner < ngrid)]])
+    edges = np.unique(np.r_[0, ngrid, inner[(inner > 0) & (inner < ngrid)]])
+    size = np.diff(edges)
+    parts = -(-size // widest)
+    band = np.repeat(np.arange(parts.size), parts)
+    rank = np.arange(band.size) - np.repeat(np.cumsum(parts) - parts, parts)
+    return np.r_[edges[band] + size[band] * rank // parts[band], ngrid]
 
 
 def _interval_bands(start, length: int, edges: np.ndarray,
@@ -312,12 +328,22 @@ def grid_chunks(plan: GridderPlan, ids,
     first. The rest of the grid follows as source-free rectangles of at
     most :data:`ZERO_CHUNK_COLS` columns, which the kernel fills with
     zeros.
+
+    No rectangle spans more than N - W + 1 rows or columns (on grids
+    that small, bands and pieces are cut narrower), so no footprint
+    meets one on both sides: the kernel keeps a footprint's start
+    rectangle-local, in (-W, nrows) x (-W, ncols), which is exact then
+    and fits its 16-bit fields at any N.
     """
     if chunk_blocks < 1:
         raise ValueError(f"chunk_blocks must be >= 1, got {chunk_blocks}")
     N, W = plan.ngrid, plan.support
-    redges = _band_edges(N, plan.tile_x, W)
-    cedges = _band_edges(N, plan.patch_y, W)
+    if N < W:
+        raise ValueError(f"a grid of {N} cells is narrower than the "
+                         f"support {W}")
+    span = N - W + 1  # widest rectangle no footprint meets on both sides
+    redges = _band_edges(N, plan.tile_x, W, min(plan.tile_x, span))
+    cedges = _band_edges(N, plan.patch_y, W, N)  # cut into pieces below
     nrb, ncb = len(redges) - 1, len(cedges) - 1
     ids = np.asarray(ids, np.int64)
     # Tile runs: consecutive ids with one patch origin.
@@ -354,7 +380,7 @@ def grid_chunks(plan: GridderPlan, ids,
     work = np.bincount(dest_of, t_work, minlength=dests.size)
     rb, cb = dests // ncb, dests % ncb
     col0, ncols = cedges[cb], cedges[cb + 1] - cedges[cb]
-    widest = grid_piece_cols(plan)
+    widest = min(grid_piece_cols(plan), span)
     pieces = np.clip(np.ceil(work / chunk_blocks).astype(np.int64),
                      -(-ncols // widest),
                      np.maximum(ncols // MIN_PIECE_COLS, -(-ncols // widest)))
@@ -386,6 +412,10 @@ def grid_chunks(plan: GridderPlan, ids,
     zero[:, 1] = redges[z_rb[z] + 1] - redges[z_rb[z]]
     zero[:, 2] = z_lo
     zero[:, 3] = z_hi - z_lo
+    if (busy[:, 1] > min(plan.tile_x, span)).any() or (
+            busy[:, 3] > widest).any():
+        raise RuntimeError("grid_chunks: a rectangle that runs reach is "
+                           "wider than the kernel's shared planes")
     return np.concatenate([busy, zero]).astype(np.int32)
 
 
@@ -945,6 +975,7 @@ def build_invert(plan, *, mesh=None):
                     )
                 else:
                     image = image + img_re
+            del planes  # free before the next group's B1 writes its own
         return (image * inv_corr).t().contiguous()
 
     return invert

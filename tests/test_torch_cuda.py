@@ -61,11 +61,23 @@ def _small(seed=23, num_times=3, num_antennas=10, num_channels=2):
 #: (problem size, npix, asec, plan options, blocks a chunk). "small":
 #: every tile an edge tile; "edge": footprints across the periodic edge
 #: beside interior tiles; "split": hot tiles split over chunks of two
-#: (B3) and over column pieces (B1).
+#: (B3) and over column pieces (B1); "tiny64", "tiny32" and "tiny72":
+#: grids of 64, 32 and 72 cells, narrower than a patch (48 x 128), whose
+#: rectangles B1 cuts to N - W + 1 cells; "wide": a 32768^2 grid
+#: (16384 px at 0.5 asec) with 480 visibilities; "eps3", "eps5" and
+#: "eps5_sigma15": supports 5, 7 and 10, B1's generic kernel.
 GRID_PLANS = {
     "small": ((3, 10, 2), 96, 40.0, {}, None),
     "edge": ((4, 16, 3), 256, 20.0, {}, None),
     "split": ((4, 16, 3), 256, 12.0, {"block": 32}, 2),
+    "tiny64": ((4, 16, 3), 32, 60.0, {}, None),
+    "tiny32": ((4, 16, 3), 16, 120.0, {}, None),
+    "tiny72": ((4, 16, 3), 36, 60.0, {}, None),
+    "wide": ((2, 16, 2), 16384, 0.5, {}, None),
+    "eps3": ((4, 16, 3), 256, 20.0, {"epsilon": 1e-3}, None),
+    "eps5": ((4, 16, 3), 256, 20.0, {"epsilon": 1e-5}, None),
+    "eps5_sigma15": ((4, 16, 3), 256, 20.0,
+                     {"epsilon": 1e-5, "sigma": 1.5}, None),
 }
 
 
@@ -117,8 +129,10 @@ def test_grid_kernel_matches_plain(cuda, wstack, name):
         ref = tcg.grid_planes_folded_reference(*args, plan=plan)
         assert got.shape == ref.shape == (2 * G, plan.ngrid, plan.ngrid)
         for p in range(ref.shape[0]):
-            scale = ref[p].abs().max()
-            assert float((got[p] - ref[p]).abs().max() / scale) <= 1e-5
+            # A ragged final group's pad plane is zero: then exactly.
+            scale = float(ref[p].abs().max())
+            assert float((got[p] - ref[p]).abs().max()) <= 1e-5 * scale
+        del got, ref  # "wide": 17 GB a stack
 
 
 @pytest.mark.parametrize("name", list(GRID_PLANS))
@@ -163,6 +177,7 @@ def test_grid_kernel_repeats_bit_for_bit(cuda, wstack, name):
         torch.cuda.synchronize()
         assert once.abs().max() > 0
         assert torch.equal(once.view(torch.int32), twice.view(torch.int32))
+        del once, twice  # "wide": 17 GB a stack
 
 
 def test_kernels_need_the_chunk_table(cuda):
@@ -596,6 +611,30 @@ def test_tiled_invert_on_card_matches_cpu(cuda, tmp_path):
     assert tcg.LAUNCHES > before[0] and tfc.LAUNCHES > before[1]
     ref = invert_tile_chunks(paths, freqs, 128, pixel, device="cpu")
     assert np.isfinite(got).all() and got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("npix,asec", [(32, 60.0), (16, 120.0)])
+@pytest.mark.parametrize("wstack", [False, True], ids=["G1", "G2"])
+def test_tiny_invert_on_card_matches_cpu(cuda, tmp_path, npix, asec,
+                                         wstack):
+    """``invert_dataset`` on grids of 64 and 32 cells, narrower than a
+    B1 patch, on the card (B4 or B1, and B2) against the same call on
+    the CPU: 1e-5 of the max."""
+    from ska_sdp_cip_tpu_torch import VisibilityReader, invert_dataset
+    from ska_sdp_cip_tpu_torch.io.synth import make_synthetic_dataset
+
+    path = make_synthetic_dataset(tmp_path / "obs.vz", num_times=4,
+                                  num_antennas=16, seed=4321)
+    reader = VisibilityReader(path)
+    before = _launches(False, 2 if wstack else 1), tfc.LAUNCHES
+    got = invert_dataset(reader, npix, asec, do_wstacking=wstack,
+                         device=cuda)
+    assert _launches(False, 2 if wstack else 1) > before[0]
+    assert tfc.LAUNCHES > before[1]
+    ref = invert_dataset(reader, npix, asec, do_wstacking=wstack,
+                         device="cpu")
+    assert np.isfinite(got).all() and got.shape == ref.shape == (npix, npix)
     assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
 
 

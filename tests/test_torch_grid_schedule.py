@@ -10,7 +10,8 @@ held on the CPU, where no CUDA kernel runs.
   [0, 2W) or [N, N + 2W). B1's (``ops/gridder.py:grid_chunks``): the
   destination rectangles partition the periodic grid, at most tile_x
   rows and, where a run reaches them, ``grid_piece_cols`` columns (the
-  kernel's shared planes); each lists, in
+  kernel's shared planes) and at most N - W + 1 rows and columns (so no
+  footprint meets one on both sides); each lists, in
   run order, every tile run whose patch reaches it after the fold.
 * (b) A torch model of B1's schedule: per chunk, per source run in
   order, each visibility's candidate footprint (the kernel's window:
@@ -18,6 +19,11 @@ held on the CPU, where no CUDA kernel runs.
   row (ox + r - W) mod N and column (oy + c - W) mod N; the cells inside
   the chunk's rectangle are added in slot order by the warp that owns
   the row (bands of 32 // W rows), and the rectangle is stored once.
+  Each footprint's start is kept rectangle-local, a start within W - 1
+  cells below N taken as one that wraps into the rectangle's first rows
+  or columns: exact because the rectangles that runs reach span at most
+  N - W + 1 cells, which the model checks (on the 64- and 32-cell grids
+  that rule cuts them narrower than tile_x and ``grid_piece_cols``).
   The model checks that the rectangles cover every cell once, and is
   held against ``_fold_wraps o grid_planes_reference`` and against the
   JAX group kernel in interpret mode folded by the JAX package's
@@ -33,8 +39,10 @@ held on the CPU, where no CUDA kernel runs.
 * (d) The plans: one whose footprints cross the periodic edge (the
   96 px plan at 40 asec, where |u|/du exceeds N/2 - W and every tile is
   an edge tile, and a 256 px plan at 20 asec, with edge and interior
-  tiles), and one whose hot tile is split into
-  several chunks (R = 2).
+  tiles), one whose hot tile is split into
+  several chunks (R = 2), and two grids narrower than a patch (48 x
+  128): 32 px at 60 asec (N = 64) and 16 px at 120 asec (N = 32),
+  where every patch's 128 columns cover the whole period.
 """
 
 import dataclasses
@@ -61,11 +69,15 @@ RTOL = 1e-5
 #: 40 asec (the existing kernel tests' plan: every tile an edge tile);
 #: "edge", 256 px at 20 asec (max |u|/du 313 > N/2 - W = 250: edge and
 #: interior tiles); "split", the same uv coverage at 12 asec
-#: with two blocks a chunk, so the hot tiles are split.
+#: with two blocks a chunk, so the hot tiles are split; "tiny64" and
+#: "tiny32", grids of 64 and 32 cells (32 px at 60 asec, 16 px at 120
+#: asec), narrower than a patch.
 PLANS = {
     "wrap": (3, 10, 2, 96, 40.0, 1),
     "edge": (4, 16, 3, 256, 20.0, 8),
     "split": (4, 16, 3, 256, 12.0, 2),
+    "tiny64": (4, 16, 3, 32, 60.0, 8),
+    "tiny32": (4, 16, 3, 16, 120.0, 2),
 }
 
 
@@ -190,6 +202,10 @@ def grid_model(plan, packed, re, im, ids, chunks, w_g, seed=None):
     for n in order:
         row0, nrows, col0, ncols = chunks[n, :4].tolist()
         written[row0 : row0 + nrows, col0 : col0 + ncols] += 1
+        if chunks[n, 5] > 0:
+            # No footprint meets the rectangle on both sides, so the
+            # rectangle-local start of _grid_staged is exact.
+            assert max(nrows, ncols) <= N - W + 1
         patch = torch.zeros((2 * G, nrows * ncols))
         staged = [_grid_staged(plan, packed, re, im, first, count, ids,
                                w_g, row0, col0)
@@ -306,6 +322,7 @@ def test_grid_chunks_partition_the_grid(problem, R):
             firsts = [f for f, c in zip(src[::2], src[1::2]) if c > 0]
             if firsts:
                 assert ncols <= tcg.grid_piece_cols(plan)
+                assert max(nrows, ncols) <= N - W + 1
             assert firsts == sorted(firsts)
             # Every run whose patch reaches the rectangle (a column piece
             # keeps its band's runs, which may miss the piece).
@@ -402,6 +419,14 @@ def test_plans_cross_the_edge_and_split_the_hot_tile(problem):
         assert (flags & tg.CHUNK_EDGE).any()
     if problem["name"] == "edge":
         assert (flags == 0).any()  # interior tiles take plain stores
+    if problem["name"].startswith("tiny"):
+        # Every patch's columns cover the whole period, and the N - W + 1
+        # rule cuts B1's rectangles narrower than the shared planes.
+        assert N < plan.patch_y
+        assert N - W + 1 < tcg.grid_piece_cols(plan)
+        for ids in tg.group_active_blocks(plan):
+            grid = tg.grid_chunks(plan, ids, problem["R"])
+            assert grid[:, 3].max() <= N - W + 1 < N
     if problem["name"] == "split":
         ids, chunks = tg.group_active_blocks(plan)[0], tables[0]
         key = plan.block_ox[ids].astype(np.int64) * 10**6 + plan.block_oy[ids]
