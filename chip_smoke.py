@@ -720,8 +720,7 @@ def bench_dft_check(plan, arrays, re_s, im_s, uvw, freqs, wvis, device,
     return out
 
 
-def phase_b2(device, n=4096, npix=2048, iters=10, widths=None,
-             first_design=True) -> dict:
+def phase_b2(device, n=4096, npix=2048, iters=10, widths=None) -> dict:
     """
     B2 against its plain version: the invert's out-cropped pass (n rows
     -> npix, sign +1, ``fftp_*``) and predict's in-cropped pass (npix
@@ -735,13 +734,10 @@ def phase_b2(device, n=4096, npix=2048, iters=10, widths=None,
     version's and the library call's times (``library_ms``: one
     ``torch.fft.ifft`` at sign +1, ``fft`` at -1, along dim 0 of the
     complex64 input packed outside the timing, zero-padded to n,
-    uncentred and uncropped), the achieved GB/s and, out-cropped, the
-    first design's time (P2 ``full``, the dense pass, on the same
-    input; P2 runs the out-cropped pass only; left out with
-    ``first_design=False``). It also holds the kernel
-    and the plain version against the exact transform (complex128) on
-    the first 256 columns, and checks that two runs of the kernel are
-    equal bit for bit.
+    uncentred and uncropped) and the achieved GB/s. It also holds the
+    kernel and the plain version against the exact transform
+    (complex128) on the first 256 columns, and checks that two runs of
+    the kernel are equal bit for bit.
     """
     import torch
 
@@ -749,7 +745,6 @@ def phase_b2(device, n=4096, npix=2048, iters=10, widths=None,
     from ska_sdp_cip_tpu_torch.ops.fft import fft_plan_arrays, make_fft_plan
     from ska_sdp_cip_tpu_torch.ops.gridder import stage_arrays
     from ska_sdp_cip_tpu_torch.probes.common import cuda_ms, max_err
-    from ska_sdp_cip_tpu_torch.probes.fft_ablation import ablation
 
     fplan = make_fft_plan(n, shifted=True)
     crop = ((n - npix) // 2, npix)
@@ -762,10 +757,6 @@ def phase_b2(device, n=4096, npix=2048, iters=10, widths=None,
     for meta, sign, prefix, _ in passes.values():
         host.update(fft_cuda.fused_pass_kernel_arrays(fplan, meta, sign=sign,
                                                       prefix=prefix))
-    if first_design:
-        # P2 ``full`` (the first design) reads the dense factors.
-        host.update(fft_cuda.fused_pass_host_arrays(
-            fplan, passes["out_crop"][0], sign=+1, prefix="fftp"))
     f = stage_arrays(host, device)
     gen = torch.Generator(device=device).manual_seed(3)
     results = {"phase": "b2", "n": n, "crop": npix, "cases": []}
@@ -826,12 +817,6 @@ def phase_b2(device, n=4096, npix=2048, iters=10, widths=None,
                 del x
                 case["gb_per_s"] = io / case["ms"] / 1e6
                 case["gb_per_s_with_z"] = floor / case["ms"] / 1e6
-                case["first_design_ms"] = None
-                if name == "out_crop" and first_design:
-                    case["first_design_ms"] = cuda_ms(
-                        lambda: ablation("full", re, im, f, meta=meta),
-                        iters=iters,
-                    )
             results["cases"].append(case)
             del re, im
             if not (case["max_rel_err"] <= KERNEL_RTOL and repeat_equal):
@@ -1077,7 +1062,7 @@ def read_launches() -> dict:
            "b4": cuda_gridder.GROUP1_LAUNCHES,
            "b5": cuda_gridder.DEGRID_GROUP1_LAUNCHES,
            "b6": fft_cuda.PRETILE_LAUNCHES, "p3": smem.LAUNCHES}
-    out.update({f"p1_S{k}": v for k, v in p1.LAUNCHES.items()})
+    out.update({f"p1_{k}": v for k, v in p1.LAUNCHES.items()})
     out.update({f"p2_{k}": v for k, v in p2.LAUNCHES.items()})
     return out
 
@@ -2784,46 +2769,15 @@ def phase_b6(device, grids=(PROD_NGRID, BENCH_NGRID)) -> dict:
     return {"phase": "b6", "runs": runs, "launches": launches}
 
 
-def library_fft(ngrid: int, device, iters: int = 3) -> dict:
-    """``library_ms`` of the probes' pass (``probes/common.py:
-    out_crop_pass``, the same seeded input as P1, P2 and the tiled
-    probe): one ``torch.fft.ifft`` along dim 0 of the complex64 input,
-    packed outside the timing, uncentred and uncropped."""
-    import torch
-
-    from ska_sdp_cip_tpu_torch.probes.common import cuda_ms, out_crop_pass
-
-    s = out_crop_pass(ngrid, device)
-    x = torch.complex(s.re, s.im)
-    del s
-    return {"library_ms": cuda_ms(lambda: torch.fft.ifft(x, dim=0),
-                                  iters=iters),
-            "library_call": f"torch.fft.ifft(complex64 ({ngrid}, {ngrid}), "
-                            "dim=0): uncentred, uncropped"}
-
-
-def probe_work(g: dict, m: int) -> dict:
-    """(bytes, flops) of the function each P2 variant computes at a
-    probe's geometry ``g`` and width ``m`` (P1 and ``full``: the
-    out-cropped pass, B2's function): each input read once, each output
-    written once, 5 n log2 n flops a length-n transform and 6 a twiddled
-    element. The dense design's n1 + n2 complex MACs a point are its
-    cost, not the function's."""
-    n1, n2, n1i = g["n1"], g["n2"], g["n1i"]
-    n = n1 * n2
-    x, z, out = (8 * m * r for r in (n1i * n2, n, g["rows_out"]))
-    s1 = 5.0 * n * math.log2(n1) * m
-    tw = 6.0 * n * m
-    s2 = 5.0 * n * math.log2(n2) * m
-    return {"load": (2 * x, 0.0), "s1": (x + z, s1), "s1tw": (x + z, s1 + tw),
-            "s2": (z + out, s2), "full": (x + out, 5.0 * n * math.log2(n) * m)}
-
-
-def phase_fft_probes(device, ngrid=PROD_NGRID) -> dict:
+def phase_fft_probes(device, grids=None) -> dict:
     """
-    P1 (``cp.async`` ring depths), P2 (stage ablation) at ``ngrid`` and
-    P3 (the shared-memory maximum), each checked against its plain
-    version inside the probe.
+    P1 (B2's stages as persistent kernels with an S-deep ring filled by
+    ``cp.async`` or bulk copies) and P2 (B2's stage kernels with parts
+    switched off) at each grid (the production grid and the large
+    image's), each checked inside the probe against B2 bit for bit and
+    its plain version at 1e-5 of the max, with the launch counts of
+    each grid's run; then P3 (the shared-memory maximum). Each grid's
+    arrays are freed before the next.
     """
     from ska_sdp_cip_tpu_torch.probes import (
         fft_ablation,
@@ -2831,19 +2785,26 @@ def phase_fft_probes(device, ngrid=PROD_NGRID) -> dict:
         smem,
     )
 
+    out = {"phase": "fft_probes", "sizes": []}
+    for ngrid in grids or (PROD_NGRID, 2 * LARGE_NPIX):
+        reset_launches()
+        size = {"ngrid": ngrid,
+                "p1": fft_async_fetch.run(ngrid, device=device)}
+        free_device_memory(device)
+        size["p2"] = fft_ablation.run(ngrid, device=device)
+        free_device_memory(device)
+        size["launches"] = read_launches()
+        require_launches(size["launches"],
+                         [f"p1_{k}" for k in size["p1"]["cases"]]
+                         + [f"p2_{v}" for v in fft_ablation.VARIANTS],
+                         device, f"fft_probes at {ngrid}")
+        out["sizes"].append(size)
     reset_launches()
-    out = {"phase": "fft_probes",
-           "p1": fft_async_fetch.run(ngrid, device=device, iters=3),
-           "p2": fft_ablation.run(ngrid, device=device, iters=3)}
     if device.type == "cuda":
         out["p3"] = smem.run(device=device)
-    out["launches"] = read_launches()
-    if device.type == "cuda":
-        out.update(library_fft(ngrid, device))
-    require_launches(out["launches"],
-                     [f"p1_S{k}" for k in fft_async_fetch.STAGES]
-                     + [f"p2_{v}" for v in fft_ablation.VARIANTS] + ["p3"],
-                     device, "fft_probes")
+    launches = read_launches()
+    out["p3_launches"] = launches["p3"]
+    require_launches(launches, ["p3"], device, "fft_probes")
     return out
 
 
@@ -3389,7 +3350,7 @@ def phase_large(device, path: Path, seed=1234, npix=LARGE_NPIX,
 
     free_device_memory(device)
     out["b2"] = phase_b2(device, plan.ngrid, npix, iters=3,
-                         widths=b2_widths, first_design=False)["cases"]
+                         widths=b2_widths)["cases"]
     out["peak_gib"] = peak_gib(device)
     free_device_memory(device)
     return out
@@ -3767,7 +3728,7 @@ def kernels_line(b1, b2, b3, b6, probes, production, large,
     grid_keys = ("group", "G", "active_blocks", "chunks", "max_rel_err",
                  "repeat_bit_equal", "zero_ms", "fold_ms")
     b2_keys = ("n", "m", "rows_in", *prod_keys, "two_launch_floor_ms",
-               "gb_per_s", "gb_per_s_with_z", "first_design_ms")
+               "gb_per_s", "gb_per_s_with_z")
 
     def count(key, path):
         return by_path[path][key]
@@ -3777,9 +3738,7 @@ def kernels_line(b1, b2, b3, b6, probes, production, large,
 
     b2_cases = {(c["pass"], c["m"]): c for c in b2["cases"]}
     tiled = b6["runs"][0]
-    p1, p2 = probes["p1"], probes["p2"]
-    library = probes["library_ms"]
-    work = probe_work(p2, p2["ngrid"])
+    p1_prod = probes["sizes"][0]["p1"]
     fused = "ska_sdp_cip_tpu/ops/fft_pallas.py"
     def grid_row(case, keys):
         return {k: case[k] for k in keys if k in case}
@@ -3808,7 +3767,6 @@ def kernels_line(b1, b2, b3, b6, probes, production, large,
             count(f"b2_{crop}", path), paths(f"b2_{crop}"),
             **{k: bench[k] for k in row_keys},
             library_call=bench["library_call"],
-            first_design_ms=bench["first_design_ms"],
             production=[{k: c[k] for k in b2_keys} for c in b2["production"]
                         if c["pass"] == crop],
             slab_widths=[{k: c[k] for k in b2_keys}
@@ -3825,7 +3783,8 @@ def kernels_line(b1, b2, b3, b6, probes, production, large,
             max_abs_err=tiled["tiled_max_abs_err"], ms=tiled["tiled_ms"],
             plain_ms=tiled["tiled_plain_ms"], ngrid=n,
             **bound(8 * n * (n + tiled["rows_out"]), 5 * n * math.log2(n) * n),
-            library_ms=library, library_call=probes["library_call"],
+            library_ms=p1_prod["library_ms"],
+            library_call=p1_prod["library_call"],
         ),
         kernel_entry(
             "degrid_planes", "degrid.cu",
@@ -3851,36 +3810,55 @@ def kernels_line(b1, b2, b3, b6, probes, production, large,
             library_call="permute().contiguous() (the plain version)",
         ),
     ]
-    for stages, case in p1["stages"].items():
-        entries.append(kernel_entry(
-            f"fft_async_fetch[{stages}]", "fft_probes.cu",
-            "scripts/fft_split_fetch_probe.py:71",
-            probes["launches"][f"p1_S{stages}"],
-            exact=case["exact_vs_dense"], max_abs_err=case["max_abs_err"],
-            ms=case["ms"], plain_ms=p1["plain_ms"], ngrid=p1["ngrid"],
-            **bound(*work["full"]), library_ms=library,
-        ))
-    for variant, case in p2["variants"].items():
-        entries.append(kernel_entry(
-            f"fft_ablation[{variant}]", "fft_probes.cu",
-            "scripts/fft_ablation_probe.py:63",
-            probes["launches"][f"p2_{variant}"],
-            **({"exact": case["exact"]} if "exact" in case else {}),
-            max_abs_err=case["max_abs_err"], ms=case["ms"],
-            plain_ms=case["plain_ms"], ngrid=p2["ngrid"],
-            **bound(*work[variant]),
-            library_ms=library if variant == "full" else None,
-        ))
+    for size in probes["sizes"]:
+        entries += probe_rows(size)
     p3 = probes["p3"]
     entries.append(kernel_entry(
         "smem_probe", "smem_probe.cu", "scripts/vmem_probe.py:17",
-        probes["launches"]["p3"], exact=p3["read_back_exact"],
+        probes["p3_launches"], exact=p3["read_back_exact"],
         max_abs_err=p3["max_abs_err"],
         ms=p3["ms"], plain_ms=p3["plain_ms"], max_bytes=p3["max_bytes"],
         optin_attribute_bytes=p3["optin_attribute_bytes"],
         **bound(p3["max_bytes"]), library_ms=None,
     ))
     return entries
+
+
+def probe_rows(size: dict) -> list:
+    """The ``kernels`` rows of P1 (one per engine and ring depth) and P2
+    (one per variant) at one grid of the ``fft_probes`` phase: launches
+    in that grid's run, error against the plain version, the medians of
+    the kernel, its plain version and the library call, and the bound of
+    the variant's bytes and flops (the probes' own count,
+    ``probes/fft_ablation.py:variant_work``)."""
+    p1, p2 = size["p1"], size["p2"]
+    ngrid = size["ngrid"]
+    keys = ("exact", "max_abs_err", "max_rel_err", "launch", "gb_per_s",
+            "bound_share")
+    rows = []
+    for key, case in p1["cases"].items():
+        rows.append(kernel_entry(
+            f"fft_async_fetch[{key}]@{ngrid}", "fft_probes.cu",
+            "scripts/fft_split_fetch_probe.py:171",
+            size["launches"][f"p1_{key}"], ngrid=ngrid, ms=case["ms"],
+            stage1_ms=case["stage1_ms"], stage2_ms=case["stage2_ms"],
+            b2_ms=p1["b2_ms"], plain_ms=p1["plain_ms"],
+            **{k: case[k] for k in keys if k in case},
+            **bound(case["bytes"], case["flops"]),
+            library_ms=p1["library_ms"], library_call=p1["library_call"],
+        ))
+    for variant, case in p2["variants"].items():
+        rows.append(kernel_entry(
+            f"fft_ablation[{variant}]@{ngrid}", "fft_probes.cu",
+            "scripts/fft_ablation_probe.py:164",
+            size["launches"][f"p2_{variant}"], ngrid=ngrid, ms=case["ms"],
+            plain_ms=case["plain_ms"],
+            **{k: case[k] for k in keys if k in case},
+            **bound(case["bytes"], case["flops"]),
+            library_ms=case["library_ms"],
+            library_call=case["library_call"],
+        ))
+    return rows
 
 
 def main() -> int:

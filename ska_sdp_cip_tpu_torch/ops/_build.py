@@ -10,7 +10,8 @@ first use, and loaded with ``ctypes``:
          -Xcompiler -fPIC -o build/torch_kernels/<stem>_<hash>.so csrc/<stem>.cu
 
 A library's name carries a hash of the flags, its source and the
-sources that includes (``fft_probes.cu`` includes ``fft_dense.cuh``), so
+sources that includes (``fft_fused.cu`` and ``fft_probes.cu`` include
+``fft_stages.cuh``), so
 an edited source never loads a stale build and rebuilds only the
 libraries made from it. The build directory is
 ``build/torch_kernels/`` beside the package. ``nvcc`` is taken from
@@ -151,10 +152,11 @@ def _declare(lib) -> None:
         c_i64, ptr,
     ]
     lib.cip_pretile_first_axis.restype = c_int
-    for name in ("cip_fft_async_fetch", "cip_fft_ablation"):
-        entry = getattr(lib, name)
-        entry.argtypes = [c_int] + [ptr] * 10 + [c_int] * 8 + [c_i64, ptr]
-        entry.restype = c_int
+    info = ctypes.POINTER(c_int)
+    lib.cip_fft_async_fetch.argtypes = [c_int] * 3 + b2 + [c_i64, info, ptr]
+    lib.cip_fft_async_fetch.restype = c_int
+    lib.cip_fft_ablation.argtypes = [c_int] + b2 + [c_i64, info, ptr]
+    lib.cip_fft_ablation.restype = c_int
     lib.cip_smem_probe.argtypes = [c_int, ptr, ptr]
     lib.cip_smem_probe.restype = c_int
     lib.cip_smem_optin_bytes.argtypes = [c_int, ctypes.POINTER(c_int)]

@@ -199,20 +199,15 @@ def fft_last_axis(re, im, f, *, sign: int, prefix: str = "fft",
     return outr, outi
 
 
-def fft_first_axis(
-    re, im, f, *, sign: int, prefix: str = "fft", in_crop=None,
-    out_crop=None,
-):
+def first_axis_stage1(re, im, f, *, sign: int, prefix: str = "fft",
+                      in_crop=None):
     """
-    DFT along the first axis of (n, m) split tensors, transpose-free
-    (counterpart ``fft_first_axis``); ``in_crop``/``out_crop`` as in
-    :func:`fft_last_axis`, applied to the first axis.
+    Stage 1 of :func:`fft_first_axis`: the length-n1 DFTs along j1 of
+    the (n, m) input viewed (n1, n2, m) (``in_crop``: the covering j1
+    rows of the zero-padded input), as (yr, yi), each (n1, n2, m).
     """
-    d1_cos, d1_sin, d2_cos, d2_sin, tw_cos, tw_sin, s = _factors(
-        f, prefix, sign
-    )
+    d1_cos, d1_sin, d2_cos, _, _, _, s = _factors(f, prefix, sign)
     n1, n2 = d1_cos.shape[0], d2_cos.shape[0]
-    n = n1 * n2
     m = re.shape[-1]
     if in_crop is not None:
         j1a, j1b, pad_lo = _pad_range(n2, in_crop)
@@ -226,14 +221,32 @@ def fft_first_axis(
 
     x2 = torch.cat([xr, xi], dim=0)
     y = torch.einsum("kj,jnm->knm", _stage1_block(d1_cos, d1_sin, s), x2)
-    yr, yi = y[:n1], y[n1:]
+    return y[:n1], y[n1:]
 
+
+def first_axis_twiddle(yr, yi, f, *, sign: int, prefix: str = "fft"):
+    """
+    The twiddle between :func:`fft_first_axis`'s stages: z = y T as one
+    (n1, 2 n2, m) tensor, real parts in [:, :n2], imaginary in [:, n2:].
+    """
+    _, _, _, _, tw_cos, tw_sin, s = _factors(f, prefix, sign)
     tr = tw_cos[:, :, None]
     ti = s * tw_sin[:, :, None]
-    z2 = torch.cat([yr * tr - yi * ti, yr * ti + yi * tr], dim=1)
+    return torch.cat([yr * tr - yi * ti, yr * ti + yi * tr], dim=1)
 
+
+def first_axis_stage2(z2, f, *, sign: int, prefix: str = "fft",
+                      out_crop=None):
+    """
+    Stage 2 of :func:`fft_first_axis` on :func:`first_axis_twiddle`'s
+    z: the length-n2 DFTs along j2, cropped to ``out_crop``, as (outr,
+    outi), each (rows, m).
+    """
+    d1_cos, _, d2_cos, d2_sin, _, _, s = _factors(f, prefix, sign)
+    n1, n2 = d1_cos.shape[0], d2_cos.shape[0]
+    m = z2.shape[-1]
     trim = None
-    n_out = n
+    n_out = n1 * n2
     if out_crop is not None:
         k2a, k2b, trim = _crop_range(n1, out_crop)
         d2_cos, d2_sin = d2_cos[:, k2a:k2b], d2_sin[:, k2a:k2b]
@@ -247,3 +260,21 @@ def fft_first_axis(
         outr = outr[trim[0] : trim[0] + trim[1], :]
         outi = outi[trim[0] : trim[0] + trim[1], :]
     return outr, outi
+
+
+def fft_first_axis(
+    re, im, f, *, sign: int, prefix: str = "fft", in_crop=None,
+    out_crop=None,
+):
+    """
+    DFT along the first axis of (n, m) split tensors, transpose-free
+    (counterpart ``fft_first_axis``); ``in_crop``/``out_crop`` as in
+    :func:`fft_last_axis`, applied to the first axis. Its stages are
+    :func:`first_axis_stage1`, :func:`first_axis_twiddle` and
+    :func:`first_axis_stage2`.
+    """
+    yr, yi = first_axis_stage1(re, im, f, sign=sign, prefix=prefix,
+                               in_crop=in_crop)
+    z2 = first_axis_twiddle(yr, yi, f, sign=sign, prefix=prefix)
+    return first_axis_stage2(z2, f, sign=sign, prefix=prefix,
+                             out_crop=out_crop)

@@ -6,8 +6,8 @@ their plain PyTorch versions.
 Counterpart: ``ska_sdp_cip_tpu/ops/fft_pallas.py`` —
 ``fused_pass_meta`` (copied with ``FusedPassMeta``),
 ``fused_pass_host_arrays`` (rewritten to emit float32 factors: the
-bf16 hi/lo split there fed the TPU's bf16 matrix unit; the dense
-probes P1/P2 multiply by them in float32), ``fft_first_axis_fused``
+bf16 hi/lo split there fed the TPU's bf16 matrix unit; the tests hold
+its layouts against the counterpart's), ``fft_first_axis_fused``
 (the Pallas kernel, replaced by :func:`fft_first_axis_fused`, with its
 ``tiled`` input mode), ``pretile_first_axis`` (replaced by
 :func:`pretile_first_axis`) and ``fft2_from_image_fused`` (predict's
@@ -18,8 +18,8 @@ The B2 kernel runs each four-step stage as a short FFT (radix passes
 of :func:`sub_fft_radices`, twiddles of :func:`sub_fft_twiddles`, on
 :func:`sub_fft_columns` columns a block) and multiplies by the twiddle
 ``twc``/``tws`` between the stages; it reads the factors of
-:func:`fused_pass_kernel_arrays`. The dense probes P1/P2 read those of
-:func:`fused_pass_host_arrays`.
+:func:`fused_pass_kernel_arrays`, as do its probes P1/P2
+(``probes/``), whose ring geometry :func:`ring_geometry` gives.
 
 A pass is out-cropped (invert: ``meta.size`` output rows of the image
 crop, factors ``fftp_*`` at sign +1) or in-cropped (predict: the input
@@ -68,10 +68,19 @@ SMEM_BYTES = 227 * 1024
 #: 2 x n x 4 float32 (its narrowest tile) within :data:`SMEM_BYTES`.
 MAX_SUB_FFT = SMEM_BYTES // (2 * 2 * 4 * 4)
 
-#: The factor tensors of one pass that each kernel reads
-#: (:func:`pass_factors`): the dense probes P1/P2, and B2.
-DENSE_FACTORS = ("m1", "twc", "tws", "m2")
+#: The factor tensors of one pass that B2 and its probes read
+#: (:func:`pass_factors`).
 B2_FACTORS = ("twc", "tws", "fft1_tw", "fft2_tw")
+
+#: The column tile B2's probes P1/P2 are built for (``csrc/fft_probes.cu``;
+#: B2's for every sub-FFT up to 454), and P1's ring depths S.
+PROBE_COLUMNS = 32
+RING_DEPTHS = (1, 2, 3)
+
+#: Copy engines of P1's ring; ``bulk`` keeps an 8-byte mbarrier a slot
+#: in shared memory beside the buffers.
+RING_ENGINES = ("cp_async", "bulk")
+_MBARRIER_BYTES = 8
 
 
 def _pick_chunk(n2: int) -> int:
@@ -292,6 +301,46 @@ def sub_fft_twiddles(n: int, sign: int) -> np.ndarray:
     return np.concatenate(rows).astype(np.float32)
 
 
+@dataclass(frozen=True)
+class RingGeometry:
+    """Which depths of P1's ring fit one block for a length-n sub-FFT."""
+
+    columns: int
+    depths: tuple
+    why: str
+
+
+def ring_geometry(n: int, engine: str) -> RingGeometry:
+    """
+    P1's ring for a stage whose sub-FFT has length ``n``: S input slots
+    and one work buffer of 2 x n x C float32 each, (S + 1) x 2 x n x C x
+    4 bytes a block (plus S 8-byte mbarriers for the ``bulk`` engine),
+    at B2's column tile C = :func:`sub_fft_columns` (n), within
+    :data:`SMEM_BYTES`. ``depths`` are the S of :data:`RING_DEPTHS` that
+    fit; ``why`` says why the others do not. A narrower tile would fit
+    deeper rings but halve each row's segment, which is what the probe
+    compares, so it keeps B2's. The kernels are built for
+    :data:`PROBE_COLUMNS` only, which the probes' wrappers check.
+    """
+    if engine not in RING_ENGINES:
+        raise ValueError(f"engine must be one of {RING_ENGINES}, got "
+                         f"{engine!r}")
+    cols = sub_fft_columns(n)
+    extra = _MBARRIER_BYTES if engine == "bulk" else 0
+
+    def need(s):
+        return (s + 1) * 2 * n * cols * 4 + extra * s
+
+    depths = tuple(s for s in RING_DEPTHS if need(s) <= SMEM_BYTES)
+    out = [s for s in RING_DEPTHS if s not in depths]
+    why = "" if not out else (
+        f"S = {', '.join(map(str, out))} would take "
+        f"{', '.join(str(need(s)) for s in out)} bytes a block at n = {n},"
+        f" C = {cols} ({engine}), more than the {SMEM_BYTES} a block may "
+        f"have")
+    return RingGeometry(cols, depths, why)
+
+
 def fused_pass_kernel_arrays(plan: FFTPlan, meta: FusedPassMeta, *,
                              sign: int, prefix: str) -> dict:
     """
@@ -419,7 +468,7 @@ def fft_first_axis_tiled_reference(re, im, f, *, meta: FusedPassMeta,
 
 def fft_first_axis_fused(re, im, f, *, meta: FusedPassMeta, sign: int,
                          prefix: str = "fftp", tiled: bool = False,
-                         out: tuple | None = None):
+                         out: tuple | None = None, z: tuple | None = None):
     """
     DFT along the first axis of (rows, m) split float32 tensors: ``n``
     rows cropped to ``meta.size`` output rows, or (in-cropped)
@@ -437,17 +486,18 @@ def fft_first_axis_fused(re, im, f, *, meta: FusedPassMeta, sign: int,
 
     ``out=(out_re, out_im)``: contiguous float32 (rows out, m) tensors
     on the input's device that receive the result (returned); by
-    default the pass allocates them.
+    default the pass allocates them. ``z=(z_re, z_im)``: the same for
+    the intermediate z (n1 n2, m) between the kernel's two launches
+    (its probes read it); the plain version has no z and refuses one.
     """
     if re.device != im.device:
         raise ValueError("re and im must be on one device")
     if out is not None:
         shape = (meta.size, re.shape[1] * (meta.mb if tiled else 1))
-        for t in out:
-            if (t.device != re.device or t.dtype != torch.float32
-                    or not t.is_contiguous() or tuple(t.shape) != shape):
-                raise ValueError(f"out must be contiguous float32 {shape} "
-                                 f"tensors on the input's device")
+        _check_out(out, shape, re.device, "out")
+    if z is not None and re.device.type != "cuda":
+        raise ValueError("z is the kernel's intermediate; the plain "
+                         "version on the CPU has none")
     if tiled:
         tile = (meta.n1_in, meta.c, meta.mb)
         if (re.dim() != 5 or re.shape[0] != meta.nc
@@ -459,7 +509,8 @@ def fft_first_axis_fused(re, im, f, *, meta: FusedPassMeta, sign: int,
             )
     if re.device.type == "cuda":
         return _fft_first_axis_cuda(re, im, f, meta=meta, sign=sign,
-                                    prefix=prefix, tiled=tiled, out=out)
+                                    prefix=prefix, tiled=tiled, out=out,
+                                    z=z)
     if re.device.type != "cpu":
         raise ValueError(f"unsupported device {re.device}")
     if tiled:
@@ -471,6 +522,14 @@ def fft_first_axis_fused(re, im, f, *, meta: FusedPassMeta, sign: int,
     for dst, src in zip(out, got):
         dst.copy_(src)
     return out
+
+
+def _check_out(pair, shape: tuple, device, name: str) -> None:
+    for t in pair:
+        if (t.device != device or t.dtype != torch.float32
+                or not t.is_contiguous() or tuple(t.shape) != shape):
+            raise ValueError(f"{name} must be contiguous float32 {shape} "
+                             f"tensors on the input's device")
 
 
 def fft2_from_image_fused(f, img_t_re, img_t_im, *, meta: FusedPassMeta,
@@ -493,30 +552,26 @@ def fft2_from_image_fused(f, img_t_re, img_t_im, *, meta: FusedPassMeta,
 
 
 def pass_factors(f, meta: FusedPassMeta, *, sign: int, prefix: str,
-                 device, names: tuple) -> dict:
+                 device) -> dict:
     """
-    The ``{prefix}_*`` factor tensors ``names`` of one pass
-    (:data:`DENSE_FACTORS` for the dense probes, :data:`B2_FACTORS` for
-    B2) as the kernels read them: float32 on ``device`` in the shapes of
-    :func:`fused_pass_host_arrays` and :func:`fused_pass_kernel_arrays`,
-    built for ``sign`` (raises otherwise).
+    The ``{prefix}_*`` factor tensors of :data:`B2_FACTORS` for one pass
+    as B2 and its probes read them: float32 on ``device`` in the shapes
+    of :func:`fused_pass_kernel_arrays`, built for ``sign`` (raises
+    otherwise; a missing table raises ``KeyError``).
     """
     if f.get(f"{prefix}_sign") != sign:
         raise ValueError(
             f"the {prefix}_* factors were built for sign "
             f"{f.get(f'{prefix}_sign')}, the pass asks for {sign}"
         )
-    n1, n1i = meta.n1, meta.n1_in
     shapes = {
-        "m1": (2 * n1, 2 * n1i),
-        "twc": (meta.nc, n1, meta.c, 1),
-        "tws": (meta.nc, n1, meta.c, 1),
-        "m2": (meta.qb, meta.nc, 2 * meta.qs, 2 * meta.c),
-        "fft1_tw": (n1 - 1, 2),
+        "twc": (meta.nc, meta.n1, meta.c, 1),
+        "tws": (meta.nc, meta.n1, meta.c, 1),
+        "fft1_tw": (meta.n1 - 1, 2),
         "fft2_tw": (meta.n2 - 1, 2),
     }
     tensors = {}
-    for name in names:
+    for name in B2_FACTORS:
         shape = shapes[name]
         t = f[f"{prefix}_{name}"]
         if t.device != device or t.dtype != torch.float32:
@@ -529,18 +584,26 @@ def pass_factors(f, meta: FusedPassMeta, *, sign: int, prefix: str,
     return tensors
 
 
-def pass_args(re, im, factors: dict, z_re, z_im, out_re, out_im,
-              meta: FusedPassMeta) -> list:
-    """The leading arguments of the dense probes' C entries
-    (csrc/fft_probes.cu): pointers, then n1, n1i, n2, C, QB, QS, trim0,
-    size."""
+def pass_args(re, im, factors: dict, z, out, meta: FusedPassMeta, *,
+              sign: int, rows: int, pad_lo: int) -> list:
+    """
+    The arguments of B2's C entries (``csrc/fft_fused.cu``) from ``re``
+    to ``cols2``, which its probes' entries (``csrc/fft_probes.cu``)
+    take too: the pointers of the input, the factors, ``z`` and ``out``
+    (pairs of tensors), then the pass's geometry for an input of
+    ``rows`` rows placed at row ``pad_lo`` of the covering window, the
+    sign, the packed radix passes and each stage's column tile.
+    """
+    n1, n2 = meta.n1, meta.n2
     return [
-        re.data_ptr(), im.data_ptr(), factors["m1"].data_ptr(),
-        factors["twc"].data_ptr(), factors["tws"].data_ptr(),
-        factors["m2"].data_ptr(), z_re.data_ptr(), z_im.data_ptr(),
-        out_re.data_ptr(), out_im.data_ptr(), int(meta.n1),
-        int(meta.n1_in), int(meta.n2), int(meta.c), int(meta.qb),
-        int(meta.qs), int(meta.trim0), int(meta.size),
+        re.data_ptr(), im.data_ptr(), factors["twc"].data_ptr(),
+        factors["tws"].data_ptr(), factors["fft1_tw"].data_ptr(),
+        factors["fft2_tw"].data_ptr(), z[0].data_ptr(), z[1].data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), int(n1), int(n2),
+        int(meta.c), int(meta.j1a), int(meta.n1_in), int(pad_lo), int(rows),
+        int(meta.k2a), int(meta.trim0), int(meta.size), int(sign),
+        _packed_radices(n1), _packed_radices(n2), sub_fft_columns(n1),
+        sub_fft_columns(n2),
     ]
 
 
@@ -549,15 +612,13 @@ def _packed_radices(n: int) -> int:
     return sum(r << (4 * i) for i, r in enumerate(sub_fft_radices(n)))
 
 
-def _fft_first_axis_cuda(re, im, f, *, meta, sign, prefix, tiled, out):
+def _fft_first_axis_cuda(re, im, f, *, meta, sign, prefix, tiled, out, z):
     global LAUNCHES, IN_CROP_LAUNCHES, TILED_LAUNCHES
     from . import _build
 
     factors = pass_factors(f, meta, sign=sign, prefix=prefix,
-                           device=re.device, names=B2_FACTORS)
+                           device=re.device)
     n1, n2, n1i = meta.n1, meta.n2, meta.n1_in
-    radices = (_packed_radices(n1), _packed_radices(n2))
-    cols = (sub_fft_columns(n1), sub_fft_columns(n2))
     for name, t in (("re", re), ("im", im)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be a float32 tensor")
@@ -581,8 +642,12 @@ def _fft_first_axis_cuda(re, im, f, *, meta, sign, prefix, tiled, out):
         if re.shape != im.shape:
             raise ValueError("re and im shapes differ")
         m = re.shape[1]
-    z_re = torch.empty((n1 * n2, m), dtype=torch.float32, device=re.device)
-    z_im = torch.empty_like(z_re)
+    if z is None:
+        z_re = torch.empty((n1 * n2, m), dtype=torch.float32,
+                           device=re.device)
+        z = (z_re, torch.empty_like(z_re))
+    else:
+        _check_out(z, (n1 * n2, m), re.device, "z")
     if out is None:
         out_re = torch.empty(
             (meta.size, m), dtype=torch.float32, device=re.device
@@ -591,15 +656,8 @@ def _fft_first_axis_cuda(re, im, f, *, meta, sign, prefix, tiled, out):
     else:
         out_re, out_im = out
     lib = _build.load_library()
-    args = [
-        re.data_ptr(), im.data_ptr(), factors["twc"].data_ptr(),
-        factors["tws"].data_ptr(), factors["fft1_tw"].data_ptr(),
-        factors["fft2_tw"].data_ptr(), z_re.data_ptr(), z_im.data_ptr(),
-        out_re.data_ptr(), out_im.data_ptr(), int(n1), int(n2),
-        int(meta.c), int(meta.j1a), int(n1i), int(pad_lo), int(rows),
-        int(meta.k2a), int(meta.trim0), int(meta.size), int(sign),
-        *radices, *cols,
-    ]
+    args = pass_args(re, im, factors, z, (out_re, out_im), meta, sign=sign,
+                     rows=rows, pad_lo=pad_lo)
     stream = torch.cuda.current_stream(re.device).cuda_stream
     if tiled:
         err = lib.cip_fft_first_axis_fused_tiled(*args, int(meta.mb), int(m),

@@ -5,8 +5,8 @@ B6 against B2 on row-major input (counterpart
 
     python -m ska_sdp_cip_tpu_torch.probes.fft_tiled [ngrid]
 
-At ``ngrid`` (default 15360, cropped to 10240 rows) it times with CUDA
-events the baseline pass, pretile alone, the pass on tiled input, and
+At ``ngrid`` (default 15360, cropped to 10240 rows) it times (the
+median of ``iters`` CUDA-event runs) the baseline pass, pretile alone, the pass on tiled input, and
 pretile + tiled pass, and their plain versions; checks that pretile
 equals its plain version and the tiled pass the baseline pass exactly
 (and its plain version to 1e-5 of max); and prints one JSON line.
@@ -77,7 +77,7 @@ def run(ngrid: int = common.PRODUCTION_NGRID, *, device="cuda",
                      ("tiled", tiled), ("combined", combined),
                      ("pretile_plain", pretile_plain),
                      ("tiled_plain", tiled_plain)):
-        out[f"{name}_ms"] = common.timed(fn, device, iters=iters)
+        out[f"{name}_ms"] = common.median_ms(fn, device, runs=iters)
     return out
 
 

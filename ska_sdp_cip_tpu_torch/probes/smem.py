@@ -136,9 +136,10 @@ def run(ngrid=None, *, device="cuda", iters: int = 20) -> dict:
         "torch_optin_bytes": getattr(props, "shared_memory_per_block_optin",
                                      None),
         "plane_group_bound": lo // (2 * 48 * 128 * 4),
-        "ms": common.cuda_ms(lambda: smem_probe(lo, device), iters=iters),
-        "plain_ms": common.cuda_ms(lambda: expected(lo // 4, device),
-                                   iters=iters),
+        "ms": common.median_ms(lambda: smem_probe(lo, device), device,
+                               runs=iters),
+        "plain_ms": common.median_ms(lambda: expected(lo // 4, device),
+                                     device, runs=iters),
     }
     out["matches_attribute"] = lo == attr and out["torch_optin_bytes"] in (
         None, attr)

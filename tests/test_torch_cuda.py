@@ -8,13 +8,13 @@ tests/test_torch_cuda.py`` (``--noconftest``: the suite's conftest
 imports jax, which such a machine need not have).
 Tolerances: 1e-5 of the reference's max between a float32 kernel and
 its float32 plain version (the two sum in different orders), 1e-4
-against the explicit DFT; exact where
-a kernel only moves data (B6, P2's ``load``) or sums another kernel's
-values in its order (tiled B2 as row-major B2, P1 as the dense pass
-P2 ``full``) and between two launches of the gridding kernel on the
+against the explicit DFT; exact where a kernel only moves data (B6,
+P2's ``load`` and ``load2``) or sums another kernel's values in its
+order (tiled B2 as row-major B2, P1 and P2's ``s1tw``, ``s2`` and
+``full`` as B2) and between two launches of the gridding kernel on the
 same inputs (it sums every cell in an order fixed by its work list).
-B2 also runs at the distributed mode's slab widths, and
-the distributed invert on 2 shards of an NCCL world of one; a small
+B2 also runs at the distributed mode's slab widths, and the
+distributed invert on 2 shards of an NCCL world of one; a small
 MeasurementSet's invert on the card is held to its VZ's.
 """
 
@@ -311,8 +311,6 @@ def _pass(cuda, n, m, *, in_crop=None, seed=0):
     else:
         meta = tfc.fused_pass_meta(plan, None, in_crop=in_crop)
         sign, prefix, rows = -1, "fftq", meta.in_size
-    host.update(tfc.fused_pass_host_arrays(plan, meta, sign=sign,
-                                           prefix=prefix))
     host.update(tfc.fused_pass_kernel_arrays(plan, meta, sign=sign,
                                              prefix=prefix))
     f = tg.stage_arrays(host, cuda)
@@ -392,44 +390,69 @@ def test_fft_kernel_ragged_n1_matches_plain(cuda, in_crop):
                                                  sign=sign))
 
 
-@pytest.mark.parametrize("n", [512, 960])
+#: Probe sizes: n1 = 16 and 30 (radix 2, 3, 5) with n2 = 32, and the
+#: large image's grid (n1 = 128, n2 = 256: one ring depth less).
+PROBE_GRIDS = [512, 960, 32768]
+
+
+@pytest.mark.parametrize("n", PROBE_GRIDS)
 def test_async_fetch_probe_equals_b2(cuda, n):
-    """P1 equals the dense pass it probes (B2's first design, P2
-    ``full``) bit for bit."""
-    from ska_sdp_cip_tpu_torch.probes import fft_ablation as p2
+    """P1 equals B2 bit for bit at every engine and ring depth that fits,
+    whole and stage by stage, and its plain version to 1e-5."""
     from ska_sdp_cip_tpu_torch.probes import fft_async_fetch as p1
 
     meta, f, _, _, re, im = _pass(cuda, n, 1024)
-    base = p2.ablation("full", re, im, f, meta=meta)
+    z = tuple(torch.empty((n, 1024), device=cuda) for _ in range(2))
+    base = tfc.fft_first_axis_fused(re, im, f, meta=meta, sign=+1, z=z)
     ref = tfc.fft_first_axis_reference(re, im, f, meta=meta, sign=+1)
-    for stages in p1.STAGES:
-        before = p1.LAUNCHES[stages]
-        got = p1.async_fetch_pass(re, im, f, meta=meta, stages=stages)
-        torch.cuda.synchronize()
-        assert p1.LAUNCHES[stages] == before + 1
-        for g, b in zip(got, base):
-            assert torch.equal(g, b)
-        _rel_close(got, ref)
+    for engine in p1.ENGINES:
+        fit = p1.depths(meta, engine)
+        assert fit == ((1, 2) if n == 32768 else (1, 2, 3))
+        for stages in fit:
+            key = f"{engine}_S{stages}"
+            before = p1.LAUNCHES[key]
+            stats = {}
+            got = p1.async_fetch_pass(re, im, f, meta=meta, engine=engine,
+                                      stages=stages, stats=stats)
+            torch.cuda.synchronize()
+            assert p1.LAUNCHES[key] == before + 1
+            assert set(stats) == {"stage1", "stage2"}
+            assert all(st["blocks_per_sm"] >= 1 for st in stats.values())
+            for g, b in zip(got, base):
+                assert torch.equal(g, b)
+            _rel_close(got, ref)
+            y = p1.async_fetch_pass(re, im, f, meta=meta, engine=engine,
+                                    stages=stages, stage=1)
+            assert all(torch.equal(a, b) for a, b in zip(y, z))
+            w = p1.async_fetch_pass(*z, f, meta=meta, engine=engine,
+                                    stages=stages, stage=2)
+            assert all(torch.equal(a, b) for a, b in zip(w, base))
+        if n == 32768:
+            with pytest.raises(ValueError, match="does not fit"):
+                p1.async_fetch_pass(re, im, f, meta=meta, engine=engine,
+                                    stages=3)
 
 
-@pytest.mark.parametrize("n", [512, 960])
+@pytest.mark.parametrize("n", PROBE_GRIDS)
 def test_ablation_variants_match_plain(cuda, n):
+    """P2's B2 launches equal B2's bit for bit, its load variants their
+    input, and every variant its plain version to 1e-5."""
     from ska_sdp_cip_tpu_torch.probes import fft_ablation as p2
 
     meta, f, _, _, re, im = _pass(cuda, n, 1024)
-    z = p2.ablation_reference("s1tw", re, im, f, meta=meta)
+    z = tuple(torch.empty((n, 1024), device=cuda) for _ in range(2))
+    base = tfc.fft_first_axis_fused(re, im, f, meta=meta, sign=+1, z=z)
+    same = {"load": (re, im), "load2": z, "s1tw": z, "s2": base,
+            "full": base}
     for variant in p2.VARIANTS:
-        x = z if variant == "s2" else (re, im)
+        x = z if variant in p2.Z_INPUT else (re, im)
         before = p2.LAUNCHES[variant]
         got = p2.ablation(variant, *x, f, meta=meta)
         torch.cuda.synchronize()
         assert p2.LAUNCHES[variant] == before + 1
-        if variant == "load":
-            assert all(torch.equal(g, r) for g, r in zip(got, x))
+        if variant in same:
+            assert all(torch.equal(g, r) for g, r in zip(got, same[variant]))
         _rel_close(got, p2.ablation_reference(variant, *x, f, meta=meta))
-    full = p2.ablation("full", re, im, f, meta=meta)
-    _rel_close(full, tfc.fft_first_axis_fused(re, im, f, meta=meta,
-                                              sign=+1))
 
 
 @pytest.mark.parametrize("probe", ["fft_tiled", "fft_async_fetch",

@@ -227,11 +227,14 @@ def test_kernel_arrays_hold_only_b2s_tables():
     staged = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
               for k, v in arrays.items()}
     got = tfc.pass_factors(staged, meta, sign=+1, prefix="p",
-                           device=torch.device("cpu"), names=tfc.B2_FACTORS)
+                           device=torch.device("cpu"))
     assert set(got) == set(tfc.B2_FACTORS)
+    # The dense design's factors are no table of B2's: a dict of them
+    # alone lacks B2's.
     with pytest.raises(KeyError):
-        tfc.pass_factors(staged, meta, sign=+1, prefix="p",
-                         device=torch.device("cpu"), names=tfc.DENSE_FACTORS)
+        tfc.pass_factors({k: v for k, v in staged.items()
+                          if k in ("p_twc", "p_tws", "p_sign")}, meta,
+                         sign=+1, prefix="p", device=torch.device("cpu"))
 
 
 @pytest.mark.parametrize("n,cols", [(120, 32), (454, 32), (455, 16),
