@@ -43,7 +43,15 @@ then runs these phases and prints one JSON object per phase:
    one uncentred, uncropped ``torch.fft`` call along dim 0 of the
    complex64 input (``library_ms``) and the first design of B2, the
    dense pass P2 ``full`` (out-cropped), and gives the bound and the
-   achieved GB/s;
+   achieved GB/s; then ``b2l``: B2L, the same DFT along the last axis
+   (:func:`phase_b2l`), at the bench transform (rows 4096 and 2048) and
+   the production one (rows 10240), out- and in-cropped, each against
+   its plain version (1e-5 of the max), bit-equal to B2 on the
+   transposed input and to itself run again, with ``torch.fft`` along
+   dim -1 and the bound; at the production transform also each plane's
+   half that B2L took over (its screened store, its screened load)
+   against the transposes, B2 and torch's screen it replaced, timed in
+   turns and gated bit-equal;
 4. ``b3``: the degridding kernel (B3, reading the periodic grid)
    against its folded plain version on random planes, on the same
    plans and groups as ``b1`` (G = 1 at bench size: B5), with the
@@ -138,7 +146,10 @@ then runs these phases and prints one JSON object per phase:
     and for the dirty image as I; five point sources
     against a float64 DFT at 4096 visibilities, B3
     against its plain version on the largest plane group, median wall,
-    breakdown) and the major cycle on the Clark minor
+    breakdown), both with their device parts against the two-B2
+    composition before B2L in the same run (:func:`fused_against_unfused`:
+    gated bit-equal or 1e-6, times in turns, peak memory, profiles'
+    kernel classes), and the major cycle on the Clark minor
     cycle (``psf_patch`` 2048) on visibilities of five point sources,
     with the ``major_cycle`` gates; the noise image's adjoint identity is
     gated as |lhs - rhs| / (|I| |D|) <= 1e-6, the dirty image's as
@@ -148,8 +159,10 @@ then runs these phases and prints one JSON object per phase:
     breakdown, peak memory, a float64 DFT spot check, B1 on each plane
     group against its bound and on the largest against its plain
     version (twice, bit-equal), one ``MeasurementOperator`` predict with
-    the noise-image adjoint gate, B3 against its plain version, and B2
-    at n = 32768 against its plain version and ``torch.fft``;
+    the noise-image adjoint gate, B3 against its plain version, the
+    invert's and predict's device parts against the two-B2 composition,
+    and B2 and B2L at n = 32768 against their plain versions and
+    ``torch.fft``;
 12. ``solvers`` (three parts): ``cli``, ``tpu-cip-torch`` in process
     on the slice's dataset at 2048 px (robust and uniform dirty images
     against a float64 DFT of the reweighted visibilities; ``--clean 2
@@ -308,12 +321,158 @@ def b2_replaced(pass_fn):
             dst.copy_(src)
         return out
 
-    saved = gridder.fft_first_axis_fused, fft_cuda.fft_first_axis_fused
+    def run_last(re, im, f, *, screen=None, acc=None, out=None, **kw):
+        # B2L's pass as pass_fn on the transpose, its screens in torch.
+        if screen is not None and acc is None:
+            re, im = fft_cuda.screen_load_reference(re, *screen)
+        got = tuple(x.t().contiguous() for x in pass_fn(
+            re.t().contiguous(), im.t().contiguous(), f, **kw))
+        if acc is None and out is not None:
+            for dst, src in zip(out, got):
+                dst.copy_(src)
+            return out
+        if acc is None:
+            return got
+        if screen is None:
+            return acc.add_(got[0])
+        return fft_cuda.screen_accumulate_reference(acc, *got, *screen)
+
+    saved = (gridder.fft_first_axis_fused, fft_cuda.fft_first_axis_fused,
+             gridder.fft_last_axis_fused)
     gridder.fft_first_axis_fused = fft_cuda.fft_first_axis_fused = run
+    gridder.fft_last_axis_fused = run_last
     try:
         yield
     finally:
-        gridder.fft_first_axis_fused, fft_cuda.fft_first_axis_fused = saved
+        (gridder.fft_first_axis_fused, fft_cuda.fft_first_axis_fused,
+         gridder.fft_last_axis_fused) = saved
+
+
+def unfused_build_invert(plan, *, mesh=None):
+    """
+    ``build_invert`` as the port composed it before B2L: per plane two B2
+    passes with a ``.t().contiguous()`` between them, the w-screen and
+    the accumulation as torch ops on the transposed image, and a final
+    transpose. The yardstick of the ``production`` and ``large`` phases
+    (:func:`unfused_composition`), not a path of the port.
+    """
+    import torch
+
+    from ska_sdp_cip_tpu_torch.ops import gridder
+    from ska_sdp_cip_tpu_torch.ops.fft_cuda import fft_first_axis_fused
+
+    assert mesh is None or mesh.num_shards == 1
+    G, npix = plan.plane_group, plan.num_pixels
+    fmeta = gridder._fused_fft_meta(plan)
+    counts = [len(ids) for ids in gridder.group_active_blocks(plan)]
+    nchunks = [len(c) for c in gridder.group_grid_chunks(plan)]
+
+    def invert(arrays, re_s, im_s):
+        inv_corr, nm1s = gridder._geometry_maps(plan, arrays)
+        image = torch.zeros((npix, npix), dtype=torch.float32,
+                            device=re_s.device)
+        for k in range(plan.num_groups):
+            w_g = arrays["plane_wg"][k]
+            planes = gridder.grid_planes(
+                arrays["packed"], re_s, im_s, arrays["block_len"],
+                arrays["cblock_ox"], arrays["block_oy"], w_g,
+                arrays["group_blocks"][k, : counts[k]], plan=plan,
+                chunks=arrays["group_grid_chunks"][k, : nchunks[k]])
+            for i in range(min(G, plan.nplanes - k * G)):
+                a_re, a_im = fft_first_axis_fused(
+                    planes[2 * i], planes[2 * i + 1], arrays, meta=fmeta,
+                    sign=+1)
+                img_re, img_im = fft_first_axis_fused(
+                    a_re.t().contiguous(), a_im.t().contiguous(), arrays,
+                    meta=fmeta, sign=+1)
+                del a_re, a_im
+                if plan.wstacking:
+                    theta = (-2.0 * math.pi * w_g[i]) * nm1s
+                    image = image + (img_re * torch.cos(theta)
+                                     - img_im * torch.sin(theta))
+                else:
+                    image = image + img_re
+            del planes
+        return (image * inv_corr).t().contiguous()
+
+    return invert
+
+
+def unfused_build_predict(plan, *, slot_output: bool = False, mesh=None):
+    """
+    ``build_predict`` as the port composed it before B2L: the transposed
+    image screened by torch ops, then two in-cropped B2 passes with a
+    ``.t().contiguous()`` between them (``fft2_from_image_fused``). The
+    yardstick of :func:`unfused_composition`, not a path of the port.
+    """
+    import torch
+
+    from ska_sdp_cip_tpu_torch.ops import gridder
+    from ska_sdp_cip_tpu_torch.ops.fft_cuda import fft2_from_image_fused
+
+    assert mesh is None or mesh.num_shards == 1
+    G, N = plan.plane_group, plan.ngrid
+    fmeta = gridder._fused_fft_meta_ic(plan)
+    counts = [len(ids) for ids in gridder.group_active_blocks(plan)]
+    nchunks = [len(c) for c in gridder.group_tile_chunks(plan)]
+
+    def predict(arrays, image):
+        inv_corr, nm1s = gridder._geometry_maps(plan, arrays)
+        device = inv_corr.device
+        img0_t = torch.as_tensor(image, dtype=torch.float32,
+                                 device=device).t().contiguous() * inv_corr
+        grids = torch.empty((2 * G, N, N), dtype=torch.float32,
+                            device=device)
+        acc = torch.zeros((2, plan.num_vis), dtype=torch.float32,
+                          device=device)
+        for k in range(plan.num_groups):
+            w_g = arrays["plane_wg"][k]
+            num_real = min(G, plan.nplanes - k * G)
+            for i in range(num_real):
+                if plan.wstacking:
+                    theta = (2.0 * math.pi * w_g[i]) * nm1s
+                    img_re = img0_t * torch.cos(theta)
+                    img_im = img0_t * torch.sin(theta)
+                else:
+                    img_re, img_im = img0_t, torch.zeros_like(img0_t)
+                fft2_from_image_fused(arrays, img_re, img_im, meta=fmeta,
+                                      out=(grids[2 * i], grids[2 * i + 1]))
+            last = grids[2 * (num_real - 1) : 2 * num_real]
+            for i in range(num_real, G):
+                grids[2 * i : 2 * i + 2].copy_(last)
+            gridder.degrid_planes(
+                arrays["packed"], arrays["block_len"], arrays["cblock_ox"],
+                arrays["block_oy"], grids, w_g,
+                arrays["group_blocks"][k, : counts[k]], acc, plan=plan,
+                chunks=arrays["group_chunks"][k, : nchunks[k]])
+        if slot_output:
+            return acc[0], acc[1]
+        return gridder._finalize(plan, arrays, acc[0], acc[1])
+
+    return predict
+
+
+@contextlib.contextmanager
+def unfused_composition():
+    """Run ``dirty_image``, ``predict_visibilities`` and the measurement
+    operator with :func:`unfused_build_invert` /
+    :func:`unfused_build_predict` in place of ``build_invert`` /
+    ``build_predict``: today's path beside the one it replaced, in one
+    run."""
+    from ska_sdp_cip_tpu_torch.models import operators
+    from ska_sdp_cip_tpu_torch.ops import gridder
+
+    saved = [(mod, name, getattr(mod, name))
+             for mod in (gridder, operators)
+             for name in ("build_invert", "build_predict")]
+    for mod, name, _ in saved:
+        setattr(mod, name, unfused_build_invert if name == "build_invert"
+                else unfused_build_predict)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def gridding_work(plan, ids, G: int, *, degrid: bool) -> tuple:
@@ -828,6 +987,218 @@ def phase_b2(device, n=4096, npix=2048, iters=10, widths=None) -> dict:
     return results
 
 
+def b2l_work(meta, rows: int, row_len: int) -> tuple:
+    """A B2L pass's bytes (input read once, output written once), the
+    two-launch floor's bytes (plus z written and read back) and its
+    flops (an FFT's 5 n log2 n per row)."""
+    n = meta.n1 * meta.n2
+    io = 8 * rows * (row_len + meta.size)
+    return io, io + 2 * 8 * rows * n, 5 * n * math.log2(n) * rows
+
+
+def screen_argument(npix: int, device, pixel: float = 1e-4):
+    """A transpose-symmetric n(l, m) - 1 at ``pixel`` radians a pixel,
+    built on ``device`` as ``ops/gridder.py:_geometry_maps`` builds it."""
+    import torch
+
+    axis = (torch.arange(npix, dtype=torch.float32, device=device)
+            - npix // 2) * pixel
+    r2 = axis[:, None] ** 2 + axis[None, :] ** 2
+    return -r2 / (1.0 + torch.sqrt(torch.clamp(1.0 - r2, min=0.0)))
+
+
+#: Turns of the b2l phase's fused-against-unfused timings (fused first,
+#: then alternating), each a CUDA-event mean over the phase's iters.
+B2L_TURNS = ("fused", "unfused", "unfused", "fused")
+
+
+def phase_b2l(device, n=4096, npix=2048, iters=10, widths=None,
+              screens=False) -> dict:
+    """
+    B2L against its plain version: the invert's out-cropped pass along the
+    last axis ((rows, n) -> (rows, npix), sign +1, ``fftp_*``) and
+    predict's in-cropped pass ((rows, npix) -> (rows, n), sign -1,
+    ``fftq_*``), at the rows of ``widths`` (by default npix, the main
+    path's). Inputs are standard normal, made on the device. Each case
+    gives the bound (input read once, output written once at 3.35 TB/s;
+    the two-launch floor adds z written and read back), and on the card
+    the kernel's, the plain version's and the library call's times
+    (``library_ms``: one ``torch.fft.ifft`` at sign +1, ``fft`` at -1,
+    along dim -1 of the complex64 input packed outside the timing,
+    zero-padded to n, uncentred and uncropped). It gates the kernel at
+    1e-5 of the max of its plain version, bit-equal to B2 on the
+    transposed input and to itself run again.
+
+    With ``screens``: each plane's half that B2L took over, as the main
+    path runs it (invert: B2L with the screened accumulation into an
+    image; predict: B2L screening a real image in its load) against the
+    composition it replaced (invert: the transposes, B2 and torch's
+    screen and sum; predict: torch's screen, B2 and the transposes),
+    timed in :data:`B2L_TURNS` and gated bit-equal.
+    """
+    import torch
+
+    from ska_sdp_cip_tpu_torch.ops import fft_cuda
+    from ska_sdp_cip_tpu_torch.ops.fft import fft_plan_arrays, make_fft_plan
+    from ska_sdp_cip_tpu_torch.ops.gridder import stage_arrays
+    from ska_sdp_cip_tpu_torch.probes.common import cuda_ms, max_err
+
+    fplan = make_fft_plan(n, shifted=True)
+    crop = ((n - npix) // 2, npix)
+    passes = {
+        "out_crop": (fft_cuda.fused_pass_meta(fplan, crop), +1, "fftp", n),
+        "in_crop": (fft_cuda.fused_pass_meta(fplan, None, in_crop=crop), -1,
+                    "fftq", npix),
+    }
+    host = fft_plan_arrays(fplan, prefix="fft")
+    for meta, sign, prefix, _ in passes.values():
+        host.update(fft_cuda.fused_pass_kernel_arrays(fplan, meta, sign=sign,
+                                                      prefix=prefix))
+        host.update(fft_cuda.last_axis_kernel_arrays(fplan, meta, sign=sign,
+                                                     prefix=prefix))
+    f = stage_arrays(host, device)
+    gen = torch.Generator(device=device).manual_seed(4)
+    results = {"phase": "b2l", "n": n, "crop": npix, "cases": []}
+    on_card = device.type == "cuda"
+    for name, (meta, sign, prefix, row_len) in passes.items():
+        kw = dict(meta=meta, sign=sign, prefix=prefix)
+        for rows in widths or (npix,):
+            re = torch.randn((rows, row_len), generator=gen, device=device)
+            im = torch.randn((rows, row_len), generator=gen, device=device)
+
+            def kernel():
+                return fft_cuda.fft_last_axis_fused(re, im, f, **kw)
+
+            def plain():
+                return fft_cuda.fft_last_axis_reference(re, im, f, meta=meta,
+                                                        sign=sign)
+
+            got, ref = kernel(), plain()
+            err, rel = max_err(got, ref)
+            del ref
+            b2 = fft_cuda.fft_first_axis_fused(
+                re.t().contiguous(), im.t().contiguous(), f, **kw)
+            b2_equal = all(torch.equal(g, b.t()) for g, b in zip(got, b2))
+            del b2
+            again = kernel()
+            repeat_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+            del got, again
+            io, floor, flops = b2l_work(meta, rows, row_len)
+            case = {
+                "pass": name, "n": n, "n1": meta.n1, "n2": meta.n2,
+                "rows": rows, "row_len": row_len, "size": meta.size,
+                "lanes": [fft_cuda.sub_fft_columns(meta.n1),
+                          fft_cuda.last_axis_columns(meta.n2)],
+                "max_abs_err": err, "max_rel_err": rel,
+                "b2_on_transpose_equal": b2_equal,
+                "repeat_equal": repeat_equal,
+                **bound(io, flops),
+                "two_launch_floor_ms": bound(floor, flops)["bound_ms"],
+            }
+            if on_card:
+                case["ms"] = cuda_ms(kernel, iters=iters)
+                case["plain_ms"] = cuda_ms(plain, iters=max(iters // 3, 1))
+                x = torch.complex(re, im)
+                lib = torch.fft.ifft if sign > 0 else torch.fft.fft
+                case["library_ms"] = cuda_ms(lambda: lib(x, n=n, dim=-1),
+                                             iters=iters)
+                case["library_call"] = (
+                    f"torch.fft.{lib.__name__}(complex64 ({rows}, "
+                    f"{row_len}), n={n}, dim=-1): uncentred, uncropped")
+                del x
+                case["gb_per_s"] = io / case["ms"] / 1e6
+                case["gb_per_s_with_z"] = floor / case["ms"] / 1e6
+            results["cases"].append(case)
+            del re, im
+            if not (rel <= KERNEL_RTOL and b2_equal and repeat_equal):
+                raise PhaseError(
+                    f"B2L ({name}, n={n}, rows={rows}): {rel:.3e} of the "
+                    f"plain version's max (limit {KERNEL_RTOL}), equal to "
+                    f"B2 on the transpose {b2_equal}, repeat {repeat_equal}")
+    if screens:
+        results["screens"] = [b2l_screen_case(device, f, passes[name], name,
+                                              npix, gen, iters)
+                              for name in passes]
+    return results
+
+
+def b2l_screen_case(device, f, spec, name: str, npix: int, gen,
+                    iters: int) -> dict:
+    """One plane's half that B2L took over (:func:`phase_b2l`'s
+    ``screens``), fused against unfused, timed in turns and gated
+    bit-equal. ``coef`` is -+2 pi w at w = 1500 wavelengths."""
+    import torch
+
+    from ska_sdp_cip_tpu_torch.ops import fft_cuda
+    from ska_sdp_cip_tpu_torch.probes.common import cuda_ms
+
+    meta, sign, prefix, row_len = spec
+    kw = dict(meta=meta, sign=sign, prefix=prefix)
+    nm1s = screen_argument(npix, device)
+    w = torch.tensor([1500.0], device=device)
+    invert = name == "out_crop"
+    coef = ((-2.0 if invert else 2.0) * math.pi) * w
+    if invert:
+        a_re, a_im = (torch.randn((npix, row_len), generator=gen,
+                                  device=device) for _ in range(2))
+        acc = {k: torch.zeros((npix, npix), device=device)
+               for k in ("fused", "unfused")}
+
+        def fused():
+            fft_cuda.fft_last_axis_fused(a_re, a_im, f, **kw,
+                                         screen=(nm1s, coef),
+                                         acc=acc["fused"])
+
+        def unfused():
+            img_re, img_im = fft_cuda.fft_first_axis_fused(
+                a_re.t().contiguous(), a_im.t().contiguous(), f, **kw)
+            theta = (-2.0 * math.pi * w[0]) * nm1s
+            acc["unfused"] = acc["unfused"] + (
+                img_re * torch.cos(theta) - img_im * torch.sin(theta))
+
+        fused()
+        unfused()
+        equal = torch.equal(acc["fused"], acc["unfused"].t())
+    else:
+        img0 = torch.randn((npix, npix), generator=gen, device=device)
+        out = {}
+
+        def fused():
+            out["fused"] = fft_cuda.fft_last_axis_fused(
+                img0, None, f, **kw, screen=(nm1s, coef))
+
+        def unfused():
+            theta = (2.0 * math.pi * w[0]) * nm1s
+            a_re, a_im = fft_cuda.fft_first_axis_fused(
+                img0.t().contiguous() * torch.cos(theta),
+                img0.t().contiguous() * torch.sin(theta), f, **kw)
+            out["unfused"] = (a_re.t().contiguous(), a_im.t().contiguous())
+
+        fused()
+        unfused()
+        equal = all(torch.equal(a, b)
+                    for a, b in zip(out["fused"], out["unfused"]))
+    case = {"pass": name, "n": meta.n1 * meta.n2, "npix": npix,
+            "fused_equal_unfused": equal,
+            "fused": "B2L " + ("screening and adding into the image in its "
+                               "store" if invert else "screening its load"),
+            "unfused": ("a.t().contiguous() x2, B2, torch cos/sin/screen/sum"
+                        if invert else "torch cos/sin/screen, B2, "
+                        "a.t().contiguous() x2")}
+    if device.type == "cuda":
+        turns = {"fused": [], "unfused": []}
+        for turn in B2L_TURNS:
+            fn = fused if turn == "fused" else unfused
+            turns[turn].append(cuda_ms(fn, iters=iters))
+        case.update({f"{k}_ms_turns": v for k, v in turns.items()})
+        case["fused_ms"] = statistics.median(turns["fused"])
+        case["unfused_ms"] = statistics.median(turns["unfused"])
+    if not equal:
+        raise PhaseError(f"B2L's {name} screen differs from the composition "
+                         f"it replaced")
+    return case
+
+
 def compare_degrid(plan, arrays, grids, k, chunks, *, time_it: bool,
                    iters: int = 3) -> dict:
     """B3 kernel vs its folded plain version on plane group ``k`` of the
@@ -836,6 +1207,7 @@ def compare_degrid(plan, arrays, grids, k, chunks, *, time_it: bool,
     import torch
 
     from ska_sdp_cip_tpu_torch.ops import cuda_gridder as cg
+    from ska_sdp_cip_tpu_torch.ops import gridder
     from ska_sdp_cip_tpu_torch.ops.gridder import group_active_blocks
     from ska_sdp_cip_tpu_torch.probes.common import cuda_ms
 
@@ -962,8 +1334,8 @@ def phase_e2e_small(device, npix=256) -> dict:
         if not (np.isfinite(got).all() and rel <= DFT_RTOL):
             raise PhaseError(f"dirty_image vs DFT {rel:.3e} > {DFT_RTOL}")
         # Without w-stacking the plan has one plane: B1 at G = 1 (B4).
-        require_launches(launches, ("b1", "b2_out_crop") if wstack
-                         else ("b4", "b2_out_crop"), device, "e2e_small")
+        require_launches(launches, ("b1", *INVERT_FFT) if wstack
+                         else ("b4", *INVERT_FFT), device, "e2e_small")
     results["launches"] = results["cases"][0]["launches"]
     return results
 
@@ -1020,8 +1392,8 @@ def phase_e2e_tiny(device, workdir: Path, images=TINY_IMAGES) -> dict:
                     and rel_dft <= DFT_RTOL and case["repeat_bit_equal"]):
                 raise PhaseError(f"e2e_tiny {npix} px at {asec} asec "
                                  f"(w-stacking {wstack}): {case}")
-            require_launches(launches, ("b1", "b2_out_crop") if wstack
-                             else ("b4", "b2_out_crop"), device, "e2e_tiny")
+            require_launches(launches, ("b1", *INVERT_FFT) if wstack
+                             else ("b4", *INVERT_FFT), device, "e2e_tiny")
     results["launches"] = {
         key: sum(c["launches"][key] for c in results["cases"])
         for key in results["cases"][0]["launches"]}
@@ -1044,6 +1416,7 @@ def reset_launches() -> None:
     cuda_gridder.GROUP1_LAUNCHES = cuda_gridder.DEGRID_GROUP1_LAUNCHES = 0
     fft_cuda.LAUNCHES = fft_cuda.IN_CROP_LAUNCHES = 0
     fft_cuda.TILED_LAUNCHES = fft_cuda.PRETILE_LAUNCHES = 0
+    fft_cuda.LAST_AXIS_LAUNCHES = fft_cuda.LAST_AXIS_IN_CROP_LAUNCHES = 0
     for counts in (p1.LAUNCHES, p2.LAUNCHES):
         for key in counts:
             counts[key] = 0
@@ -1058,6 +1431,8 @@ def read_launches() -> dict:
     out = {"b1": cuda_gridder.LAUNCHES, "b2_out_crop": fft_cuda.LAUNCHES,
            "b2_in_crop": fft_cuda.IN_CROP_LAUNCHES,
            "b2_tiled": fft_cuda.TILED_LAUNCHES,
+           "b2l_out_crop": fft_cuda.LAST_AXIS_LAUNCHES,
+           "b2l_in_crop": fft_cuda.LAST_AXIS_IN_CROP_LAUNCHES,
            "b3": cuda_gridder.DEGRID_LAUNCHES,
            "b4": cuda_gridder.GROUP1_LAUNCHES,
            "b5": cuda_gridder.DEGRID_GROUP1_LAUNCHES,
@@ -1065,6 +1440,12 @@ def read_launches() -> dict:
     out.update({f"p1_{k}": v for k, v in p1.LAUNCHES.items()})
     out.update({f"p2_{k}": v for k, v in p2.LAUNCHES.items()})
     return out
+
+
+#: The FFT kernels of a single-device invert (B2 along axis 0, B2L with
+#: the screened accumulation) and predict (B2L screening its load, B2).
+INVERT_FFT = ("b2_out_crop", "b2l_out_crop")
+PREDICT_FFT = ("b2_in_crop", "b2l_in_crop")
 
 
 def require_launches(launches: dict, kernels, device, where: str) -> None:
@@ -1108,8 +1489,8 @@ def phase_predict(device, bench: dict, npix=256, repeats=3) -> dict:
         if not (np.isfinite(got).all() and rel <= DFT_RTOL):
             raise PhaseError(f"predict vs DFT {rel:.3e} > {DFT_RTOL}")
         # Without w-stacking the plan has one plane: B3 at G = 1 (B5).
-        require_launches(launches, ("b3", "b2_in_crop") if wstack
-                         else ("b5", "b2_in_crop"), device, "predict")
+        require_launches(launches, ("b3", *PREDICT_FFT) if wstack
+                         else ("b5", *PREDICT_FFT), device, "predict")
     results["small_launches"] = results["cases"][0]["launches"]
 
     uvw, freqs, vis, wgt = (bench[k] for k in ("uvw", "freqs", "vis", "wgt"))
@@ -1123,7 +1504,7 @@ def phase_predict(device, bench: dict, npix=256, repeats=3) -> dict:
 
     dirty = dirty_image(uvw, freqs, vis, wgt, bench_npix, pix, device=device)
     model, first, launches, walls = timed_calls(run, device, repeats)
-    require_launches(launches, ("b3", "b2_in_crop"), device, "predict")
+    require_launches(launches, ("b3", *PREDICT_FFT), device, "predict")
     weighted = (vis * wgt).astype(np.complex128)
     lhs = float(np.vdot(image.astype(np.float64), dirty.astype(np.float64)))
     rhs = float(np.real(np.vdot(model.astype(np.complex128), weighted)))
@@ -1285,7 +1666,7 @@ def phase_slice(device, path: Path, dataset_seconds: float, seed=1234,
         raise PhaseError("slice image has the wrong shape or non-finite values")
     if offset.max() > 1:
         raise PhaseError(f"peak at {peak}, brightest source at {expected}")
-    require_launches(launches, ("b1", "b2_out_crop"), device, "slice")
+    require_launches(launches, ("b1", *INVERT_FFT), device, "slice")
     results["repeat_bit_equal"] = bit_equal(image, run())
     if not results["repeat_bit_equal"]:
         raise PhaseError("slice: two invert_dataset calls differ")
@@ -1677,8 +2058,8 @@ def phase_ms(device, path: Path, workdir: Path, slice_launches: dict,
         # fixed order: the two images are the same bits.
         raise PhaseError(f"ms: the MS image against the VZ invert "
                          f"{out['vs_vz_invert']}")
-    require_launches(launches, ("b1", "b2_out_crop"), device, "ms")
-    for key in ("b1", "b2_out_crop"):
+    require_launches(launches, ("b1", *INVERT_FFT), device, "ms")
+    for key in ("b1", *INVERT_FFT):
         if launches[key] != slice_launches[key]:
             raise PhaseError(f"ms: {key} launched {launches[key]} times, "
                              f"{slice_launches[key]} in slice")
@@ -1702,6 +2083,38 @@ def phase_ms(device, path: Path, workdir: Path, slice_launches: dict,
         "read_stokes_seconds")
     out["breakdown"] = breakdown
     shutil.rmtree(ms)
+    return out
+
+
+#: Name fragments of the port's own kernels in a profile (B1/B3, B2, B2L).
+PORT_KERNELS = ("grid_chunks_kernel", "degrid_chunks_kernel",
+                "stage1_kernel", "stage2_kernel")
+
+
+def kernel_classes(rows) -> dict:
+    """
+    Device ms and calls of a profile's kernels by class: torch's copies
+    (any name with "copy": ``direct_copy_kernel``, the ``.contiguous()``
+    of a transpose; ``cat``; memcpy), its other elementwise kernels, its
+    reductions, the port's kernels (:data:`PORT_KERNELS`; B2L's are
+    ``last_stage*``) and the rest, from ``(device us, calls, name)``
+    rows.
+    """
+    out = {k: {"ms": 0.0, "calls": 0} for k in (
+        "strided_copy", "elementwise", "reduction", "port", "other")}
+    for us, count, name in rows:
+        if any(k in name for k in PORT_KERNELS):
+            key = "port"
+        elif "copy" in name.lower():
+            key = "strided_copy"
+        elif "reduce_kernel" in name:
+            key = "reduction"
+        elif "elementwise_kernel" in name:
+            key = "elementwise"
+        else:
+            key = "other"
+        out[key]["ms"] += us / 1e3
+        out[key]["calls"] += count
     return out
 
 
@@ -1757,6 +2170,7 @@ def profile_call(fn, device, top: int = 8, sessions: int = 1) -> dict:
             {"name": name[:80], "calls": count, "ms": us / 1e3}
             for us, count, name in rows[:top]
         ],
+        "classes": kernel_classes(rows),
     }
     if sessions > 1:
         out["busy_seconds_by_session"] = busy_by_session
@@ -2157,7 +2571,7 @@ def phase_tiles(device, path: Path, workdir: Path, seed=1234,
         return invert_tile_chunks(paths, freqs, npix, pix, device=device)
 
     image, first, launches, walls = timed_calls(run, device, repeats=2)
-    require_launches(launches, ("b1", "b2_out_crop"), device, "tiles")
+    require_launches(launches, ("b1", *INVERT_FFT), device, "tiles")
     direct = invert_dataset(reader, npix, asec, device=device)
     scale = float(np.abs(direct).max())
     diff = np.abs(image - direct)
@@ -2273,7 +2687,7 @@ def run_major_cycle(device, uvw, freqs, weights, vis, npix, pix, sources,
     sync()
     out["major_cycle_clean_seconds"] = time.perf_counter() - t
     out["launches"] = read_launches()
-    require_launches(out["launches"], ("b1", "b2_out_crop", "b2_in_crop",
+    require_launches(out["launches"], ("b1", *INVERT_FFT, *PREDICT_FFT,
                                        "b3"), device, "major_cycle")
 
     psf = op.psf()
@@ -2881,6 +3295,72 @@ def timed_calls(fn, device, repeats: int) -> tuple:
     return first, first_seconds, launches, walls
 
 
+#: The gate of the port's path against the composition it replaced,
+#: relative to the latter's max (they are expected to agree bit for bit:
+#: B2L is B2 on the transpose, its screen torch's ops on the same bits).
+FUSED_RTOL = 1e-6
+
+
+def fused_against_unfused(build, call, device) -> dict:
+    """
+    One device-side invert or predict on staged inputs through the port's
+    path (B2 + B2L, ``build()`` = ``gridder.build_*(plan)``) and through
+    the composition it replaced (the same ``build`` under
+    :func:`unfused_composition`), in the same run: ``call(fn)`` runs the
+    built function. The two results are gated bit-equal or within
+    :data:`FUSED_RTOL` of the max (``max_rel_diff`` says which); each
+    path's CUDA-event milliseconds in :data:`B2L_TURNS`, its peak device
+    memory above what was allocated before it, and its profile's kernel
+    classes (:func:`kernel_classes`: strided copies, elementwise,
+    reductions, the port's kernels).
+    """
+    import torch
+
+    from ska_sdp_cip_tpu_torch.probes.common import cuda_ms
+
+    fns = {"fused": build()}
+    with unfused_composition():
+        fns["unfused"] = build()
+    on_card = device.type == "cuda"
+    got, peak = {}, {}
+    for turn, fn in fns.items():
+        if on_card:
+            free_device_memory(device)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        got[turn] = call(fn)
+        if on_card:
+            torch.cuda.synchronize()
+            peak[turn] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    pairs = (list(zip(got["fused"], got["unfused"]))
+             if isinstance(got["fused"], tuple)
+             else [(got["fused"], got["unfused"])])
+    del got
+    equal = all(torch.equal(a, b) for a, b in pairs)
+    rel = (max(float((a - b).abs().max()) for a, b in pairs)
+           / max(float(b.abs().max()) for _, b in pairs))
+    del pairs
+    out = {"bit_equal": equal, "max_rel_diff": rel, "limit": FUSED_RTOL,
+           "peak_gib_above_inputs": peak or "not measured"}
+    if on_card:
+        turns = {"fused": [], "unfused": []}
+        for turn in B2L_TURNS:
+            turns[turn].append(cuda_ms(lambda: call(fns[turn]), iters=1))
+        for turn in fns:
+            out[turn] = {
+                "ms_turns": turns[turn],
+                "median_ms": statistics.median(turns[turn]),
+                "profile": {k: v for k, v in profile_call(
+                    lambda: call(fns[turn]), device).items()
+                    if k in ("device_busy_seconds", "classes",
+                             "top_kernels")},
+            }
+    if not (equal or rel <= FUSED_RTOL):
+        raise PhaseError(f"B2L's path against the composition it replaced: "
+                         f"{rel:.3e} of the max (limit {FUSED_RTOL})")
+    return out
+
+
 def phase_production_invert(device, problem, npix=PROD_NPIX,
                             asec=PROD_ASEC, repeats=3,
                             dft_pixels=256) -> tuple:
@@ -2889,9 +3369,12 @@ def phase_production_invert(device, problem, npix=PROD_NPIX,
     one call, the median wall of ``repeats`` calls after it, a float64
     DFT check at ``dft_pixels`` random pixels (1e-4 of the sampled
     max), B1 against its plain version on the plan's largest plane
-    group, a per-stage breakdown and a profile of one call. Returns the
-    phase's results and the image (for predict's adjoint identity).
+    group, ``build_invert``'s device part against the composition before
+    B2L (:func:`fused_against_unfused`), a per-stage breakdown and a
+    profile of one call. Returns the phase's results and the image (for
+    predict's adjoint identity).
     """
+    from ska_sdp_cip_tpu_torch.ops import gridder
     from ska_sdp_cip_tpu_torch.ops.gridder import dirty_image
 
     uvw, freqs, vis, wgt = problem
@@ -2902,7 +3385,7 @@ def phase_production_invert(device, problem, npix=PROD_NPIX,
                            device=device)
 
     image, first, launches, walls = timed_calls(run, device, repeats)
-    require_launches(launches, ("b1", "b2_out_crop"), device,
+    require_launches(launches, ("b1", *INVERT_FFT), device,
                      "production invert")
     repeat_bit_equal = bit_equal(image, run())
     if not repeat_bit_equal:
@@ -2916,9 +3399,13 @@ def phase_production_invert(device, problem, npix=PROD_NPIX,
     b1_check = {"group": k, **compare_group(
         plan, group_args(plan, arrays, re_s, im_s, k),
         group_grid_chunks(plan, arrays, k), time_it=True)}
+    versus_unfused = fused_against_unfused(
+        lambda: gridder.build_invert(plan),
+        lambda fn: fn(arrays, re_s, im_s), device)
     del arrays, re_s, im_s
     out = {
         "phase": "production", "part": "invert", "npix": npix,
+        "versus_unfused": versus_unfused,
         "pixel_asec": asec, "num_vis": int(vis.size),
         "plan": plan_summary(plan),
         "first_call_seconds": first, "wall_seconds": walls,
@@ -2962,9 +3449,14 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
     sparse image of five seeded point sources against a float64 DFT of
     its nonzero pixels at ``samples`` random visibilities (1e-4 of the
     max); B3 against its plain version on the plan's largest plane
-    group of random planes; the median wall of ``repeats`` calls,
-    launch counts, a breakdown and a profile of the device part.
+    group of random planes; ``build_predict``'s device part on the noise
+    image against the composition before B2L
+    (:func:`fused_against_unfused`); the median wall of ``repeats``
+    calls, launch counts, a breakdown and a profile of the device part.
     """
+    import torch
+
+    from ska_sdp_cip_tpu_torch.ops import gridder
     from ska_sdp_cip_tpu_torch.ops.gridder import (
         dirty_image,
         predict_visibilities,
@@ -2982,7 +3474,7 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
                                     device=device)
 
     model, first, launches, walls = timed_calls(run, device, repeats)
-    require_launches(launches, ("b3", "b2_in_crop"), device,
+    require_launches(launches, ("b3", *PREDICT_FFT), device,
                      "production predict")
     weighted = (vis * wgt).astype(np.complex128)
     lhs = float(np.vdot(image.astype(np.float64), dirty.astype(np.float64)))
@@ -3023,7 +3515,12 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
     b3_check = {"group": k, **compare_degrid(
         plan, arrays, grids, k, group_chunks(plan, arrays, k),
         time_it=True)}
-    del arrays, grids
+    del grids
+    noise = torch.as_tensor(image, device=device)
+    versus_unfused = fused_against_unfused(
+        lambda: gridder.build_predict(plan),
+        lambda fn: fn(arrays, noise), device)
+    del arrays, noise
     norms = float(np.linalg.norm(image.astype(np.float64))
                   * np.linalg.norm(d64))
     out = {
@@ -3046,6 +3543,7 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
         "sparse_dft_check": {"samples": samples, "max_abs_err": err,
                              "rel_to_max": err / float(np.abs(ref).max())},
         "b3_check": b3_check,
+        "versus_unfused": versus_unfused,
         "first_call_seconds": first, "wall_seconds": walls,
         "median_wall_seconds": statistics.median(walls),
         "launches": launches,
@@ -3072,26 +3570,30 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
 
 @contextlib.contextmanager
 def predict_rows_first():
-    """Run predict's two B2 passes in the other order: along the image's
-    rows first, then its columns (the grid comes out transposed and is
-    copied into the stack). A witness of what the pass order does to
-    the adjoint identity, not a path of the port."""
+    """Run predict's two passes in the other order: the image screened by
+    torch ops, then the pass along axis 0 (B2) first and the one along
+    its rows (B2L) second, into the stack. A witness of what the pass
+    order does to the adjoint identity, not a path of the port."""
+    import torch
+
     from ska_sdp_cip_tpu_torch.ops import fft_cuda, gridder
 
-    def run(f, img_t_re, img_t_im, *, meta, out, **kw):
-        b_re, b_im = fft_cuda.fft2_from_image_fused(
-            f, img_t_re.t().contiguous(), img_t_im.t().contiguous(),
-            meta=meta, **kw)
-        out[0].copy_(b_re.t())
-        out[1].copy_(b_im.t())
-        return out
+    def run(plan, arrays, img0, coef, nm1s, fmeta, out_re, out_im):
+        if plan.wstacking:
+            re, im = fft_cuda.screen_load_reference(img0, nm1s, coef)
+        else:
+            re, im = img0, torch.zeros_like(img0)
+        a_re, a_im = gridder.fft_first_axis_fused(
+            re, im, arrays, meta=fmeta, sign=-1, prefix="fftq")
+        gridder.fft_last_axis_fused(a_re, a_im, arrays, meta=fmeta, sign=-1,
+                                    prefix="fftq", out=(out_re, out_im))
 
-    saved = gridder.fft2_from_image_fused
-    gridder.fft2_from_image_fused = run
+    saved = gridder._screened_grid
+    gridder._screened_grid = run
     try:
         yield
     finally:
-        gridder.fft2_from_image_fused = saved
+        gridder._screened_grid = saved
 
 
 def noise_image(npix: int, seed: int) -> np.ndarray:
@@ -3223,9 +3725,12 @@ def phase_large(device, path: Path, seed=1234, npix=LARGE_NPIX,
     standard-normal image I, gated on the adjoint identity
     |<I, D> - Re<v, G I>| / (|I| |D|) <= 1e-6 (D the invert's image
     unnormalized, v the weighted visibilities), and B3 against its plain
-    version on the largest plane group of random planes; last B2 at
-    n = 32768 (both crops, at m = 32768 and 16384 by default) against
-    its plain version and ``torch.fft``.
+    version on the largest plane group of random planes; the invert's
+    and predict's device parts against the composition before B2L
+    (:func:`fused_against_unfused`: bits, times, peak memory, profiles);
+    last B2 at n = 32768 (both crops, at m = 32768 and 16384 by default)
+    and B2L at n = 32768 and 16384 rows (:func:`phase_b2l`) against
+    their plain versions and ``torch.fft``.
     """
     import torch
 
@@ -3233,6 +3738,7 @@ def phase_large(device, path: Path, seed=1234, npix=LARGE_NPIX,
     from ska_sdp_cip_tpu_torch.invert import StokesIGridderInput
     from ska_sdp_cip_tpu_torch.models import MeasurementOperator
     from ska_sdp_cip_tpu_torch.ops import cuda_gridder as cg
+    from ska_sdp_cip_tpu_torch.ops import gridder
     from ska_sdp_cip_tpu_torch.ops.gridder import group_active_blocks
     from ska_sdp_cip_tpu_torch.probes.common import cuda_ms
 
@@ -3252,7 +3758,7 @@ def phase_large(device, path: Path, seed=1234, npix=LARGE_NPIX,
     sync()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    require_launches(launches, ("b1", "b2_out_crop"), device, "large invert")
+    require_launches(launches, ("b1", *INVERT_FFT), device, "large invert")
     expected = expected_pixel(seed, npix, asec)
     peak = np.unravel_index(int(np.argmax(image)), image.shape)
     out = {"phase": "large", "npix": npix, "pixel_asec": asec,
@@ -3301,6 +3807,9 @@ def phase_large(device, path: Path, seed=1234, npix=LARGE_NPIX,
     out["b1_check"] = {"group": k, **compare_group(
         plan, group_args(plan, arrays, re_s, im_s, k),
         group_grid_chunks(plan, arrays, k), time_it=True, iters=2)}
+    out["invert_versus_unfused"] = fused_against_unfused(
+        lambda: gridder.build_invert(plan),
+        lambda fn: fn(arrays, re_s, im_s), device)
     del arrays, re_s, im_s
 
     free_device_memory(device)
@@ -3318,7 +3827,7 @@ def phase_large(device, path: Path, seed=1234, npix=LARGE_NPIX,
     sync()
     out["predict_seconds"] = time.perf_counter() - t0
     out["predict_launches"] = read_launches()
-    require_launches(out["predict_launches"], ("b3", "b2_in_crop"), device,
+    require_launches(out["predict_launches"], ("b3", *PREDICT_FFT), device,
                      "large predict")
     f64 = dict(dtype=torch.float64, device=device)
     dirty = torch.as_tensor(image, **f64) * float(weights.sum())
@@ -3346,11 +3855,19 @@ def phase_large(device, path: Path, seed=1234, npix=LARGE_NPIX,
     out["b3_check"] = {"group": k, **compare_degrid(
         op.plan, op.arrays, grids, k, group_chunks(op.plan, op.arrays, k),
         time_it=True, iters=2)}
-    del op, grids
+    del grids
+    free_device_memory(device)
+    noise = torch.randn((npix, npix), generator=gen, device=device)
+    out["predict_versus_unfused"] = fused_against_unfused(
+        lambda: gridder.build_predict(op.plan),
+        lambda fn: fn(op.arrays, noise), device)
+    del op, noise
 
     free_device_memory(device)
     out["b2"] = phase_b2(device, plan.ngrid, npix, iters=3,
                          widths=b2_widths)["cases"]
+    free_device_memory(device)
+    out["b2l"] = phase_b2l(device, plan.ngrid, npix, iters=3)["cases"]
     out["peak_gib"] = peak_gib(device)
     free_device_memory(device)
     return out
@@ -3436,7 +3953,7 @@ def phase_solvers_cli(device, path: Path, workdir: Path, seed=1234,
     for scheme in ("robust", "uniform"):
         call = cli_call(device, argv(scheme, "--weighting", scheme,
                                      "--robust", 0.0))
-        require_launches(call["launches"], ("b1", "b2_out_crop"), device,
+        require_launches(call["launches"], ("b1", *INVERT_FFT), device,
                          f"cli {scheme}")
         image = np.load(workdir / f"{scheme}.npy")
         call["finite"] = bool(np.isfinite(image).all())
@@ -3450,7 +3967,7 @@ def phase_solvers_cli(device, path: Path, workdir: Path, seed=1234,
 
     call = cli_call(device, argv("multiscale", "--clean", 2, "--algorithm",
                                  "multiscale", "--minor-iter", minor_iter))
-    require_launches(call["launches"], ("b1", "b2_out_crop", "b2_in_crop",
+    require_launches(call["launches"], ("b1", *INVERT_FFT, *PREDICT_FFT,
                                         "b3"), device, "cli multiscale")
     images = load("multiscale")
     call.update(clean_gates(
@@ -3464,7 +3981,7 @@ def phase_solvers_cli(device, path: Path, workdir: Path, seed=1234,
         call = cli_call(device, argv("fista", "--clean", 1, "--algorithm",
                                      "fista", "--minor-iter",
                                      fista_minor_iter))
-    require_launches(call["launches"], ("b1", "b2_out_crop", "b2_in_crop",
+    require_launches(call["launches"], ("b1", *INVERT_FFT, *PREDICT_FFT,
                                         "b3"), device, "cli fista")
     images = load("fista")
     dirty_peak = float(np.abs(images[".npy"]).max())
@@ -3602,7 +4119,7 @@ def phase_solvers_production_multiscale(device, op, staged, sources,
     out["launches"] = read_launches()
     if device.type == "cuda":
         out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    require_launches(out["launches"], ("b1", "b2_out_crop", "b2_in_crop",
+    require_launches(out["launches"], ("b1", *INVERT_FFT, *PREDICT_FFT,
                                        "b3"), device, "production multiscale")
     dirty = op.dirty_image(staged)
     out.update(clean_gates(model, residual, float(dirty.abs().max()),
@@ -3676,7 +4193,7 @@ def phase_solvers_production_fista(device, op, staged, num_iter=3) -> dict:
            "residual_max": float(residual.abs().max()),
            "model_min": float(model.min()), "model_max": float(model.max())}
     del model, residual
-    require_launches(out["launches"], ("b1", "b2_out_crop", "b2_in_crop",
+    require_launches(out["launches"], ("b1", *INVERT_FFT, *PREDICT_FFT,
                                        "b3"), device, "production fista")
     if not (np.isfinite(trace).all() and out["model_min"] >= 0.0
             and out["residual_max"] < dirty_peak):
@@ -3705,18 +4222,20 @@ def kernel_entry(name, source, replaces, launches, by_path=None, **nums):
     return entry
 
 
-def kernels_line(b1, b2, b3, b6, probes, production, large,
+def kernels_line(b1, b2, b2l, b3, b6, probes, production, large,
                  by_path) -> list:
     """
     One entry per kernel of the port: launches on its path (the main
-    paths for B1-B3, the probe phases for B6, tiled B2 and P1-P3), its
-    error against its plain version, its time, the plain version's, the
-    bound and the library call's time (null where no PyTorch call
-    computes the same function), all from this run; B1-B3 also at the
-    production shapes (``production``: the B1 and B3 checks of the
-    production phase, B2's production cases of the b2 phase) and at the
-    large image's (``large``: the large phase's B1 and B3 checks, B1's
-    time on each plane group, its B2 cases at n = 32768).
+    paths for B1-B3 and B2L, the probe phases for B6, tiled B2 and
+    P1-P3), its error against its plain version, its time, the plain
+    version's, the bound and the library call's time (null where no
+    PyTorch call computes the same function), all from this run; B1-B3
+    and B2L also at the production shapes (``production``: the B1 and
+    B3 checks of the production phase, B2's and B2L's production cases
+    of the b2 and b2l phases, B2L's screened halves against the
+    composition they replaced) and at the large image's (``large``: the
+    large phase's B1 and B3 checks, B1's time on each plane group, its
+    B2 and B2L cases at n = 32768).
     """
     row_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
@@ -3729,6 +4248,8 @@ def kernels_line(b1, b2, b3, b6, probes, production, large,
                  "repeat_bit_equal", "zero_ms", "fold_ms")
     b2_keys = ("n", "m", "rows_in", *prod_keys, "two_launch_floor_ms",
                "gb_per_s", "gb_per_s_with_z")
+    b2l_keys = ("n", "rows", "row_len", *prod_keys, "two_launch_floor_ms",
+                "gb_per_s", "gb_per_s_with_z", "b2_on_transpose_equal")
 
     def count(key, path):
         return by_path[path][key]
@@ -3773,6 +4294,24 @@ def kernels_line(b1, b2, b3, b6, probes, production, large,
                          for c in b2.get("slab_widths", [])
                          if c["pass"] == crop],
             large=[{k: c[k] for k in b2_keys} for c in large["b2"]
+                   if c["pass"] == crop],
+        ))
+    b2l_cases = {(c["pass"], c["rows"]): c for c in b2l["cases"]}
+    for crop, path in (("out_crop", "slice"), ("in_crop", "major_cycle")):
+        bench = b2l_cases[(crop, BENCH_NPIX)]
+        entries.append(kernel_entry(
+            f"fft_last_axis_fused[{crop}]", "fft_last_axis.cu",
+            f"{fused}:238", count(f"b2l_{crop}", path),
+            paths(f"b2l_{crop}"),
+            **{k: bench[k] for k in row_keys},
+            library_call=bench["library_call"],
+            bench=[{k: c[k] for k in b2l_keys} for c in b2l["cases"]
+                   if c["pass"] == crop],
+            production=[{k: c[k] for k in b2l_keys}
+                        for c in b2l["production"] if c["pass"] == crop],
+            production_screen=[c for c in b2l["production_screens"]
+                               if c["pass"] == crop],
+            large=[{k: c[k] for k in b2l_keys} for c in large["b2l"]
                    if c["pass"] == crop],
         ))
     n = tiled["ngrid"]
@@ -3908,6 +4447,11 @@ def main() -> int:
     b2["production"] = phase_b2(device, PROD_NGRID, PROD_NPIX,
                                 iters=5)["cases"]
     emit(b2)
+    b2l = phase_b2l(device, widths=(BENCH_NGRID, BENCH_NPIX))
+    prod = phase_b2l(device, PROD_NGRID, PROD_NPIX, iters=5, screens=True)
+    b2l["production"], b2l["production_screens"] = (prod["cases"],
+                                                    prod["screens"])
+    emit(b2l)
     b3 = phase_b3(device, bench, bench_w0)
     emit(b3)
     del bench_w0
@@ -3970,7 +4514,8 @@ def main() -> int:
     by_sharded.update({f"sharded_tiles_{c['fft_mode']}": c["launches"]
                        for c in sharded["tiles"]})
     b2["slab_widths"] = sharded["b2_slab_widths"]
-    emit({"kernels": kernels_line(b1, b2, b3, b6, probes, production, large, {
+    emit({"kernels": kernels_line(b1, b2, b2l, b3, b6, probes, production,
+                                  large, {
         **by_sharded,
         "e2e_small": e2e["launches"],
         "e2e_tiny": tiny["launches"],

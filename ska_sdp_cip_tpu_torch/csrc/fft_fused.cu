@@ -69,6 +69,13 @@
 //   stage-1 blocks all over the card produce. A single launch would hold
 //   a column tile's n values in the distributed shared memory of a
 //   thread-block cluster (later work, ROADMAP).
+// * On the single-device invert and predict B2 runs one pass of each
+//   plane's 2-D transform, along axis 0; the other runs along the last
+//   axis in B2L (csrc/fft_last_axis.cu: the same arithmetic from this
+//   kernel's stage code, with the w-screen and the image accumulation
+//   in its loads and stores), so no plane is transposed. The TPU kernel
+//   ran both passes along axis 0 with a transpose between them; the
+//   distributed mode still does (ROADMAP).
 //
 // Tiled input: stage 1 reads the same values from B6's layout
 // (NC, m / MB, n1i, C, MB), MB = 128, through a second base and row

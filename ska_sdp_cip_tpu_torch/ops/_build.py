@@ -10,8 +10,8 @@ first use, and loaded with ``ctypes``:
          -Xcompiler -fPIC -o build/torch_kernels/<stem>_<hash>.so csrc/<stem>.cu
 
 A library's name carries a hash of the flags, its source and the
-sources that includes (``fft_fused.cu`` and ``fft_probes.cu`` include
-``fft_stages.cuh``), so
+sources that includes (``fft_fused.cu``, ``fft_last_axis.cu`` and
+``fft_probes.cu`` include ``fft_stages.cuh``), so
 an edited source never loads a stale build and rebuilds only the
 libraries made from it. The build directory is
 ``build/torch_kernels/`` beside the package. ``nvcc`` is taken from
@@ -148,6 +148,9 @@ def _declare(lib) -> None:
     lib.cip_fft_first_axis_fused.restype = c_int
     lib.cip_fft_first_axis_fused_tiled.argtypes = b2 + [c_int, c_i64, ptr]
     lib.cip_fft_first_axis_fused_tiled.restype = c_int
+    lib.cip_fft_last_axis_fused.argtypes = [ptr] * 12 + [c_int] * 7 + [
+        c_i64] + [c_int] * 4 + [c_i64] * 2 + [c_int, c_int, c_i64, ptr]
+    lib.cip_fft_last_axis_fused.restype = c_int
     lib.cip_pretile_first_axis.argtypes = [ptr] * 4 + [c_int] * 4 + [
         c_i64, ptr,
     ]

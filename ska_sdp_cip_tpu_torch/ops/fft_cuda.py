@@ -1,7 +1,9 @@
 """
 Fused four-step DFT along the first axis: kernel B2
-(``csrc/fft_fused.cu``), the input re-lay B6 (``csrc/pretile.cu``) and
-their plain PyTorch versions.
+(``csrc/fft_fused.cu``), the same transform along the last axis with the
+w-screen in its loads and stores: kernel B2L (``csrc/fft_last_axis.cu``),
+the input re-lay B6 (``csrc/pretile.cu``) and their plain PyTorch
+versions.
 
 Counterpart: ``ska_sdp_cip_tpu/ops/fft_pallas.py`` —
 ``fused_pass_meta`` (copied with ``FusedPassMeta``),
@@ -10,8 +12,10 @@ bf16 hi/lo split there fed the TPU's bf16 matrix unit; the tests hold
 its layouts against the counterpart's), ``fft_first_axis_fused``
 (the Pallas kernel, replaced by :func:`fft_first_axis_fused`, with its
 ``tiled`` input mode), ``pretile_first_axis`` (replaced by
-:func:`pretile_first_axis`) and ``fft2_from_image_fused`` (predict's
-forward 2-D transform, here from the transposed image). As in the counterpart, nothing on the invert
+:func:`pretile_first_axis`) and ``fft2_from_image_fused`` (the forward
+2-D transform as two B2 passes, here from the transposed image; predict
+now runs B2L and B2 instead, and ``chip_smoke.py`` times this beside
+it). As in the counterpart, nothing on the invert
 or predict path uses the tiled mode: ``probes/fft_tiled.py`` measures it.
 
 The B2 kernel runs each four-step stage as a short FFT (radix passes
@@ -26,11 +30,21 @@ crop, factors ``fftp_*`` at sign +1) or in-cropped (predict: the input
 holds only ``meta.in_size`` rows of the zero-padded image, stage 1
 runs over the covering ``n1i`` rows, factors ``fftq_*`` at sign -1).
 
+B2L (:func:`fft_last_axis_fused`) computes for each row what B2
+computes for each column of the transposed array, from the same
+``meta`` and sub-FFT tables plus the plan's twiddle in its own (n1, n2)
+layout (:func:`last_axis_kernel_arrays`), so a plane's 2-D transform is
+one B2 and one B2L pass with no transpose between them. Its ``screen``
+and ``acc`` run the invert's w-screen and image accumulation in its
+store and predict's screen in its load; their plain versions are
+:func:`screen_load_reference` and :func:`screen_accumulate_reference`.
+
 :func:`fft_first_axis_fused` dispatches on the device of its tensors:
 CUDA tensors go to the hand-written kernel (or raise), CPU tensors to
 :func:`fft_first_axis_reference`, the torch ``fft_first_axis`` with
 ``in_crop``/``out_crop`` (``ops/fft.py``). Nothing falls back from one
-to the other.
+to the other; :func:`fft_last_axis_fused` dispatches the same way, to
+B2L or to :func:`fft_last_axis_reference`.
 """
 
 from __future__ import annotations
@@ -53,6 +67,12 @@ IN_CROP_LAUNCHES = 0
 TILED_LAUNCHES = 0
 PRETILE_LAUNCHES = 0
 
+#: Launches of the B2L kernel (one per :func:`fft_last_axis_fused` call
+#: on CUDA tensors): out-cropped passes (invert) and in-cropped passes
+#: (predict).
+LAST_AXIS_LAUNCHES = 0
+LAST_AXIS_IN_CROP_LAUNCHES = 0
+
 #: Column block of the counterpart's geometry (its ``MB``); the port
 #: keeps it so ``fused_pass_meta`` gives the same geometry.
 MB = 128
@@ -71,6 +91,15 @@ MAX_SUB_FFT = SMEM_BYTES // (2 * 2 * 4 * 4)
 #: The factor tensors of one pass that B2 and its probes read
 #: (:func:`pass_factors`).
 B2_FACTORS = ("twc", "tws", "fft1_tw", "fft2_tw")
+
+#: The factor tensors of one pass that B2L reads: the twiddle in the
+#: plan's (n1, n2) layout and B2's sub-FFT tables.
+B2L_FACTORS = ("twlc", "twls", "fft1_tw", "fft2_tw")
+
+#: B2L's stage-2 stores (``out_mode`` of ``csrc/fft_last_axis.cu``):
+#: the result, Re(screen x result) added into an image, or its real
+#: part added.
+_STORE, _SCREEN_ACCUMULATE, _ACCUMULATE = 0, 1, 2
 
 #: The column tile B2's probes P1/P2 are built for (``csrc/fft_probes.cu``;
 #: B2's for every sub-FFT up to 454), and P1's ring depths S.
@@ -282,6 +311,22 @@ def sub_fft_columns(n: int) -> int:
                      f"got {n}")
 
 
+def last_axis_columns(n: int) -> int:
+    """
+    Lanes per block of B2L's stage 2, whose length-``n`` sub-FFT stages
+    its tile transposed into rows padded to C + 1 words: the widest of
+    32, 16, 8 and 4 whose two buffers (2 x n x (C + 1) float32 each) fit
+    :data:`SMEM_BYTES`; 32 for every n <= 440. (Stage 1 is staged
+    unpadded and takes :func:`sub_fft_columns`.)
+    """
+    sub_fft_radices(n)
+    for cols in (32, 16, 8, 4):
+        if 2 * 2 * n * (cols + 1) * 4 <= SMEM_BYTES:
+            return cols
+    raise ValueError(f"B2L takes sub-FFT lengths up to "
+                     f"{SMEM_BYTES // (2 * 2 * 5 * 4)}, got {n}")
+
+
 def sub_fft_twiddles(n: int, sign: int) -> np.ndarray:
     """
     The Stockham twiddles of B2's length-``n`` sub-FFT as an (n - 1, 2)
@@ -360,6 +405,30 @@ def fused_pass_kernel_arrays(plan: FFTPlan, meta: FusedPassMeta, *,
     }
 
 
+def last_axis_kernel_arrays(plan: FFTPlan, meta: FusedPassMeta, *,
+                            sign: int, prefix: str) -> dict:
+    """
+    The factors the B2L kernel reads for one pass at ``sign``
+    (:data:`B2L_FACTORS`): the twiddle between the stages in the plan's
+    own (n1, n2) layout, ``{prefix}_twlc`` (cos) and ``{prefix}_twls``
+    (sin with ``sign`` folded in), so the lanes of a warp (32
+    consecutive j2) read 128 contiguous bytes, the same float32 values
+    as B2's ``twc``/``tws``; and B2's sub-FFT tables and
+    ``{prefix}_sign`` (:func:`fused_pass_kernel_arrays` gives the same
+    values under the same keys).
+    """
+    n1, n2 = meta.n1, meta.n2
+    return {
+        f"{prefix}_twlc": np.ascontiguousarray(plan.tw_cos, np.float32)
+        .reshape(n1, n2),
+        f"{prefix}_twls": (float(sign) * plan.tw_sin).astype(np.float32)
+        .reshape(n1, n2),
+        f"{prefix}_fft1_tw": sub_fft_twiddles(n1, sign),
+        f"{prefix}_fft2_tw": sub_fft_twiddles(n2, sign),
+        f"{prefix}_sign": int(sign),
+    }
+
+
 def _out_crop(meta: FusedPassMeta) -> tuple:
     return (meta.k2a * meta.n1 + meta.trim0, meta.size)
 
@@ -380,6 +449,38 @@ def fft_first_axis_reference(re, im, f, *, meta: FusedPassMeta, sign: int):
         re, im, f, sign=sign, in_crop=_in_crop(meta),
         out_crop=_out_crop(meta),
     )
+
+
+def fft_last_axis_reference(re, im, f, *, meta: FusedPassMeta, sign: int):
+    """
+    Plain version of B2L's pass: :func:`fft_first_axis_reference` on the
+    transposed (rows, row length) input, its result transposed back into
+    contiguous (rows, ``meta.size``) tensors.
+    """
+    out = fft_first_axis_reference(re.t().contiguous(), im.t().contiguous(),
+                                   f, meta=meta, sign=sign)
+    return tuple(x.t().contiguous() for x in out)
+
+
+def screen_load_reference(img, nm1s, coef):
+    """
+    Plain version of B2L's screened load (predict): the real image
+    ``img`` times the w-screen e^(i theta), theta = ``coef`` x ``nm1s``
+    (``coef`` = 2 pi w as a one-element float32 tensor), as (re, im).
+    """
+    theta = coef * nm1s
+    return img * torch.cos(theta), img * torch.sin(theta)
+
+
+def screen_accumulate_reference(acc, re, im, nm1s, coef):
+    """
+    Plain version of B2L's screened accumulation (invert): ``acc`` +=
+    Re(e^(i theta) (re + i im)) = re cos(theta) - im sin(theta), theta =
+    ``coef`` x ``nm1s`` (``coef`` = -2 pi w as a one-element float32
+    tensor), in place; returns ``acc``.
+    """
+    theta = coef * nm1s
+    return acc.add_(re * torch.cos(theta) - im * torch.sin(theta))
 
 
 def tiled_shape(meta: FusedPassMeta, m: int) -> tuple:
@@ -551,13 +652,93 @@ def fft2_from_image_fused(f, img_t_re, img_t_im, *, meta: FusedPassMeta,
     )
 
 
-def pass_factors(f, meta: FusedPassMeta, *, sign: int, prefix: str,
-                 device) -> dict:
+def fft_last_axis_fused(re, im, f, *, meta: FusedPassMeta, sign: int,
+                        prefix: str = "fftp", out: tuple | None = None,
+                        z: tuple | None = None, screen: tuple | None = None,
+                        acc=None):
     """
-    The ``{prefix}_*`` factor tensors of :data:`B2_FACTORS` for one pass
-    as B2 and its probes read them: float32 on ``device`` in the shapes
-    of :func:`fused_pass_kernel_arrays`, built for ``sign`` (raises
-    otherwise; a missing table raises ``KeyError``).
+    DFT along the last axis of (rows, row length) split float32 tensors:
+    for each row what :func:`fft_first_axis_fused` computes for each
+    column of the transposed tensors, from the same ``meta`` (rows of
+    length n cropped to ``meta.size`` columns, or ``meta.in_size``
+    columns of a zero-padded row transformed to n). On CUDA tensors this
+    launches the B2L kernel with the factors ``{prefix}_*`` of
+    :func:`last_axis_kernel_arrays` (raises unless they were built for
+    ``sign``); on CPU tensors it runs :func:`fft_last_axis_reference`
+    (with the plain screen and accumulation) on the plan factors
+    ``fft_*`` of the same dict.
+
+    ``screen=(nm1s, coef)``: the w-screen e^(i coef nm1s), ``coef`` a
+    one-element float32 tensor on the device (read there: no host
+    sync). With ``acc`` (invert) it is applied in the store: ``acc``,
+    contiguous float32 (rows, ``meta.size``), gets Re(screen x result)
+    added and is returned, and ``nm1s`` is (rows, ``meta.size``).
+    Without ``acc`` (predict) it is applied in the load: ``re`` is a real
+    image, ``im`` must be None, ``nm1s`` has ``re``'s shape, and the
+    input is ``re`` x screen. ``acc`` without ``screen`` adds the
+    result's real part. ``out``/``z`` as for
+    :func:`fft_first_axis_fused` (z: (rows, n)).
+    """
+    screened_load = screen is not None and acc is None
+    if screened_load and im is not None:
+        raise ValueError("a screened load takes a real input: im must be "
+                         "None")
+    if not screened_load and im is None:
+        raise ValueError("im is None, but no screen was given for the load")
+    if im is not None and (re.device != im.device or re.shape != im.shape):
+        raise ValueError("re and im must have one shape and one device")
+    row_len = meta.in_size or meta.n1 * meta.n2
+    if re.dim() != 2 or re.shape[1] != row_len:
+        raise ValueError(f"input shape {tuple(re.shape)} != (rows, "
+                         f"{row_len})")
+    rows = re.shape[0]
+    shape_out = (rows, meta.size)
+    if acc is not None:
+        if out is not None:
+            raise ValueError("acc and out exclude each other")
+        _check_out((acc,), shape_out, re.device, "acc")
+    if out is not None:
+        _check_out(out, shape_out, re.device, "out")
+    if screen is not None:
+        nm1s, coef = screen
+        want = shape_out if acc is not None else tuple(re.shape)
+        _check_out((nm1s,), want, re.device, "nm1s")
+        if (coef.device != re.device or coef.dtype != torch.float32
+                or coef.numel() != 1):
+            raise ValueError("coef must be a one-element float32 tensor "
+                             "on the input's device")
+    if z is not None and re.device.type != "cuda":
+        raise ValueError("z is the kernel's intermediate; the plain "
+                         "version on the CPU has none")
+    if re.device.type == "cuda":
+        return _fft_last_axis_cuda(re, im, f, meta=meta, sign=sign,
+                                   prefix=prefix, out=out, z=z,
+                                   screen=screen, acc=acc)
+    if re.device.type != "cpu":
+        raise ValueError(f"unsupported device {re.device}")
+    if screened_load:
+        re, im = screen_load_reference(re, *screen)
+    got = fft_last_axis_reference(re, im, f, meta=meta, sign=sign)
+    if acc is not None:
+        if screen is not None:
+            return screen_accumulate_reference(acc, *got, *screen)
+        return acc.add_(got[0])
+    if out is None:
+        return got
+    for dst, src in zip(out, got):
+        dst.copy_(src)
+    return out
+
+
+def pass_factors(f, meta: FusedPassMeta, *, sign: int, prefix: str,
+                 device, names: tuple = B2_FACTORS) -> dict:
+    """
+    The ``{prefix}_*`` factor tensors of ``names`` (:data:`B2_FACTORS`,
+    or B2L's :data:`B2L_FACTORS`) for one pass as the kernels read them:
+    float32 on ``device`` in the shapes of
+    :func:`fused_pass_kernel_arrays` and :func:`last_axis_kernel_arrays`,
+    built for ``sign`` (raises otherwise; a missing table raises
+    ``KeyError``).
     """
     if f.get(f"{prefix}_sign") != sign:
         raise ValueError(
@@ -567,11 +748,13 @@ def pass_factors(f, meta: FusedPassMeta, *, sign: int, prefix: str,
     shapes = {
         "twc": (meta.nc, meta.n1, meta.c, 1),
         "tws": (meta.nc, meta.n1, meta.c, 1),
+        "twlc": (meta.n1, meta.n2),
+        "twls": (meta.n1, meta.n2),
         "fft1_tw": (meta.n1 - 1, 2),
         "fft2_tw": (meta.n2 - 1, 2),
     }
     tensors = {}
-    for name in B2_FACTORS:
+    for name in names:
         shape = shapes[name]
         t = f[f"{prefix}_{name}"]
         if t.device != device or t.dtype != torch.float32:
@@ -672,3 +855,61 @@ def _fft_first_axis_cuda(re, im, f, *, meta, sign, prefix, tiled, out, z):
         else:
             LAUNCHES += 1
     return out_re, out_im
+
+
+def _fft_last_axis_cuda(re, im, f, *, meta, sign, prefix, out, z, screen,
+                        acc):
+    global LAST_AXIS_LAUNCHES, LAST_AXIS_IN_CROP_LAUNCHES
+    from . import _build
+
+    factors = pass_factors(f, meta, sign=sign, prefix=prefix,
+                           device=re.device, names=B2L_FACTORS)
+    n1, n2 = meta.n1, meta.n2
+    for name, t in (("re", re), ("im", im)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be a float32 tensor")
+    re = re.contiguous()
+    im = None if im is None else im.contiguous()
+    rows = re.shape[0]
+    if z is None:
+        z_re = torch.empty((rows, n1 * n2), dtype=torch.float32,
+                           device=re.device)
+        z = (z_re, torch.empty_like(z_re))
+    else:
+        _check_out(z, (rows, n1 * n2), re.device, "z")
+    nm1s, coef = screen if screen is not None else (None, None)
+    if acc is not None:
+        out_re, out_im = acc, None
+        mode = _ACCUMULATE if screen is None else _SCREEN_ACCUMULATE
+    else:
+        if out is None:
+            out_re = torch.empty((rows, meta.size), dtype=torch.float32,
+                                 device=re.device)
+            out_im = torch.empty_like(out_re)
+        else:
+            out_re, out_im = out
+        mode = _STORE
+    screen_in = int(screen is not None and acc is None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _build.load_library()
+    err = lib.cip_fft_last_axis_fused(
+        re.data_ptr(), ptr(im), factors["twlc"].data_ptr(),
+        factors["twls"].data_ptr(), factors["fft1_tw"].data_ptr(),
+        factors["fft2_tw"].data_ptr(), z[0].data_ptr(), z[1].data_ptr(),
+        out_re.data_ptr(), ptr(out_im), ptr(nm1s), ptr(coef), screen_in,
+        mode, int(n1), int(n2), int(meta.j1a), int(meta.n1_in),
+        int(meta.pad_lo if meta.in_size else 0), int(re.shape[1]),
+        int(meta.k2a), int(meta.trim0), int(meta.size), int(sign),
+        _packed_radices(n1), _packed_radices(n2), sub_fft_columns(n1),
+        last_axis_columns(n2), int(rows),
+        torch.cuda.current_stream(re.device).cuda_stream,
+    )
+    _build.check(err, "cip_fft_last_axis_fused")
+    if meta.in_size:
+        LAST_AXIS_IN_CROP_LAUNCHES += 1
+    else:
+        LAST_AXIS_LAUNCHES += 1
+    return acc if acc is not None else (out_re, out_im)

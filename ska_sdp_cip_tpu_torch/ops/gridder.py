@@ -18,22 +18,27 @@ Counterpart: ``ska_sdp_cip_tpu/ops/gridder.py``:
   kernels write and read the periodic grid themselves);
 * the plane-group branch of ``build_invert``: per group of G planes,
   gridding and fold (kernel B1, ``ops/cuda_gridder.py``, over the
-  destination rectangles of :func:`grid_chunks`) -> two fused first-axis DFT passes per
-  plane (kernel B2, ``ops/fft_cuda.py``; the counterpart's
-  ``_fft2_to_image_fused_t``) -> w-screen correction -> accumulate ->
-  ``finalize_image``;
+  destination rectangles of :func:`grid_chunks`) -> per plane one
+  fused DFT pass along axis 0 (kernel B2, ``ops/fft_cuda.py``) and one
+  along the last axis (kernel B2L) whose store applies the w-screen and
+  adds the plane into the image (the counterpart's
+  ``_fft2_to_image_fused_t``, its transposes, screen and accumulation)
+  -> ``finalize_image``; the image comes out the right way round, with
+  no transpose anywhere;
 * the plane-group branch of ``build_predict``, its adjoint: per group,
-  per plane w-screen -> two in-cropped fused DFT passes (B2, the
-  counterpart's ``fft2_from_image_fused`` on the transposed image, so
-  the second pass writes the periodic grid row-major into the group's
-  stack), then one unfold-and-degrid launch for the group (kernel B3)
-  into a slot accumulator -> ``_finalize``. Both loops also serve
+  per plane one in-cropped B2L pass whose load applies the w-screen to
+  the image, then one in-cropped B2 pass along axis 0 that writes the
+  periodic grid row-major into the group's stack (the counterpart's
+  screen and ``fft2_from_image_fused``, with no transpose), then one
+  unfold-and-degrid launch for the group (kernel B3) into a slot
+  accumulator -> ``_finalize``. Both loops also serve
   ``plane_group == 1``;
 * the distributed mode of ``build_invert`` and ``build_predict`` (the
   counterpart's ``mesh_axis`` / ``num_shards`` branches) over a mesh of
   ``parallel/mesh.py``: the plane grids reduced and scattered over the
   shards, B2 run on column slabs of N/S and npix/S with an all-to-all
-  between the passes;
+  between the passes (this mode keeps B2 on both passes, with its
+  transposes and torch's screens: ROADMAP.md, Queue B);
 * ``dirty_image`` on the compact staging path and
   ``predict_visibilities``, whose results come down through pinned
   buffers (``utils/staging.py``).
@@ -64,10 +69,11 @@ from .cuda_gridder import (  # noqa: F401  (the fold stays importable here,
 )
 from .fft import fft_plan_arrays, make_fft_plan
 from .fft_cuda import (
-    fft2_from_image_fused,
     fft_first_axis_fused,
+    fft_last_axis_fused,
     fused_pass_kernel_arrays,
     fused_pass_meta,
+    last_axis_kernel_arrays,
 )
 from .kernels import correction
 from .plan import GridderPlan, make_plan
@@ -445,9 +451,9 @@ def plan_host_arrays(plan: GridderPlan, device, *, invert: bool = True,
     chunk tables (:func:`tile_chunks`) and B1 work lists
     (:func:`grid_chunks`), each padded with zero rows, the
     quadrature rule, and the first-axis DFT factors of the passes that
-    run there — on a CUDA device the fused kernel's, ``fftp_*`` for the
-    ``invert`` and ``fftq_*`` for the ``predict``; on the CPU the plain
-    version's (``fft_*``), which serve both.
+    run there — on a CUDA device the fused kernels' (B2's and B2L's),
+    ``fftp_*`` for the ``invert`` and ``fftq_*`` for the ``predict``;
+    on the CPU the plain version's (``fft_*``), which serve both.
     """
     G = plan.plane_group
     wg = plan.w0 + plan.dw * np.arange(G * plan.num_groups, dtype=np.float64)
@@ -473,19 +479,17 @@ def plan_host_arrays(plan: GridderPlan, device, *, invert: bool = True,
     arrays.update(_quad_arrays(plan))
     fft_plan = make_fft_plan(plan.ngrid, shifted=True)
     if resolve_device(device).type == "cuda":
+        # B2's and B2L's tables (the sub-FFT ones are shared).
+        passes = []
         if invert:
-            arrays.update(
-                fused_pass_kernel_arrays(
-                    fft_plan, _fused_fft_meta(plan), sign=+1, prefix="fftp"
-                )
-            )
+            passes.append((_fused_fft_meta(plan), +1, "fftp"))
         if predict:
-            arrays.update(
-                fused_pass_kernel_arrays(
-                    fft_plan, _fused_fft_meta_ic(plan), sign=-1,
-                    prefix="fftq",
-                )
-            )
+            passes.append((_fused_fft_meta_ic(plan), -1, "fftq"))
+        for meta, sign, prefix in passes:
+            arrays.update(fused_pass_kernel_arrays(fft_plan, meta,
+                                                   sign=sign, prefix=prefix))
+            arrays.update(last_axis_kernel_arrays(fft_plan, meta, sign=sign,
+                                                  prefix=prefix))
     else:
         arrays.update(fft_plan_arrays(fft_plan, prefix="fft"))
     return arrays
@@ -901,21 +905,6 @@ def _prepare_sorted_vis(plan: GridderPlan, arrays: dict, vis_re, vis_im):
     return re, im
 
 
-def _fft2_to_image_t(arrays, grid_re, grid_im, fmeta):
-    """
-    Centred inverse 2-D DFT of the (N, N) grid cropped to the image,
-    returned TRANSPOSED: two fused first-axis passes (B2) with one
-    transpose between them (counterpart ``_fft2_to_image_fused_t``).
-    """
-    a_re, a_im = fft_first_axis_fused(
-        grid_re, grid_im, arrays, meta=fmeta, sign=+1
-    )
-    return fft_first_axis_fused(
-        a_re.t().contiguous(), a_im.t().contiguous(), arrays,
-        meta=fmeta, sign=+1,
-    )
-
-
 def build_invert(plan, *, mesh=None):
     """
     Returns ``invert(arrays, re_s, im_s) -> image``: the unnormalized
@@ -949,6 +938,9 @@ def build_invert(plan, *, mesh=None):
         )
         for k in range(plan.num_groups):
             w_g = arrays["plane_wg"][k]
+            # The screen's -2 pi w, rounded to float32 on the device (one
+            # op a group; B2L reads it there).
+            coef = (-2.0 * math.pi) * w_g
             planes = grid_planes(
                 arrays["packed"],
                 re_s,
@@ -961,24 +953,41 @@ def build_invert(plan, *, mesh=None):
                 plan=plan,
                 chunks=arrays["group_grid_chunks"][k, : nchunks[k]],
             )
-            # Planes of a ragged final group beyond nplanes are empty.
+            # Per plane (those of a ragged final group beyond nplanes are
+            # empty): B2 along axis 0, then B2L along the last axis, which
+            # screens the plane and adds it into the image.
             for i in range(min(G, plan.nplanes - k * G)):
-                img_re, img_im = _fft2_to_image_t(
-                    arrays, planes[2 * i], planes[2 * i + 1], fmeta
+                a_re, a_im = fft_first_axis_fused(
+                    planes[2 * i], planes[2 * i + 1], arrays, meta=fmeta,
+                    sign=+1,
                 )
-                if plan.wstacking:
-                    # nm1s is transpose-symmetric, so the transposed
-                    # images accumulate correctly.
-                    theta = (-2.0 * math.pi * w_g[i]) * nm1s
-                    image = image + (
-                        img_re * torch.cos(theta) - img_im * torch.sin(theta)
-                    )
-                else:
-                    image = image + img_re
+                screen = (nm1s, coef[i : i + 1]) if plan.wstacking else None
+                fft_last_axis_fused(a_re, a_im, arrays, meta=fmeta, sign=+1,
+                                    screen=screen, acc=image)
+                del a_re, a_im
             del planes  # free before the next group's B1 writes its own
-        return (image * inv_corr).t().contiguous()
+        return image * inv_corr
 
     return invert
+
+
+def _screened_grid(plan, arrays, img0, coef, nm1s, fmeta, out_re, out_im):
+    """
+    Predict's plane step: screen the image ``img0`` (npix, npix) with
+    e^(i coef nm1s) and transform it onto its periodic grid in ``out_*``
+    (views of the group's stack): B2L along the image's rows, screening
+    in its load, then B2 along axis 0, which writes the grid row-major.
+    """
+    if plan.wstacking:
+        b_re, b_im = fft_last_axis_fused(img0, None, arrays, meta=fmeta,
+                                         sign=-1, prefix="fftq",
+                                         screen=(nm1s, coef))
+    else:
+        b_re, b_im = fft_last_axis_fused(img0, torch.zeros_like(img0),
+                                         arrays, meta=fmeta, sign=-1,
+                                         prefix="fftq")
+    fft_first_axis_fused(b_re, b_im, arrays, meta=fmeta, sign=-1,
+                         prefix="fftq", out=(out_re, out_im))
 
 
 def build_predict(plan, *, slot_output: bool = False, mesh=None):
@@ -1011,31 +1020,11 @@ def build_predict(plan, *, slot_output: bool = False, mesh=None):
     counts = [len(ids) for ids in group_active_blocks(plan)]
     nchunks = [len(c) for c in group_tile_chunks(plan)]
 
-    def screened_grid(arrays, img0_t, w_p, nm1s, out_re, out_im):
-        """
-        Screen one plane's image and transform it onto its periodic grid
-        in ``out_*`` (views of the group's stack). The image comes
-        transposed (nm1s is transpose-symmetric, so the screen is too):
-        the first in-cropped pass then runs along the image's columns
-        and the second, along its rows, writes the grid row-major.
-        """
-        if plan.wstacking:
-            theta = (2.0 * math.pi * w_p) * nm1s
-            img_re = img0_t * torch.cos(theta)
-            img_im = img0_t * torch.sin(theta)
-        else:
-            img_re = img0_t
-            img_im = torch.zeros_like(img0_t)
-        fft2_from_image_fused(arrays, img_re, img_im, meta=fmeta,
-                              out=(out_re, out_im))
-
     def predict(arrays, image):
         inv_corr, nm1s = _geometry_maps(plan, arrays)
         device = inv_corr.device
-        # inv_corr is transpose-symmetric: this is (image * inv_corr)^T.
-        img0_t = torch.as_tensor(
-            image, dtype=torch.float32, device=device
-        ).t().contiguous() * inv_corr
+        img0 = torch.as_tensor(image, dtype=torch.float32,
+                               device=device) * inv_corr
         # One (2G, N, N) stack of periodic planes for every group; each
         # group's passes overwrite its planes whole.
         grids = torch.empty((2 * G, N, N), dtype=torch.float32,
@@ -1044,10 +1033,11 @@ def build_predict(plan, *, slot_output: bool = False, mesh=None):
                           device=device)
         for k in range(plan.num_groups):
             w_g = arrays["plane_wg"][k]
+            coef = (2.0 * math.pi) * w_g  # the screen's 2 pi w (float32)
             num_real = min(G, plan.nplanes - k * G)
             for i in range(num_real):
-                screened_grid(arrays, img0_t, w_g[i], nm1s, grids[2 * i],
-                              grids[2 * i + 1])
+                _screened_grid(plan, arrays, img0, coef[i : i + 1], nm1s,
+                               fmeta, grids[2 * i], grids[2 * i + 1])
             # Pad planes of a ragged final group: their ES w-factor is
             # zero for every block, so any finite grid works — reuse the
             # last real plane's, as the counterpart does.

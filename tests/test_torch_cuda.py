@@ -754,3 +754,155 @@ def test_ms_invert_on_card_matches_vz_invert(cuda, tmp_path):
     want = invert_dataset(VisibilityReader(vz), 128, 30.0, device=cuda)
     assert np.isfinite(got).all() and got.shape == want.shape
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _last_axis_pass(cuda, n, out_crop, in_crop, sign, prefix):
+    plan = make_fft_plan(n, shifted=True)
+    meta = tfc.fused_pass_meta(plan, out_crop, in_crop=in_crop)
+    host = fft_plan_arrays(plan, prefix="fft")
+    host.update(tfc.fused_pass_kernel_arrays(plan, meta, sign=sign,
+                                             prefix=prefix))
+    host.update(tfc.last_axis_kernel_arrays(plan, meta, sign=sign,
+                                            prefix=prefix))
+    return meta, tg.stage_arrays(host, cuda)
+
+
+#: B2L's cases (crop kind, n, crop, rows): n1 = 30 (960), 250 (156250:
+#: a 16-lane stage 2) and 686 (1647086 = 686 x 2401: a 4-lane stage 2);
+#: a 41-column in-crop runs the 4-byte staging of stage 1.
+LAST_AXIS_CASES = [("out", 96, (24, 48), 128), ("in", 96, (24, 48), 128),
+                   ("out", 960, (240, 480), 100), ("in", 960, (240, 480), 37),
+                   ("in", 960, (300, 41), 64),
+                   ("out", 15360, (2560, 10240), 6),
+                   ("in", 15360, (2560, 10240), 5),
+                   ("out", 156250, (39062, 78126), 6),
+                   ("in", 156250, (39062, 78126), 3),
+                   ("out", 1647086, (411771, 823543), 2)]
+
+
+@pytest.mark.parametrize("kind,n,crop,rows", LAST_AXIS_CASES)
+def test_last_axis_kernel_matches_plain_and_b2_on_transpose(cuda, kind, n,
+                                                            crop, rows):
+    """B2L within 1e-5 of the max of its plain version, equal bit for bit
+    to B2 on the transposed input (the same arithmetic, other
+    addresses), and to itself run again."""
+    sign, prefix = (+1, "fftp") if kind == "out" else (-1, "fftq")
+    meta, f = _last_axis_pass(cuda, n, crop if kind == "out" else None,
+                              crop if kind == "in" else None, sign, prefix)
+    width = crop[1] if kind == "in" else n
+    rng = np.random.default_rng(n + rows)
+    re, im = (torch.from_numpy(rng.normal(size=(rows, width))
+                               .astype(np.float32)).to(cuda)
+              for _ in range(2))
+    before = tfc.LAST_AXIS_LAUNCHES + tfc.LAST_AXIS_IN_CROP_LAUNCHES
+    got = tfc.fft_last_axis_fused(re, im, f, meta=meta, sign=sign,
+                                  prefix=prefix)
+    torch.cuda.synchronize()
+    assert tfc.LAST_AXIS_LAUNCHES + tfc.LAST_AXIS_IN_CROP_LAUNCHES \
+        == before + 1
+    ref = tfc.fft_last_axis_reference(re, im, f, meta=meta, sign=sign)
+    scale = max(float(r.abs().max()) for r in ref)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape == (rows, meta.size)
+        assert float((g - r).abs().max()) <= 1e-5 * scale
+    b2 = tfc.fft_first_axis_fused(re.t().contiguous(), im.t().contiguous(),
+                                  f, meta=meta, sign=sign, prefix=prefix)
+    again = tfc.fft_last_axis_fused(re, im, f, meta=meta, sign=sign,
+                                    prefix=prefix)
+    for g, b, a in zip(got, b2, again):
+        assert torch.equal(g, b.t()) and torch.equal(g, a)
+
+
+@pytest.mark.parametrize("mode", ["screen_accumulate", "accumulate",
+                                  "screened_load"])
+@pytest.mark.parametrize("n,npix", [(96, 48), (15360, 10240)])
+def test_last_axis_screens_match_plain(cuda, mode, n, npix):
+    """B2L's screened store and load against their plain versions (1e-5
+    of the max), and the store bit-equal to B2 on the transpose with
+    torch's screen and sum after it (the path it replaced)."""
+    crop = ((n - npix) // 2, npix)
+    load = mode == "screened_load"
+    sign, prefix = (-1, "fftq") if load else (+1, "fftp")
+    meta, f = _last_axis_pass(cuda, n, None if load else crop,
+                              crop if load else None, sign, prefix)
+    rows = 16
+    rng = np.random.default_rng(7)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape)
+                                .astype(np.float32)).to(cuda)
+
+    nm1s = rand(rows, npix) * 1e-3
+    coef = torch.tensor([2.0 * np.pi * 1234.5], device=cuda)
+    if load:
+        img = rand(rows, npix)
+        got = tfc.fft_last_axis_fused(img, None, f, meta=meta, sign=sign,
+                                      prefix=prefix, screen=(nm1s, coef))
+        s_re, s_im = tfc.screen_load_reference(img, nm1s, coef)
+        ref = tfc.fft_last_axis_reference(s_re, s_im, f, meta=meta,
+                                          sign=sign)
+        got, ref = list(got), list(ref)
+    else:
+        re, im, acc = rand(rows, n), rand(rows, n), rand(rows, npix)
+        screen = (nm1s, -coef) if mode == "screen_accumulate" else None
+        got = [tfc.fft_last_axis_fused(re, im, f, meta=meta, sign=sign,
+                                       prefix=prefix, screen=screen,
+                                       acc=acc.clone())]
+        b2 = tfc.fft_first_axis_fused(re.t().contiguous(),
+                                      im.t().contiguous(), f, meta=meta,
+                                      sign=sign, prefix=prefix)
+        b_re, b_im = (x.t().contiguous() for x in b2)
+        if screen:
+            theta = screen[1] * nm1s
+            unfused = acc + (b_re * torch.cos(theta) - b_im * torch.sin(theta))
+        else:
+            unfused = acc + b_re
+        assert torch.equal(got[0], unfused)
+        p_re, p_im = tfc.fft_last_axis_reference(re, im, f, meta=meta,
+                                                 sign=sign)
+        ref = [tfc.screen_accumulate_reference(acc.clone(), p_re, p_im,
+                                               *screen) if screen
+               else acc + p_re]
+    scale = max(float(r.abs().max()) for r in ref)
+    for g, r in zip(got, ref):
+        assert float((g - r).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("wstack", [False, True], ids=["G1", "G"])
+def test_fused_invert_and_predict_equal_unfused_on_card(cuda, wstack):
+    """``dirty_image`` and ``predict_visibilities`` on the card, one B2 and
+    one B2L launch a plane, against the composition before B2L (two B2
+    passes, a transpose, torch's screen; ``chip_smoke.py``): within
+    1e-6 of the max (they are expected to agree bit for bit)."""
+    chip_smoke = _chip_smoke()
+    uvw, freqs, vis, wgt = _small(num_times=4, num_antennas=12)
+    image = np.random.default_rng(3).normal(size=(96, 96)).astype(np.float32)
+
+    def run():
+        return (tg.dirty_image(uvw, freqs, vis, wgt, 96, PIXEL,
+                               do_wstacking=wstack, device=cuda),
+                tg.predict_visibilities(uvw, freqs, image, PIXEL,
+                                        do_wstacking=wstack, device=cuda))
+
+    before = (tfc.LAUNCHES, tfc.LAST_AXIS_LAUNCHES,
+              tfc.IN_CROP_LAUNCHES, tfc.LAST_AXIS_IN_CROP_LAUNCHES)
+    dirty, model = (np.array(x) for x in run())
+    after = (tfc.LAUNCHES, tfc.LAST_AXIS_LAUNCHES,
+             tfc.IN_CROP_LAUNCHES, tfc.LAST_AXIS_IN_CROP_LAUNCHES)
+    steps = [a - b for a, b in zip(after, before)]
+    assert steps[0] == steps[1] > 0 and steps[2] == steps[3] > 0
+    with chip_smoke.unfused_composition():
+        dirty_ref, model_ref = (np.array(x) for x in run())
+    assert np.abs(dirty - dirty_ref).max() <= 1e-6 * np.abs(dirty_ref).max()
+    assert np.abs(model - model_ref).max() <= 1e-6 * np.abs(model_ref).max()
