@@ -1,0 +1,7 @@
+"""Percent of the fft kernels' roofline over the window: the algorithm's
+least time (``work.py``) over their device time."""
+from cipbench.readers import roofline
+
+
+def read(run):
+    return roofline(run, "image", "fft")
