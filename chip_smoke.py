@@ -2824,8 +2824,11 @@ def within_sharded_tol(got, ref) -> dict:
 def sharded_call(fn, mesh, device) -> tuple:
     """(result, seconds, launches, collectives) of one synchronized call
     of ``fn``, launch counts and the mesh's collective counts reset just
-    before it."""
+    before it; the call runs with the span recorder on, which times the
+    collectives."""
     import torch
+
+    from ska_sdp_cip_tpu_torch.utils import task_metrics
 
     def sync():
         if device.type == "cuda":
@@ -2833,9 +2836,11 @@ def sharded_call(fn, mesh, device) -> tuple:
 
     reset_launches()
     mesh.reset_stats()
+    task_metrics.reset()
     sync()
     t0 = time.perf_counter()
-    result = fn()
+    with task_metrics.tracing():
+        result = fn()
     sync()
     seconds = time.perf_counter() - t0
     return result, seconds, read_launches(), mesh.collective_stats()

@@ -18,7 +18,9 @@ reference's schema. It joins the process group that ``torchrun`` sets
 up (each rank on ``cuda:LOCAL_RANK``), or runs as a world of one whose
 shards share the device; only rank 0 writes files. ``--profile-dir``
 writes a ``torch.profiler`` trace (CPU and CUDA activities) of the
-invert as ``trace.json`` in that directory.
+invert as ``trace.json`` in that directory, with the program's
+``cip.*`` span ranges beside the kernels, and the spans and counters
+themselves (``utils/task_metrics.py``) as ``spans.json``.
 
     python -m ska_sdp_cip_tpu_torch.apps.pipeline_app obs.vz img.npy \\
         -n 2048 -p 5.0 --clean 2 --algorithm multiscale --device cuda
@@ -38,6 +40,7 @@ from .. import __version__
 from ..invert import invert_dataset
 from ..io.visibility_dataset import VisibilityReader
 from ..ops.gridder import resolve_device
+from ..utils import task_metrics
 from ..utils.task_metrics import TaskRecorder
 
 
@@ -189,7 +192,7 @@ def get_parser() -> argparse.ArgumentParser:
         type=Path,
         default=None,
         help="Write a torch.profiler trace of the invert to this "
-        "directory (trace.json)",
+        "directory (trace.json), and its spans and counters (spans.json)",
     )
     return parser
 
@@ -197,19 +200,21 @@ def get_parser() -> argparse.ArgumentParser:
 @contextlib.contextmanager
 def _profiled(profile_dir: Path | None):
     """Trace the body with ``torch.profiler`` (CPU and CUDA activities)
-    into ``profile_dir/trace.json``; no trace when ``profile_dir`` is
-    None."""
+    into ``profile_dir/trace.json``, and its spans and counters into
+    ``profile_dir/spans.json``; nothing when ``profile_dir`` is None."""
     if profile_dir is None:
         yield
         return
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(
+    task_metrics.reset()
+    with task_metrics.tracing(), profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
     ) as prof:
         yield
     profile_dir.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(profile_dir / "trace.json"))
+    task_metrics.save_spans_json(profile_dir / "spans.json")
 
 
 def _mesh(args):

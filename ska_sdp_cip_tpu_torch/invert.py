@@ -19,6 +19,7 @@ from numpy.typing import NDArray
 
 from .io.visibility_dataset import VisibilityReader
 from .ops.gridder import dirty_image
+from .utils.task_metrics import span
 
 
 @dataclass
@@ -135,8 +136,11 @@ def invert_dataset(
     image, on ``device`` (e.g. ``"cuda"`` or ``"cpu"``). ``weighting``
     selects the imaging weighting scheme (natural/uniform/robust; see
     ``models/weighting.py``).
+    The reader's load is the span ``read``
+    (``utils/task_metrics.py``), before ``dirty_image``'s.
     """
-    gridder_input = StokesIGridderInput.from_reader(reader)
+    with span("read"):
+        gridder_input = StokesIGridderInput.from_reader(reader)
     if weighting != "natural":
         from .models.weighting import ImagingWeighter
 

@@ -11,12 +11,16 @@ device-side offsets (``index_add_`` at a flat base + fixed window),
 never with Python slices of tensor values. The major cycle recomputes
 exact residuals through the measurement operator (predict -> weight ->
 invert), so minor-cycle approximation error does not accumulate.
+``hogbom_clean`` is the root span ``minor`` (``utils/task_metrics.py``;
+its host time is the loop's issue time, its device time the loop's work
+on the card) and counts ``minor_iterations``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.task_metrics import count, span
 from .operators import MeasurementOperator
 
 
@@ -68,11 +72,14 @@ def hogbom_clean(
     Returns ``(model, residual)``.
     """
     npix = dirty.shape[0]
-    if psf_patch is not None and psf_patch < npix:
-        return _clark_minor(dirty, psf, gain=gain, max_iter=max_iter,
-                            threshold=threshold, psf_patch=int(psf_patch))
-    return _hogbom_exact(dirty, psf, gain=gain, max_iter=max_iter,
-                         threshold=threshold)
+    with span("minor", device=True):
+        count("minor_iterations", max_iter)
+        if psf_patch is not None and psf_patch < npix:
+            return _clark_minor(dirty, psf, gain=gain, max_iter=max_iter,
+                                threshold=threshold,
+                                psf_patch=int(psf_patch))
+        return _hogbom_exact(dirty, psf, gain=gain, max_iter=max_iter,
+                             threshold=threshold)
 
 
 def _hogbom_exact(dirty, psf, *, gain: float, max_iter: int, threshold):

@@ -15,6 +15,11 @@ order transform (``plan_order_host``), slot-order data
 (``stage_slot_vis``) and weights (``stage_slot_weights``), uploaded
 by ``stage_arrays`` (``utils/staging.py``); every solver iteration
 then runs in slot space with no gather between predict and invert.
+
+``residual_gradient`` is the root span ``gradient`` over ``predict``,
+``residual`` and ``invert`` (``utils/task_metrics.py``), and counts
+``useful_visits`` (``ops/gridder.py:useful_slot_visits``), to hold
+against the invert's ``slot_visits``.
 """
 
 from __future__ import annotations
@@ -37,8 +42,10 @@ from ..ops.gridder import (
     stage_arrays,
     stage_slot_vis,
     stage_slot_weights,
+    useful_slot_visits,
 )
 from ..ops.plan import GridderPlan, make_plan
+from ..utils.task_metrics import count, enabled, span
 
 
 class SlotVis(NamedTuple):
@@ -239,9 +246,18 @@ class MeasurementOperator:
         round trip on the device (the major cycle's core), entirely in
         slot space.
         """
-        slots = self.stage(vis)
-        model = self.model_slots(image)
-        w = self.slot_weights
-        res_re = (model.re - slots.re) * w
-        res_im = (model.im - slots.im) * w
-        return self._invert(self.arrays, res_re, res_im) / self.total_weight
+        if enabled():
+            # Worked out once a plan (one host read), outside the span.
+            count("useful_visits", useful_slot_visits(self.plan,
+                                                      self.arrays))
+        with span("gradient"):
+            slots = self.stage(vis)
+            with span("predict"):
+                model = self.model_slots(image)
+            with span("residual"):
+                w = self.slot_weights
+                res_re = (model.re - slots.re) * w
+                res_im = (model.im - slots.im) * w
+            with span("invert"):
+                return (self._invert(self.arrays, res_re, res_im)
+                        / self.total_weight)

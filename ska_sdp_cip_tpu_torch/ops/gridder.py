@@ -43,6 +43,15 @@ Counterpart: ``ska_sdp_cip_tpu/ops/gridder.py``:
   ``predict_visibilities``, whose results come down through pinned
   buffers (``utils/staging.py``).
 
+Spans and counters (``utils/task_metrics.py``; nothing while the
+recorder is off): ``dirty_image`` is the root span ``image`` over
+``plan``, ``weight``, ``stage`` (``stage.host_arrays``,
+``stage.upload``, ``stage.assemble``), ``invert`` and ``download``;
+``build_invert``'s work lists are ``invert.work_lists``, the maps of
+every invert and predict ``invert.taper`` / ``predict.taper``, and each
+plane group of the invert ``invert.group`` (counters ``active_blocks``,
+``b1_chunks``, ``slot_visits``).
+
 Everything runs eagerly on the device of the staged tensors; the
 kernels' plain versions run where the tensors lie on the CPU. The
 XLA-scan gridder and the AOT cache are not ported (ROADMAP.md, queue
@@ -58,6 +67,7 @@ import torch
 
 from .. import native as _native
 from ..utils.staging import device_get, device_put_parallel
+from ..utils.task_metrics import count, span
 from .cuda_gridder import (  # noqa: F401  (the fold stays importable here,
                              # where the counterpart keeps it)
     _fold_wraps,
@@ -178,6 +188,45 @@ def group_active_blocks(plan: GridderPlan) -> list:
         rows = table[k * G : min((k + 1) * G, plan.nplanes)]
         groups.append(np.unique(rows[rows >= 0]).astype(np.int32))
     return groups
+
+
+def useful_slot_visits(plan: GridderPlan, arrays: dict) -> int:
+    """
+    B1's slot visits that add to a plane: over the plan's real slots
+    (padding slots, ``order == num_vis_data``, add nothing), the number
+    of plane groups that the slot's w-kernel touches. A slot in data bin
+    q = floor((|w| - w_bin0) / dw), w_bin0 = w0 + (W/2 - 1) dw, touches
+    the W planes [q, q + W) (``ops/plan.py``). Against B1's visits
+    (active blocks x ``plan.block``, summed over groups) it gives the
+    share of slot visits that do work. Read from the staged slot arrays
+    (``packed``'s |w| row and ``order``, :func:`slot_plan_host_arrays`)
+    on their device, with one host read of the (nplanes,) bin counts,
+    and kept on the plan: a pass over the slots on the host took 1.9 s
+    at 116 M visibilities on the H100's host.
+    """
+    cached = plan.__dict__.get("_useful_slot_visits")
+    if cached is not None:
+        return cached
+    W, G, P = plan.support, plan.plane_group, plan.nplanes
+    order = arrays["order"]
+    if plan.wstacking:
+        origin = plan.w0 + (W / 2.0 - 1.0) * plan.dw
+        ws = arrays["packed"][2]
+        bins = torch.zeros(P + 1, dtype=torch.int64, device=ws.device)
+        chunk = 1 << 24
+        for a in range(0, plan.num_vis, chunk):
+            q = torch.floor((ws[a : a + chunk].double() - origin)
+                            / plan.dw).clamp_(0, P - 1).to(torch.int64)
+            q.masked_fill_(order[a : a + chunk] >= plan.num_vis_data, P)
+            bins += torch.bincount(q, minlength=P + 1)
+        bins = bins[:P].cpu().numpy()
+    else:
+        bins = np.array([int((order < plan.num_vis_data).sum())])
+    q = np.arange(len(bins))
+    groups = np.minimum(q + W - 1, P - 1) // G - q // G + 1
+    visits = int((bins * groups).sum())
+    plan.__dict__["_useful_slot_visits"] = visits
+    return visits
 
 
 #: Blocks per chunk, the knob of both work lists: B3 cuts a tile run
@@ -876,12 +925,17 @@ def stage_compact(plan: GridderPlan, uvw, channel_frequencies, weighted,
     ``device`` and the :func:`build_assemble` prologue: returns
     ``(arrays, re_s, im_s)`` ready for :func:`build_invert`.
     """
-    weighted = np.asarray(weighted, np.complex64).ravel()
-    host = compact_plan_host_arrays(plan, uvw, channel_frequencies, device)
-    host["re"], host["im"] = weighted.real, weighted.imag
-    arrays = stage_arrays(host, device)
-    re, im = arrays.pop("re"), arrays.pop("im")
-    return build_assemble(plan)(arrays, re, im)
+    with span("stage"):
+        weighted = np.asarray(weighted, np.complex64).ravel()
+        with span("stage.host_arrays"):
+            host = compact_plan_host_arrays(plan, uvw, channel_frequencies,
+                                            device)
+        host["re"], host["im"] = weighted.real, weighted.imag
+        with span("stage.upload"):
+            arrays = stage_arrays(host, device)
+        re, im = arrays.pop("re"), arrays.pop("im")
+        with span("stage.assemble", device=True):
+            return build_assemble(plan)(arrays, re, im)
 
 
 def _prepare_sorted_vis(plan: GridderPlan, arrays: dict, vis_re, vis_im):
@@ -927,45 +981,54 @@ def build_invert(plan, *, mesh=None):
         return _build_invert_distributed(list(plan), mesh)
     G = plan.plane_group
     npix = plan.num_pixels
-    fmeta = _fused_fft_meta(plan)
-    counts = [len(ids) for ids in group_active_blocks(plan)]
-    nchunks = [len(c) for c in group_grid_chunks(plan)]
+    with span("invert.work_lists"):
+        fmeta = _fused_fft_meta(plan)
+        counts = [len(ids) for ids in group_active_blocks(plan)]
+        nchunks = [len(c) for c in group_grid_chunks(plan)]
+        visits = [c * plan.block for c in counts]
 
     def invert(arrays, re_s, im_s):
-        inv_corr, nm1s = _geometry_maps(plan, arrays)
+        with span("invert.taper", device=True):
+            inv_corr, nm1s = _geometry_maps(plan, arrays)
         image = torch.zeros(
             (npix, npix), dtype=torch.float32, device=re_s.device
         )
         for k in range(plan.num_groups):
-            w_g = arrays["plane_wg"][k]
-            # The screen's -2 pi w, rounded to float32 on the device (one
-            # op a group; B2L reads it there).
-            coef = (-2.0 * math.pi) * w_g
-            planes = grid_planes(
-                arrays["packed"],
-                re_s,
-                im_s,
-                arrays["block_len"],
-                arrays["cblock_ox"],
-                arrays["block_oy"],
-                w_g,
-                arrays["group_blocks"][k, : counts[k]],
-                plan=plan,
-                chunks=arrays["group_grid_chunks"][k, : nchunks[k]],
-            )
-            # Per plane (those of a ragged final group beyond nplanes are
-            # empty): B2 along axis 0, then B2L along the last axis, which
-            # screens the plane and adds it into the image.
-            for i in range(min(G, plan.nplanes - k * G)):
-                a_re, a_im = fft_first_axis_fused(
-                    planes[2 * i], planes[2 * i + 1], arrays, meta=fmeta,
-                    sign=+1,
+            with span("invert.group", device=True):
+                count("active_blocks", counts[k])
+                count("b1_chunks", nchunks[k])
+                count("slot_visits", visits[k])
+                w_g = arrays["plane_wg"][k]
+                # The screen's -2 pi w, rounded to float32 on the device
+                # (one op a group; B2L reads it there).
+                coef = (-2.0 * math.pi) * w_g
+                planes = grid_planes(
+                    arrays["packed"],
+                    re_s,
+                    im_s,
+                    arrays["block_len"],
+                    arrays["cblock_ox"],
+                    arrays["block_oy"],
+                    w_g,
+                    arrays["group_blocks"][k, : counts[k]],
+                    plan=plan,
+                    chunks=arrays["group_grid_chunks"][k, : nchunks[k]],
                 )
-                screen = (nm1s, coef[i : i + 1]) if plan.wstacking else None
-                fft_last_axis_fused(a_re, a_im, arrays, meta=fmeta, sign=+1,
-                                    screen=screen, acc=image)
-                del a_re, a_im
-            del planes  # free before the next group's B1 writes its own
+                # Per plane (those of a ragged final group beyond nplanes
+                # are empty): B2 along axis 0, then B2L along the last
+                # axis, which screens the plane and adds it into the
+                # image.
+                for i in range(min(G, plan.nplanes - k * G)):
+                    a_re, a_im = fft_first_axis_fused(
+                        planes[2 * i], planes[2 * i + 1], arrays,
+                        meta=fmeta, sign=+1,
+                    )
+                    screen = ((nm1s, coef[i : i + 1]) if plan.wstacking
+                              else None)
+                    fft_last_axis_fused(a_re, a_im, arrays, meta=fmeta,
+                                        sign=+1, screen=screen, acc=image)
+                    del a_re, a_im
+                del planes  # free before the next group's B1 writes its own
         return image * inv_corr
 
     return invert
@@ -1021,7 +1084,8 @@ def build_predict(plan, *, slot_output: bool = False, mesh=None):
     nchunks = [len(c) for c in group_tile_chunks(plan)]
 
     def predict(arrays, image):
-        inv_corr, nm1s = _geometry_maps(plan, arrays)
+        with span("predict.taper", device=True):
+            inv_corr, nm1s = _geometry_maps(plan, arrays)
         device = inv_corr.device
         img0 = torch.as_tensor(image, dtype=torch.float32,
                                device=device) * inv_corr
@@ -1191,7 +1255,8 @@ def _build_invert_distributed(plans: list, mesh):
 
     def invert(arrays_list, re_list, im_list):
         arrays = arrays_list[0]
-        inv_corr, nm1s = _geometry_maps(plan, arrays)
+        with span("invert.taper", device=True):
+            inv_corr, nm1s = _geometry_maps(plan, arrays)
         images = [torch.zeros((npix, cols), dtype=torch.float32,
                               device=inv_corr.device) for _ in slabs]
         for k in range(plan.num_groups):
@@ -1278,7 +1343,8 @@ def _build_predict_distributed(plans: list, mesh, *, slot_output: bool):
 
     def predict(arrays_list, image):
         arrays = arrays_list[0]
-        inv_corr, nm1s = _geometry_maps(plan, arrays)
+        with span("predict.taper", device=True):
+            inv_corr, nm1s = _geometry_maps(plan, arrays)
         device = inv_corr.device
         image = torch.as_tensor(image, dtype=torch.float32, device=device)
         # Slab s of (image * inv_corr)^T: image rows A_s, transposed.
@@ -1339,24 +1405,33 @@ def dirty_image(
     an owned, pageable copy to keep.
     """
     device = resolve_device(device)
-    plan = make_plan(
-        uvw,
-        channel_frequencies,
-        num_pixels,
-        pixel_size_lm,
-        epsilon=epsilon,
-        do_wstacking=do_wstacking,
-        sigma=sigma,
-        export_packed=False,
-    )
-    weighted = np.asarray(visibilities, np.complex64) * np.asarray(
-        weights, np.float32
-    )
-    arrays, re_s, im_s = stage_compact(
-        plan, uvw, channel_frequencies, weighted, device
-    )
-    image = build_invert(plan)(arrays, re_s, im_s)
-    return device_get(image)
+    with span("image"):
+        with span("plan"):
+            plan = make_plan(
+                uvw,
+                channel_frequencies,
+                num_pixels,
+                pixel_size_lm,
+                epsilon=epsilon,
+                do_wstacking=do_wstacking,
+                sigma=sigma,
+                export_packed=False,
+            )
+            count("visibilities", plan.num_vis_data)
+            count("slots", plan.num_vis)
+            count("planes", plan.nplanes)
+            count("groups", plan.num_groups)
+        with span("weight"):
+            weighted = np.asarray(visibilities, np.complex64) * np.asarray(
+                weights, np.float32
+            )
+        arrays, re_s, im_s = stage_compact(
+            plan, uvw, channel_frequencies, weighted, device
+        )
+        with span("invert"):
+            image = build_invert(plan)(arrays, re_s, im_s)
+        with span("download"):
+            return device_get(image)
 
 
 def predict_visibilities(

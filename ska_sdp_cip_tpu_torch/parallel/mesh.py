@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import os
 import socket
-import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from datetime import timedelta
@@ -35,6 +34,8 @@ from datetime import timedelta
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..utils.task_metrics import count, span
 
 #: Seconds a rank waits for the others to join (and for a collective)
 #: before it raises.
@@ -140,15 +141,15 @@ def _all_gather(output, tensor) -> None:
 
 @dataclass
 class CollectiveStats:
-    """Calls and device seconds of a mesh's collectives, by kind. On a
-    CUDA device each call is bracketed by two events on the current
-    stream and read when :meth:`DeviceMesh.collective_stats` is asked;
-    on the CPU by the host clock."""
+    """Calls and bytes of a mesh's collectives, by kind, always counted;
+    and, while the span recorder is on (``utils/task_metrics.py``), each
+    call's span ``collective.<kind>`` (two events on the current stream
+    on a card, the host clock otherwise), read when
+    :meth:`DeviceMesh.collective_stats` is asked."""
 
     calls: dict = field(default_factory=dict)
     bytes: dict = field(default_factory=dict)
-    pending: list = field(default_factory=list)
-    seconds: dict = field(default_factory=dict)
+    spans: list = field(default_factory=list)
 
 
 class DeviceMesh:
@@ -194,42 +195,38 @@ class DeviceMesh:
 
     @contextmanager
     def _timed(self, kind: str, nbytes: int, host: bool = False):
-        """Count one collective of ``kind`` moving ``nbytes`` and time it:
-        by two events on the current stream on the card, else (and for
-        ``host`` collectives) by the host clock."""
+        """Count one collective of ``kind`` moving ``nbytes``; while the
+        recorder is on, record it as a span, a device span on the card
+        unless it is a ``host`` collective."""
         stats = self.stats
         stats.calls[kind] = stats.calls.get(kind, 0) + 1
         stats.bytes[kind] = stats.bytes.get(kind, 0) + int(nbytes)
-        if self.device.type == "cuda" and not host:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+        with span("collective." + kind,
+                  device=self.device.type == "cuda" and not host) as record:
             yield
-            end.record()
-            stats.pending.append((kind, start, end))
-            return
-        t0 = time.perf_counter()
-        yield
-        stats.seconds[kind] = (stats.seconds.get(kind, 0.0)
-                               + time.perf_counter() - t0)
+        if record is not None:
+            count(record.name + ".calls")
+            count(record.name + ".bytes", nbytes)
+            stats.spans.append((kind, record))
 
     def reset_stats(self) -> None:
         self.stats = CollectiveStats()
 
     def collective_stats(self) -> dict:
         """``{"calls", "bytes", "seconds"}`` by kind since the last
-        :meth:`reset_stats` (waits for the card's pending events), and
-        ``total_seconds``."""
+        :meth:`reset_stats`, and ``total_seconds``. Seconds are those of
+        the collectives made while the span recorder was on (after the
+        card's pending work, which this waits for)."""
         stats = self.stats
-        if stats.pending:
-            stats.pending[-1][2].synchronize()
-            for kind, start, end in stats.pending:
-                stats.seconds[kind] = (stats.seconds.get(kind, 0.0)
-                                       + start.elapsed_time(end) / 1e3)
-            stats.pending.clear()
+        if stats.spans and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        seconds = {}
+        for kind, record in stats.spans:
+            spent = record.device_s if record.device else record.host_s
+            seconds[kind] = seconds.get(kind, 0.0) + spent
         return {"calls": dict(stats.calls), "bytes": dict(stats.bytes),
-                "seconds": dict(stats.seconds),
-                "total_seconds": float(sum(stats.seconds.values()))}
+                "seconds": seconds,
+                "total_seconds": float(sum(seconds.values()))}
 
     # --- device collectives ------------------------------------------
 

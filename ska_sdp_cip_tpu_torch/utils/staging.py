@@ -23,12 +23,18 @@ taken in both directions.
 
 On a CPU target nothing is pinned and nothing is copied: the tensors
 share the numpy arrays' memory, as ``torch.from_numpy`` does.
+
+Every upload counts ``h2d_bytes`` and ``h2d_copies``, and every
+download ``d2h_bytes``, in the span recorder (``task_metrics.count``;
+nothing while it is off), whatever the caller and the device.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .task_metrics import count
 
 
 def _host_array(value) -> np.ndarray:
@@ -65,7 +71,10 @@ class AsyncStager:
     def submit(self, key: str, value) -> None:
         """Upload ``value``; a Python int is kept as it is."""
         if not isinstance(value, int):
-            value = torch.from_numpy(_host_array(value)).to(self.device)
+            value = _host_array(value)
+            count("h2d_bytes", value.nbytes)
+            count("h2d_copies")
+            value = torch.from_numpy(value).to(self.device)
         self._entries[key] = value
 
     def submit_dict(self, host: dict) -> None:
@@ -107,6 +116,7 @@ def device_get(tensor: torch.Tensor) -> np.ndarray:
     large results pins that much host memory; ``np.array(result)``
     makes an owned, pageable copy.
     """
+    count("d2h_bytes", tensor.nbytes)
     if tensor.device.type != "cuda":
         return tensor.detach().numpy()
     tensor = tensor.detach()
