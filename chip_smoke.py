@@ -51,7 +51,12 @@ then runs these phases and prints one JSON object per phase:
    dim -1 and the bound; at the production transform also each plane's
    half that B2L took over (its screened store, its screened load)
    against the transposes, B2 and torch's screen it replaced, timed in
-   turns and gated bit-equal;
+   turns and gated bit-equal; then ``taper``: the taper maps' kernel
+   T1 (:func:`phase_taper`) at the production image, with and without
+   w-stacking, and at the large one, against its plain version on the
+   card (1e-6 of each map's max), its mirrored evaluation bit-equal to
+   the one-pixel-at-a-time one, each timed beside the plain version
+   and the bound;
 4. ``b3``: the degridding kernel (B3, reading the periodic grid)
    against its folded plain version on random planes, on the same
    plans and groups as ``b1`` (G = 1 at bench size: B5), with the
@@ -1199,6 +1204,119 @@ def b2l_screen_case(device, f, spec, name: str, npix: int, gen,
     return case
 
 
+#: T1 against its plain version: the card test's tolerance (the two sum
+#: the quadrature in different orders).
+TAPER_RTOL = 1e-6
+
+#: FP32 operations a precise cosf stands for in T1's bound: ~25
+#: instructions (range reduction and polynomial), each 2 flops at the
+#: FP32 rate of :data:`FP32_FLOPS_PER_S`.
+COSF_FLOPS = 50
+
+#: The taper phase's geometries: name -> (npix, asec, plan options).
+TAPER_GEOMETRIES = {
+    "production": (PROD_NPIX, PROD_ASEC, {"sigma": 1.5}),
+    "production_no_wstacking": (PROD_NPIX, PROD_ASEC,
+                                {"sigma": 1.5, "do_wstacking": False}),
+    "large": (16384, 0.5, {"sigma": 2.0}),
+}
+
+
+#: The w corrections an evaluation of the taper maps computes: one a
+#: pixel, one a (|l|, |m|) pair (T1's mirrored evaluation), or one a
+#: pair with |l| <= |m| (r2 is also symmetric under l <-> m: the least
+#: the maps need, which bounds them).
+TAPER_EVALUATIONS = {
+    "pixel": lambda npix: npix * npix,
+    "mirror": lambda npix: (npix // 2 + 1) ** 2,
+    "octant": lambda npix: (npix // 2 + 1) * (npix // 2 + 2) // 2,
+}
+
+
+def taper_work(npix: int, nq: int, *, wstacking: bool,
+               evaluation: str) -> tuple:
+    """The taper maps' bytes (both maps written once) and the flops of
+    their cosines: ``nq`` for each w correction of ``evaluation``
+    (:data:`TAPER_EVALUATIONS`) under w-stacking, and ``nq`` for each of
+    the npix uv corrections."""
+    w = TAPER_EVALUATIONS[evaluation](npix) if wstacking else 0
+    return 8 * npix * npix, COSF_FLOPS * nq * (npix + w)
+
+
+def phase_taper(device, iters=10) -> dict:
+    """
+    T1 (``ops/taper_cuda.py``) at the production image and the large
+    one: both maps against the plain version on the card (1e-6 of each
+    map's max), the mirrored evaluation bit-equal to the
+    one-pixel-at-a-time one, the times of both and of the plain
+    version. The bound (bytes, or the cosines at :data:`COSF_FLOPS`,
+    whichever is longer) counts the least work the maps need, the
+    octant's; ``bound_mirror_*`` and ``bound_pixel_*`` count the
+    cosines of T1's two evaluations.
+    """
+    from ska_sdp_cip_tpu_torch.ops import gridder, taper_cuda
+    from ska_sdp_cip_tpu_torch.ops.plan import make_plan
+    from ska_sdp_cip_tpu_torch.probes.common import cuda_ms
+
+    uvw, freqs, _, _ = small_visibilities()
+    before = taper_cuda.TAPER_LAUNCHES
+    cases = []
+    for name, (npix, asec, opts) in TAPER_GEOMETRIES.items():
+        plan = make_plan(uvw, freqs, npix,
+                         float(np.sin(np.radians(asec / 3600.0))), **opts)
+        arrays = gridder.stage_arrays(gridder._quad_arrays(plan), device)
+        nq = len(plan.quad_nodes)
+
+        def run(mirror=True):
+            return taper_cuda.taper_maps(
+                arrays["quad_nodes"], arrays["quad_folded"], npix=npix,
+                ngrid=plan.ngrid, support=plan.support,
+                pixel_size_lm=plan.pixel_size_lm, wstacking=plan.wstacking,
+                dw=plan.dw, n_mid=plan.n_mid, mirror=mirror)
+
+        got = gridder._geometry_maps(plan, arrays)
+        one_by_one = run(mirror=False)
+        mirror_bit_equal = all(same_bits(g, o)
+                               for g, o in zip(got, one_by_one))
+        del one_by_one
+        ref = gridder._geometry_maps_reference(plan, arrays)
+        errs = {m: rel_err(g, r)
+                for m, g, r in zip(("inv_corr", "nm1s"), got, ref)}
+        del got, ref
+        case = {
+            "case": name, "npix": npix, "ngrid": plan.ngrid,
+            "support": plan.support, "nodes": nq,
+            "wstacking": bool(plan.wstacking),
+            "max_abs_err": max(e[0] for e in errs.values()),
+            "max_rel_err": max(e[1] for e in errs.values()),
+            "rel_err": {m: e[1] for m, e in errs.items()},
+            "mirror_bit_equal": mirror_bit_equal,
+            "ms": cuda_ms(run, iters=iters),
+            "one_by_one_ms": cuda_ms(lambda: run(mirror=False),
+                                     iters=iters),
+            "plain_ms": cuda_ms(
+                lambda: gridder._geometry_maps_reference(plan, arrays),
+                iters=3),
+            **bound(*taper_work(npix, nq, wstacking=plan.wstacking,
+                                evaluation="octant")),
+        }
+        for evaluation in ("mirror", "pixel"):
+            side = bound(*taper_work(npix, nq, wstacking=plan.wstacking,
+                                     evaluation=evaluation))
+            case[f"bound_{evaluation}_ms"] = side["bound_ms"]
+            case[f"bound_{evaluation}_by"] = side["bound_by"]
+        case["library_ms"] = None
+        cases.append(case)
+        if not case["max_rel_err"] <= TAPER_RTOL:
+            raise PhaseError(f"T1 {name} vs plain {case['max_rel_err']:.3e}"
+                             f" > {TAPER_RTOL}")
+        if not mirror_bit_equal:
+            raise PhaseError(f"T1 {name}: the mirrored maps differ from "
+                             "the one-pixel-at-a-time maps")
+    return {"phase": "taper", "cases": cases,
+            "launches": taper_cuda.TAPER_LAUNCHES - before}
+
+
 def compare_degrid(plan, arrays, grids, k, chunks, *, time_it: bool,
                    iters: int = 3) -> dict:
     """B3 kernel vs its folded plain version on plane group ``k`` of the
@@ -1334,8 +1452,8 @@ def phase_e2e_small(device, npix=256) -> dict:
         if not (np.isfinite(got).all() and rel <= DFT_RTOL):
             raise PhaseError(f"dirty_image vs DFT {rel:.3e} > {DFT_RTOL}")
         # Without w-stacking the plan has one plane: B1 at G = 1 (B4).
-        require_launches(launches, ("b1", *INVERT_FFT) if wstack
-                         else ("b4", *INVERT_FFT), device, "e2e_small")
+        require_launches(launches, ("b1", *INVERT_KERNELS) if wstack
+                         else ("b4", *INVERT_KERNELS), device, "e2e_small")
     results["launches"] = results["cases"][0]["launches"]
     return results
 
@@ -1392,8 +1510,8 @@ def phase_e2e_tiny(device, workdir: Path, images=TINY_IMAGES) -> dict:
                     and rel_dft <= DFT_RTOL and case["repeat_bit_equal"]):
                 raise PhaseError(f"e2e_tiny {npix} px at {asec} asec "
                                  f"(w-stacking {wstack}): {case}")
-            require_launches(launches, ("b1", *INVERT_FFT) if wstack
-                             else ("b4", *INVERT_FFT), device, "e2e_tiny")
+            require_launches(launches, ("b1", *INVERT_KERNELS) if wstack
+                             else ("b4", *INVERT_KERNELS), device, "e2e_tiny")
     results["launches"] = {
         key: sum(c["launches"][key] for c in results["cases"])
         for key in results["cases"][0]["launches"]}
@@ -1409,6 +1527,7 @@ def _launch_counters():
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
+    from ska_sdp_cip_tpu_torch.ops import taper_cuda
     from ska_sdp_cip_tpu_torch.probes import smem
 
     cuda_gridder, fft_cuda, p1, p2 = _launch_counters()
@@ -1417,6 +1536,7 @@ def reset_launches() -> None:
     fft_cuda.LAUNCHES = fft_cuda.IN_CROP_LAUNCHES = 0
     fft_cuda.TILED_LAUNCHES = fft_cuda.PRETILE_LAUNCHES = 0
     fft_cuda.LAST_AXIS_LAUNCHES = fft_cuda.LAST_AXIS_IN_CROP_LAUNCHES = 0
+    taper_cuda.TAPER_LAUNCHES = 0
     for counts in (p1.LAUNCHES, p2.LAUNCHES):
         for key in counts:
             counts[key] = 0
@@ -1425,6 +1545,7 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     """Every kernel's launch count since :func:`reset_launches`."""
+    from ska_sdp_cip_tpu_torch.ops import taper_cuda
     from ska_sdp_cip_tpu_torch.probes import smem
 
     cuda_gridder, fft_cuda, p1, p2 = _launch_counters()
@@ -1436,16 +1557,18 @@ def read_launches() -> dict:
            "b3": cuda_gridder.DEGRID_LAUNCHES,
            "b4": cuda_gridder.GROUP1_LAUNCHES,
            "b5": cuda_gridder.DEGRID_GROUP1_LAUNCHES,
-           "b6": fft_cuda.PRETILE_LAUNCHES, "p3": smem.LAUNCHES}
+           "b6": fft_cuda.PRETILE_LAUNCHES, "p3": smem.LAUNCHES,
+           "t1": taper_cuda.TAPER_LAUNCHES}
     out.update({f"p1_{k}": v for k, v in p1.LAUNCHES.items()})
     out.update({f"p2_{k}": v for k, v in p2.LAUNCHES.items()})
     return out
 
 
-#: The FFT kernels of a single-device invert (B2 along axis 0, B2L with
-#: the screened accumulation) and predict (B2L screening its load, B2).
-INVERT_FFT = ("b2_out_crop", "b2l_out_crop")
-PREDICT_FFT = ("b2_in_crop", "b2l_in_crop")
+#: The kernels of a single-device invert beside its gridder (the taper
+#: maps T1, B2 along axis 0, B2L with the screened accumulation) and
+#: predict (T1, B2L screening its load, B2).
+INVERT_KERNELS = ("t1", "b2_out_crop", "b2l_out_crop")
+PREDICT_KERNELS = ("t1", "b2_in_crop", "b2l_in_crop")
 
 
 def require_launches(launches: dict, kernels, device, where: str) -> None:
@@ -1489,8 +1612,8 @@ def phase_predict(device, bench: dict, npix=256, repeats=3) -> dict:
         if not (np.isfinite(got).all() and rel <= DFT_RTOL):
             raise PhaseError(f"predict vs DFT {rel:.3e} > {DFT_RTOL}")
         # Without w-stacking the plan has one plane: B3 at G = 1 (B5).
-        require_launches(launches, ("b3", *PREDICT_FFT) if wstack
-                         else ("b5", *PREDICT_FFT), device, "predict")
+        require_launches(launches, ("b3", *PREDICT_KERNELS) if wstack
+                         else ("b5", *PREDICT_KERNELS), device, "predict")
     results["small_launches"] = results["cases"][0]["launches"]
 
     uvw, freqs, vis, wgt = (bench[k] for k in ("uvw", "freqs", "vis", "wgt"))
@@ -1504,7 +1627,7 @@ def phase_predict(device, bench: dict, npix=256, repeats=3) -> dict:
 
     dirty = dirty_image(uvw, freqs, vis, wgt, bench_npix, pix, device=device)
     model, first, launches, walls = timed_calls(run, device, repeats)
-    require_launches(launches, ("b3", *PREDICT_FFT), device, "predict")
+    require_launches(launches, ("b3", *PREDICT_KERNELS), device, "predict")
     weighted = (vis * wgt).astype(np.complex128)
     lhs = float(np.vdot(image.astype(np.float64), dirty.astype(np.float64)))
     rhs = float(np.real(np.vdot(model.astype(np.complex128), weighted)))
@@ -1666,7 +1789,7 @@ def phase_slice(device, path: Path, dataset_seconds: float, seed=1234,
         raise PhaseError("slice image has the wrong shape or non-finite values")
     if offset.max() > 1:
         raise PhaseError(f"peak at {peak}, brightest source at {expected}")
-    require_launches(launches, ("b1", *INVERT_FFT), device, "slice")
+    require_launches(launches, ("b1", *INVERT_KERNELS), device, "slice")
     results["repeat_bit_equal"] = bit_equal(image, run())
     if not results["repeat_bit_equal"]:
         raise PhaseError("slice: two invert_dataset calls differ")
@@ -2058,8 +2181,8 @@ def phase_ms(device, path: Path, workdir: Path, slice_launches: dict,
         # fixed order: the two images are the same bits.
         raise PhaseError(f"ms: the MS image against the VZ invert "
                          f"{out['vs_vz_invert']}")
-    require_launches(launches, ("b1", *INVERT_FFT), device, "ms")
-    for key in ("b1", *INVERT_FFT):
+    require_launches(launches, ("b1", *INVERT_KERNELS), device, "ms")
+    for key in ("b1", *INVERT_KERNELS):
         if launches[key] != slice_launches[key]:
             raise PhaseError(f"ms: {key} launched {launches[key]} times, "
                              f"{slice_launches[key]} in slice")
@@ -2571,7 +2694,7 @@ def phase_tiles(device, path: Path, workdir: Path, seed=1234,
         return invert_tile_chunks(paths, freqs, npix, pix, device=device)
 
     image, first, launches, walls = timed_calls(run, device, repeats=2)
-    require_launches(launches, ("b1", *INVERT_FFT), device, "tiles")
+    require_launches(launches, ("b1", *INVERT_KERNELS), device, "tiles")
     direct = invert_dataset(reader, npix, asec, device=device)
     scale = float(np.abs(direct).max())
     diff = np.abs(image - direct)
@@ -2687,7 +2810,7 @@ def run_major_cycle(device, uvw, freqs, weights, vis, npix, pix, sources,
     sync()
     out["major_cycle_clean_seconds"] = time.perf_counter() - t
     out["launches"] = read_launches()
-    require_launches(out["launches"], ("b1", *INVERT_FFT, *PREDICT_FFT,
+    require_launches(out["launches"], ("b1", *INVERT_KERNELS, *PREDICT_KERNELS,
                                        "b3"), device, "major_cycle")
 
     psf = op.psf()
@@ -2869,7 +2992,7 @@ def sharded_invert_case(device, mesh, reader, npix, asec, fft_mode, ref,
     for _ in range(repeats):
         walls.append(sharded_call(run, mesh, device)[1])
     steps = {t["name"]: t["duration"] for t in recorders[-1].tasks}
-    require_launches(launches, ("b1", "b2_out_crop"), device,
+    require_launches(launches, ("b1", "b2_out_crop", "t1"), device,
                      f"sharded invert ({fft_mode})")
     case = {
         "fft_mode": fft_mode, "shards": mesh.num_shards,
@@ -2924,7 +3047,8 @@ def sharded_clean_case(device, mesh, reader, npix, asec, fft_mode, local,
                                           fft_mode=fft_mode,
                                           recorder=recorder, **kw),
         mesh, device)
-    require_launches(launches, ("b1", "b2_out_crop", "b2_in_crop", "b3"),
+    require_launches(launches, ("b1", "b2_out_crop", "b2_in_crop", "b3",
+                                "t1"),
                      device, f"sharded major cycle ({fft_mode})")
     scale = float(np.abs(local[1]).max())
     case = {
@@ -3145,7 +3269,7 @@ def phase_sharded(device, path: Path, workdir: Path, tile_paths,
                 tile_paths, freqs, npix, pix, mesh=mesh, fft_mode=mode,
                 timings=timings),
             mesh, device)
-        require_launches(launches, ("b1", "b2_out_crop"), device,
+        require_launches(launches, ("b1", "b2_out_crop", "t1"), device,
                          f"sharded tiles ({mode})")
         case = {"fft_mode": mode, "seconds": seconds, "timings": timings,
                 "launches": launches,
@@ -3390,7 +3514,7 @@ def phase_production_invert(device, problem, npix=PROD_NPIX,
                            device=device)
 
     image, first, launches, walls = timed_calls(run, device, repeats)
-    require_launches(launches, ("b1", *INVERT_FFT), device,
+    require_launches(launches, ("b1", *INVERT_KERNELS), device,
                      "production invert")
     repeat_bit_equal = bit_equal(image, run())
     if not repeat_bit_equal:
@@ -3479,7 +3603,7 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
                                     device=device)
 
     model, first, launches, walls = timed_calls(run, device, repeats)
-    require_launches(launches, ("b3", *PREDICT_FFT), device,
+    require_launches(launches, ("b3", *PREDICT_KERNELS), device,
                      "production predict")
     weighted = (vis * wgt).astype(np.complex128)
     lhs = float(np.vdot(image.astype(np.float64), dirty.astype(np.float64)))
@@ -3763,7 +3887,7 @@ def phase_large(device, path: Path, seed=1234, npix=LARGE_NPIX,
     sync()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    require_launches(launches, ("b1", *INVERT_FFT), device, "large invert")
+    require_launches(launches, ("b1", *INVERT_KERNELS), device, "large invert")
     expected = expected_pixel(seed, npix, asec)
     peak = np.unravel_index(int(np.argmax(image)), image.shape)
     out = {"phase": "large", "npix": npix, "pixel_asec": asec,
@@ -3832,7 +3956,7 @@ def phase_large(device, path: Path, seed=1234, npix=LARGE_NPIX,
     sync()
     out["predict_seconds"] = time.perf_counter() - t0
     out["predict_launches"] = read_launches()
-    require_launches(out["predict_launches"], ("b3", *PREDICT_FFT), device,
+    require_launches(out["predict_launches"], ("b3", *PREDICT_KERNELS), device,
                      "large predict")
     f64 = dict(dtype=torch.float64, device=device)
     dirty = torch.as_tensor(image, **f64) * float(weights.sum())
@@ -3958,7 +4082,7 @@ def phase_solvers_cli(device, path: Path, workdir: Path, seed=1234,
     for scheme in ("robust", "uniform"):
         call = cli_call(device, argv(scheme, "--weighting", scheme,
                                      "--robust", 0.0))
-        require_launches(call["launches"], ("b1", *INVERT_FFT), device,
+        require_launches(call["launches"], ("b1", *INVERT_KERNELS), device,
                          f"cli {scheme}")
         image = np.load(workdir / f"{scheme}.npy")
         call["finite"] = bool(np.isfinite(image).all())
@@ -3972,7 +4096,7 @@ def phase_solvers_cli(device, path: Path, workdir: Path, seed=1234,
 
     call = cli_call(device, argv("multiscale", "--clean", 2, "--algorithm",
                                  "multiscale", "--minor-iter", minor_iter))
-    require_launches(call["launches"], ("b1", *INVERT_FFT, *PREDICT_FFT,
+    require_launches(call["launches"], ("b1", *INVERT_KERNELS, *PREDICT_KERNELS,
                                         "b3"), device, "cli multiscale")
     images = load("multiscale")
     call.update(clean_gates(
@@ -3986,7 +4110,7 @@ def phase_solvers_cli(device, path: Path, workdir: Path, seed=1234,
         call = cli_call(device, argv("fista", "--clean", 1, "--algorithm",
                                      "fista", "--minor-iter",
                                      fista_minor_iter))
-    require_launches(call["launches"], ("b1", *INVERT_FFT, *PREDICT_FFT,
+    require_launches(call["launches"], ("b1", *INVERT_KERNELS, *PREDICT_KERNELS,
                                         "b3"), device, "cli fista")
     images = load("fista")
     dirty_peak = float(np.abs(images[".npy"]).max())
@@ -4124,7 +4248,7 @@ def phase_solvers_production_multiscale(device, op, staged, sources,
     out["launches"] = read_launches()
     if device.type == "cuda":
         out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    require_launches(out["launches"], ("b1", *INVERT_FFT, *PREDICT_FFT,
+    require_launches(out["launches"], ("b1", *INVERT_KERNELS, *PREDICT_KERNELS,
                                        "b3"), device, "production multiscale")
     dirty = op.dirty_image(staged)
     out.update(clean_gates(model, residual, float(dirty.abs().max()),
@@ -4198,7 +4322,7 @@ def phase_solvers_production_fista(device, op, staged, num_iter=3) -> dict:
            "residual_max": float(residual.abs().max()),
            "model_min": float(model.min()), "model_max": float(model.max())}
     del model, residual
-    require_launches(out["launches"], ("b1", *INVERT_FFT, *PREDICT_FFT,
+    require_launches(out["launches"], ("b1", *INVERT_KERNELS, *PREDICT_KERNELS,
                                        "b3"), device, "production fista")
     if not (np.isfinite(trace).all() and out["model_min"] >= 0.0
             and out["residual_max"] < dirty_peak):
@@ -4227,7 +4351,7 @@ def kernel_entry(name, source, replaces, launches, by_path=None, **nums):
     return entry
 
 
-def kernels_line(b1, b2, b2l, b3, b6, probes, production, large,
+def kernels_line(b1, b2, b2l, b3, b6, probes, production, large, taper,
                  by_path) -> list:
     """
     One entry per kernel of the port: launches on its path (the main
@@ -4240,7 +4364,8 @@ def kernels_line(b1, b2, b2l, b3, b6, probes, production, large,
     of the b2 and b2l phases, B2L's screened halves against the
     composition they replaced) and at the large image's (``large``: the
     large phase's B1 and B3 checks, B1's time on each plane group, its
-    B2 and B2L cases at n = 32768).
+    B2 and B2L cases at n = 32768); T1 from the taper phase, at the
+    production image (its row) and at every geometry (``cases``).
     """
     row_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
@@ -4354,6 +4479,15 @@ def kernels_line(b1, b2, b2l, b3, b6, probes, production, large,
             library_call="permute().contiguous() (the plain version)",
         ),
     ]
+    prod_taper = taper["cases"][0]
+    entries.append(kernel_entry(
+        "taper_maps", "taper.cu",
+        "none (XLA in ska_sdp_cip_tpu/ops/gridder.py:_geometry_maps)",
+        count("t1", "production_invert"), paths("t1"),
+        **{k: prod_taper[k] for k in (*row_keys, "one_by_one_ms",
+                                       "bound_mirror_ms", "bound_pixel_ms")},
+        cases=taper["cases"],
+    ))
     for size in probes["sizes"]:
         entries += probe_rows(size)
     p3 = probes["p3"]
@@ -4457,6 +4591,8 @@ def main() -> int:
     b2l["production"], b2l["production_screens"] = (prod["cases"],
                                                     prod["screens"])
     emit(b2l)
+    taper = phase_taper(device)
+    emit(taper)
     b3 = phase_b3(device, bench, bench_w0)
     emit(b3)
     del bench_w0
@@ -4520,7 +4656,7 @@ def main() -> int:
                        for c in sharded["tiles"]})
     b2["slab_widths"] = sharded["b2_slab_widths"]
     emit({"kernels": kernels_line(b1, b2, b2l, b3, b6, probes, production,
-                                  large, {
+                                  large, taper, {
         **by_sharded,
         "e2e_small": e2e["launches"],
         "e2e_tiny": tiny["launches"],

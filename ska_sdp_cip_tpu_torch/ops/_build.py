@@ -164,6 +164,9 @@ def _declare(lib) -> None:
     lib.cip_smem_probe.restype = c_int
     lib.cip_smem_optin_bytes.argtypes = [c_int, ctypes.POINTER(c_int)]
     lib.cip_smem_optin_bytes.restype = c_int
+    lib.cip_taper_maps.argtypes = [ptr, ptr, c_int] + [ptr] * 3 + [
+        c_int] + [c_float] * 6 + [c_int, c_int, ptr]
+    lib.cip_taper_maps.restype = c_int
 
 
 def _compile(sources: list[Path]) -> None:

@@ -4,7 +4,10 @@ visibilities), on the plane-group path.
 
 Counterpart: ``ska_sdp_cip_tpu/ops/gridder.py``:
 
-* ``_geometry_maps`` / ``_quad_arrays`` (image-domain correction maps);
+* ``_geometry_maps`` / ``_quad_arrays`` (image-domain correction maps):
+  on a card kernel T1 (``ops/taper_cuda.py``, ``csrc/taper.cu``) writes
+  both maps in one pass; its plain version, the counterpart's torch
+  twin, is ``_geometry_maps_reference``, which the CPU runs;
 * ``plan_host_arrays`` — here only what the port reads;
 * ``plan_order_host`` and ``stage_slot_vis`` (with their native engine
   branches, ``native.py``), ``stage_slot_weights`` and
@@ -87,6 +90,7 @@ from .fft_cuda import (
 )
 from .kernels import correction
 from .plan import GridderPlan, make_plan
+from .taper_cuda import taper_maps
 
 SPEED_OF_LIGHT = 299792458.0
 
@@ -124,7 +128,26 @@ def _geometry_maps(plan: GridderPlan, arrays: dict) -> tuple:
     """
     Image-domain maps ``(inv_corr, nm1s)``: the fused uv-taper x
     w-taper x 1/n correction and n(l,m) - 1 - n_mid (the w-screen
-    argument), computed on the device of ``arrays``.
+    argument), computed on the device of ``arrays``: on a card by
+    kernel T1 (``ops/taper_cuda.py``, ``csrc/taper.cu``) in one pass,
+    on the CPU by its plain version :func:`_geometry_maps_reference`.
+    """
+    nodes = arrays["quad_nodes"]
+    if nodes.device.type == "cuda":
+        return taper_maps(
+            nodes, arrays["quad_folded"], npix=plan.num_pixels,
+            ngrid=plan.ngrid, support=plan.support,
+            pixel_size_lm=plan.pixel_size_lm, wstacking=plan.wstacking,
+            dw=plan.dw, n_mid=plan.n_mid,
+        )
+    return _geometry_maps_reference(plan, arrays)
+
+
+def _geometry_maps_reference(plan: GridderPlan, arrays: dict) -> tuple:
+    """
+    T1's plain version, in torch on the device of ``arrays``: the maps
+    of :func:`_geometry_maps` through (rows, npix, Q) tensors of the
+    correction's angles, in row slabs of :data:`CORRECTION_TERMS`.
     """
     npix, ngrid = plan.num_pixels, plan.ngrid
     nodes = arrays["quad_nodes"]

@@ -12,7 +12,10 @@ against the explicit DFT; exact where a kernel only moves data (B6,
 P2's ``load`` and ``load2``) or sums another kernel's values in its
 order (tiled B2 as row-major B2, P1 and P2's ``s1tw``, ``s2`` and
 ``full`` as B2) and between two launches of the gridding kernel on the
-same inputs (it sums every cell in an order fixed by its work list).
+same inputs (it sums every cell in an order fixed by its work list);
+the taper maps (T1) within 1e-6 of the max of their plain version (the
+two sum the quadrature in different orders), and T1's mirrored
+evaluation bit-equal to its one-pixel-at-a-time evaluation.
 B2 also runs at the distributed mode's slab widths, and the
 distributed invert on 2 shards of an NCCL world of one; a small
 MeasurementSet's invert on the card is held to its VZ's.
@@ -26,6 +29,7 @@ from ska_sdp_cip_tpu_torch.io.synth import synthetic_uvw
 from ska_sdp_cip_tpu_torch.ops import cuda_gridder as tcg
 from ska_sdp_cip_tpu_torch.ops import fft_cuda as tfc
 from ska_sdp_cip_tpu_torch.ops import gridder as tg
+from ska_sdp_cip_tpu_torch.ops import taper_cuda as ttc
 from ska_sdp_cip_tpu_torch.ops.dft import dirty_image_dft, predict_dft
 from ska_sdp_cip_tpu_torch.ops.fft import fft_plan_arrays, make_fft_plan
 from ska_sdp_cip_tpu_torch.ops.plan import make_plan
@@ -906,3 +910,63 @@ def test_fused_invert_and_predict_equal_unfused_on_card(cuda, wstack):
         dirty_ref, model_ref = (np.array(x) for x in run())
     assert np.abs(dirty - dirty_ref).max() <= 1e-6 * np.abs(dirty_ref).max()
     assert np.abs(model - model_ref).max() <= 1e-6 * np.abs(model_ref).max()
+
+
+#: T1's geometries: name -> (npix, asec, plan options, ngrid, support).
+#: "production" is the snapshot's image (dw = 1 / (sigma |nm1_min|) and
+#: n_mid = nm1_min / 2 follow from the image and sigma alone, so every
+#: dump plan of the snapshot has this plan's); "large" the 16384 px
+#: image at 0.5 asec; "odd" an odd image, whose mirrored evaluation has
+#: a mirror for its first row and column.
+TAPER_CASES = {
+    "production": (10240, 1.1, {"sigma": 1.5}, 15360, 8),
+    "small": (96, 40.0, {}, 192, 6),
+    "odd": (97, 40.0, {}, 196, 6),
+    "no_wstacking": (10240, 1.1, {"sigma": 1.5, "do_wstacking": False},
+                     15360, 8),
+    "large": (16384, 0.5, {"sigma": 2.0}, 32768, 6),
+}
+
+
+@pytest.mark.parametrize("name", TAPER_CASES)
+def test_taper_kernel_matches_plain(cuda, name):
+    """T1 (one launch a map pair) within 1e-6 of each map's max of its
+    plain version on the card, and its mirrored evaluation equal bit
+    for bit to the one-pixel-at-a-time one."""
+    npix, asec, opts, ngrid, support = TAPER_CASES[name]
+    uvw, freqs, _, _ = _small()
+    plan = make_plan(uvw, freqs, npix,
+                     float(np.sin(np.radians(asec / 3600))), **opts)
+    assert (plan.ngrid, plan.support) == (ngrid, support)
+    assert plan.wstacking == opts.get("do_wstacking", True)
+    arrays = tg.stage_arrays(tg._quad_arrays(plan), cuda)
+    before = ttc.TAPER_LAUNCHES
+    got = tg._geometry_maps(plan, arrays)
+    torch.cuda.synchronize()
+    assert ttc.TAPER_LAUNCHES == before + 1
+    one_by_one = ttc.taper_maps(
+        arrays["quad_nodes"], arrays["quad_folded"], npix=npix, ngrid=ngrid,
+        support=support, pixel_size_lm=plan.pixel_size_lm,
+        wstacking=plan.wstacking, dw=plan.dw, n_mid=plan.n_mid,
+        mirror=False)
+    for g, o in zip(got, one_by_one):
+        assert torch.equal(g, o)
+    del one_by_one
+    ref = tg._geometry_maps_reference(plan, arrays)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape == (npix, npix)
+        assert bool(torch.isfinite(g).all())
+        assert float((g - r).abs().max()) <= 1e-6 * float(r.abs().max())
+
+
+def test_taper_kernel_once_per_invert_and_predict(cuda):
+    """Every call of ``build_invert``'s invert and ``build_predict``'s
+    predict on the card launches T1 once."""
+    uvw, freqs, vis, wgt = _small(num_times=4, num_antennas=12)
+    image = np.random.default_rng(3).normal(size=(96, 96)).astype(np.float32)
+    for _ in range(2):
+        before = ttc.TAPER_LAUNCHES
+        tg.dirty_image(uvw, freqs, vis, wgt, 96, PIXEL, device=cuda)
+        assert ttc.TAPER_LAUNCHES == before + 1
+        tg.predict_visibilities(uvw, freqs, image, PIXEL, device=cuda)
+        assert ttc.TAPER_LAUNCHES == before + 2
