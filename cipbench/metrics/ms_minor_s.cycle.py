@@ -1,0 +1,8 @@
+"""Device seconds a cycle spends in the multiscale minor loop: the program's device span ``multiscale.minor``."""
+from cipbench.readers import per_call
+from cipbench.recorded import span_seconds
+
+
+def read(run):
+    return per_call(run, "cycle", span_seconds(["multiscale.minor"],
+                                               "device_s"))

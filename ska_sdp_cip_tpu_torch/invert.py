@@ -18,7 +18,7 @@ import numpy as np
 from numpy.typing import NDArray
 
 from .io.visibility_dataset import VisibilityReader
-from .ops.gridder import dirty_image
+from .ops import gridder
 from .utils.task_metrics import span
 
 
@@ -104,7 +104,7 @@ def grid_invert(
     image, total weight)``.
     """
     effective_weights = gridder_input.effective_weights()
-    image = dirty_image(
+    image = gridder.dirty_image(
         gridder_input.uvw,
         gridder_input.channel_frequencies,
         gridder_input.visibilities,
@@ -137,7 +137,9 @@ def invert_dataset(
     selects the imaging weighting scheme (natural/uniform/robust; see
     ``models/weighting.py``).
     The reader's load is the span ``read``
-    (``utils/task_metrics.py``), before ``dirty_image``'s.
+    (``utils/task_metrics.py``), before ``dirty_image``'s, which is
+    looked up on ``ops.gridder`` at each call, so that a wrapper put
+    there sees the dataset's invert too.
     """
     with span("read"):
         gridder_input = StokesIGridderInput.from_reader(reader)

@@ -8,7 +8,7 @@ schemes (natural, uniform, Briggs robust).
 from .checkpoint import MajorCycleCheckpoint, graceful_shutdown
 from .clean import build_major_cycle_step, hogbom_clean, major_cycle_clean
 from .fista import fista_clean
-from .multiscale import multiscale_clean
+from .multiscale import build_multiscale_cycle_step, multiscale_clean
 from .operators import MeasurementOperator, SlotVis, as_split_pair
 from .restore import restore_image
 from .weighting import ImagingWeighter, fit_weighter_for_reader
@@ -23,6 +23,7 @@ __all__ = [
     "hogbom_clean",
     "major_cycle_clean",
     "build_major_cycle_step",
+    "build_multiscale_cycle_step",
     "MajorCycleCheckpoint",
     "graceful_shutdown",
     "ImagingWeighter",

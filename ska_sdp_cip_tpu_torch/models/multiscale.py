@@ -21,16 +21,33 @@ Every window lies inside its padded frame for any peak position, so
 none needs the clamp of the counterpart's ``lax.dynamic_slice``.
 
 The major cycle recomputes exact residuals through the measurement
-operator, so minor-cycle approximation does not accumulate.
+operator, so minor-cycle approximation does not accumulate. One cycle
+is a step of :func:`build_multiscale_cycle_step` (gradient, minor
+cycle, model update on the device), which builds the PSF, the kernels
+and biases, and the cross PSFs once, when it is built
+(:func:`prepare_multiscale_minor`); ``multiscale_clean`` runs the same
+minor update from the dirty image, one invert and ``num_major``
+gradients in all.
+
+Spans and counters (``utils/task_metrics.py``): ``multiscale.cross_psfs``
+(device, at step build), ``multiscale.frames`` (device: the S scale
+convolutions of a minor cycle's residual; counter ``scale_frames``) and
+``multiscale.minor`` (device, its host time the loop's launches; counter
+``multiscale_iterations``). While the recorder is on, the loop also
+counts on the card the components taken at each scale, which reach the
+counters ``multiscale_picks.s<k>`` only when the recorder is read.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
+from ..utils.task_metrics import count, count_later, enabled, span
 from .clean import _minor_block, _window, pick_psf_patch
-from .operators import MeasurementOperator
+from .operators import MeasurementOperator, SlotVis
 
 
 def scale_kernel(scale: float, radius: int) -> np.ndarray:
@@ -65,12 +82,14 @@ def _scale_frames(residual, kernels, num_scales: int, pad: int):
     ``pad`` cells on every side: (S, npix + 2 pad, npix + 2 pad).
     """
     npix = residual.shape[0]
-    frames = torch.zeros((num_scales, npix + 2 * pad, npix + 2 * pad),
-                         dtype=torch.float32, device=residual.device)
-    for s in range(num_scales):
-        frames[s, pad : pad + npix, pad : pad + npix] = _conv_same(
-            residual, kernels[s]
-        )
+    with span("multiscale.frames", device=True):
+        count("scale_frames", num_scales)
+        frames = torch.zeros((num_scales, npix + 2 * pad, npix + 2 * pad),
+                             dtype=torch.float32, device=residual.device)
+        for s in range(num_scales):
+            frames[s, pad : pad + npix, pad : pad + npix] = _conv_same(
+                residual, kernels[s]
+            )
     return frames
 
 
@@ -117,6 +136,56 @@ def _clark_psf_window(psf, ksize: int, psf_patch: int):
     return psf[start : start + M, start : start + M], (M - psf_patch) // 2
 
 
+def prepare_multiscale_minor(psf, kernels, biases, *,
+                             psf_patch: int | None = None):
+    """
+    The minor cycle of one PSF: the cross PSFs ``-P_st`` built once
+    (span ``multiscale.cross_psfs``), over the whole image or, with
+    ``psf_patch`` (an even number of cells) below the image's size, cut
+    to the central patch of the Clark path — at production sizes the
+    exact path would build (S, S, npix, npix) cross PSFs (6.7 GB at
+    10240 px) and pay O(S npix^2) per iteration.
+    """
+    npix = psf.shape[0]
+    num_scales = kernels.shape[0]
+    clark = psf_patch is not None and psf_patch < npix
+    if clark and psf_patch % 2:
+        raise ValueError("psf_patch must be even")
+    with span("multiscale.cross_psfs", device=True):
+        if clark:
+            psf_win, m0 = _clark_psf_window(psf, kernels.shape[1],
+                                            int(psf_patch))
+            neg_cross = _neg_cross_psfs(psf_win, kernels, num_scales,
+                                        crop=(m0, int(psf_patch)))
+        else:
+            neg_cross = _neg_cross_psfs(psf, kernels, num_scales)
+    return MultiscaleMinor(kernels, biases, neg_cross,
+                           int(psf_patch) if clark else None)
+
+
+@dataclass(frozen=True)
+class MultiscaleMinor:
+    """
+    A multiscale minor cycle with its cross PSFs built
+    (:func:`prepare_multiscale_minor`): call it on a residual image for
+    ``(model, residual)``. ``neg_cross`` is ``-P_st`` flattened per s,
+    (S, S * n * n), n the image's size or the Clark patch
+    (``psf_patch``; None on the exact path).
+    """
+
+    kernels: torch.Tensor  # (S, ksize, ksize)
+    biases: torch.Tensor  # (S,)
+    neg_cross: torch.Tensor
+    psf_patch: int | None
+
+    def __call__(self, residual, *, gain: float, max_iter: int):
+        if self.psf_patch is not None:
+            return _multiscale_minor_clark(residual, self, gain=gain,
+                                           max_iter=max_iter)
+        return _multiscale_minor_exact(residual, self, gain=gain,
+                                       max_iter=max_iter)
+
+
 def _multiscale_minor(
     residual,
     psf,
@@ -129,29 +198,42 @@ def _multiscale_minor(
     psf_patch: int | None = None,
 ):
     """
-    One multiscale minor cycle. With ``psf_patch`` (< npix) the
-    Clark-style fast path runs: cross-PSF subtraction truncated to the
-    central patch and per-(scale, block) maxima maintained
-    incrementally — at production sizes the exact path would build
-    (S, S, npix, npix) cross PSFs (6.7 GB at 10240 px) and pay
-    O(S npix^2) per iteration.
+    One multiscale minor cycle of ``psf``, its cross PSFs built for this
+    call alone (a :class:`MultiscaleMinor` keeps them over calls). With
+    ``psf_patch`` (< npix) the Clark-style fast path runs: cross-PSF
+    subtraction truncated to the central patch and per-(scale, block)
+    maxima maintained incrementally.
 
     Returns ``(model, residual)``.
     """
-    if psf_patch is not None and psf_patch < residual.shape[0]:
-        return _multiscale_minor_clark(
-            residual,
-            psf,
-            kernels,
-            biases,
-            gain=gain,
-            max_iter=max_iter,
-            num_scales=num_scales,
-            psf_patch=int(psf_patch),
-        )
+    minor = prepare_multiscale_minor(
+        psf, kernels[:num_scales], biases[:num_scales], psf_patch=psf_patch
+    )
+    return minor(residual, gain=gain, max_iter=max_iter)
+
+
+def _pick_counter(num_scales: int, device):
+    """Components taken at each scale, kept on the device while the
+    recorder is on (else None)."""
+    if not enabled():
+        return None
+    return torch.zeros(num_scales, dtype=torch.int64, device=device)
+
+
+def _count_picks(picks) -> None:
+    if picks is not None:
+        count_later([f"multiscale_picks.s{k}" for k in range(len(picks))],
+                    picks)
+
+
+def _multiscale_minor_exact(residual, minor: MultiscaleMinor, *,
+                            gain: float, max_iter: int):
+    """The exact multiscale minor cycle: every cross PSF whole, the
+    global (scale, pixel) peak searched every iteration."""
     npix = residual.shape[0]
     half = npix // 2
-    S = num_scales
+    kernels, biases, neg_cross = minor.kernels, minor.biases, minor.neg_cross
+    S = kernels.shape[0]
     device = residual.device
     ksize = kernels.shape[1]
     kr = ksize // 2
@@ -160,71 +242,68 @@ def _multiscale_minor(
     # the subtraction of an (npix, npix) cross PSF centred on any inner
     # pixel (i, j) starts at frame (i, j), inside the frame.
     frames = _scale_frames(residual, kernels, S, half)
-    stride = frames.shape[-1]
-    flat_frames = frames.view(-1)
-    inner = frames[:, half : half + npix, half : half + npix]
-    neg_cross = _neg_cross_psfs(psf, kernels, S)  # (S, S npix^2)
-    scale_base = torch.arange(S, device=device)[:, None] * stride * stride
-    frame_win = (scale_base + _window(npix, npix, stride, device)).reshape(-1)
+    with span("multiscale.minor", device=True):
+        count("multiscale_iterations", max_iter)
+        picks = _pick_counter(S, device)
+        stride = frames.shape[-1]
+        flat_frames = frames.view(-1)
+        inner = frames[:, half : half + npix, half : half + npix]
+        scale_base = torch.arange(S, device=device)[:, None] * stride * stride
+        frame_win = (scale_base
+                     + _window(npix, npix, stride, device)).reshape(-1)
 
-    # The model lives in a (npix + 2 kr)^2 frame so the s-scale blob at
-    # (i, j) is one fixed window; its margin is cut off at the end (the
-    # counterpart crops it every step; nothing reads it).
-    mstride = npix + 2 * kr
-    pad_model = torch.zeros((mstride, mstride), dtype=torch.float32,
-                            device=device)
-    flat_model = pad_model.view(-1)
-    model_win = _window(ksize, ksize, mstride, device)
-    flat_kernels = kernels.reshape(S, -1)
-    plane = npix * npix
+        # The model lives in a (npix + 2 kr)^2 frame so the s-scale blob
+        # at (i, j) is one fixed window; its margin is cut off at the end
+        # (the counterpart crops it every step; nothing reads it).
+        mstride = npix + 2 * kr
+        pad_model = torch.zeros((mstride, mstride), dtype=torch.float32,
+                                device=device)
+        flat_model = pad_model.view(-1)
+        model_win = _window(ksize, ksize, mstride, device)
+        flat_kernels = kernels.reshape(S, -1)
+        plane = npix * npix
 
-    for _ in range(max_iter):
-        biased = torch.abs(inner) * biases[:, None, None]
-        flat_idx = torch.argmax(biased).reshape(1)
-        metric = biased.reshape(-1)[flat_idx]
-        s = torch.div(flat_idx, plane, rounding_mode="floor")
-        rem = flat_idx - s * plane
-        i = torch.div(rem, npix, rounding_mode="floor")
-        j = rem - i * npix
-        value = flat_frames[s * stride * stride + (half + i) * stride
-                            + half + j]
-        amplitude = torch.where(metric > 0.0, gain * value,
-                                torch.zeros_like(value))
-        flat_model.index_add_(
-            0, i * mstride + j + model_win,
-            amplitude * torch.index_select(flat_kernels, 0, s)[0],
-        )
-        # Every scale's residual loses amplitude * P_{s,t} at (i, j).
-        flat_frames.index_add_(
-            0, i * stride + j + frame_win,
-            amplitude * torch.index_select(neg_cross, 0, s)[0],
-        )
-    model = pad_model[kr : kr + npix, kr : kr + npix].clone()
-    return model, frames[0, half : half + npix, half : half + npix].clone()
+        for _ in range(max_iter):
+            biased = torch.abs(inner) * biases[:, None, None]
+            flat_idx = torch.argmax(biased).reshape(1)
+            metric = biased.reshape(-1)[flat_idx]
+            s = torch.div(flat_idx, plane, rounding_mode="floor")
+            rem = flat_idx - s * plane
+            i = torch.div(rem, npix, rounding_mode="floor")
+            j = rem - i * npix
+            value = flat_frames[s * stride * stride + (half + i) * stride
+                                + half + j]
+            active = metric > 0.0
+            amplitude = torch.where(active, gain * value,
+                                    torch.zeros_like(value))
+            flat_model.index_add_(
+                0, i * mstride + j + model_win,
+                amplitude * torch.index_select(flat_kernels, 0, s)[0],
+            )
+            # Every scale's residual loses amplitude * P_{s,t} at (i, j).
+            flat_frames.index_add_(
+                0, i * stride + j + frame_win,
+                amplitude * torch.index_select(neg_cross, 0, s)[0],
+            )
+            if picks is not None:
+                picks.index_add_(0, s, active.to(torch.int64))
+        _count_picks(picks)
+        model = pad_model[kr : kr + npix, kr : kr + npix].clone()
+        return model, inner[0].clone()
 
 
-def _multiscale_minor_clark(
-    residual,
-    psf,
-    kernels,
-    biases,
-    *,
-    gain: float,
-    max_iter: int,
-    num_scales: int,
-    psf_patch: int,
-):
+def _multiscale_minor_clark(residual, minor: MultiscaleMinor, *,
+                            gain: float, max_iter: int):
     """
-    Clark-style multiscale minor cycle (see :func:`_multiscale_minor`):
-    per-(scale, block) biased maxima refreshed only where the truncated
-    cross-PSF patches landed. All scales' frames update in one
-    ``index_add_`` per iteration.
+    Clark-style multiscale minor cycle (see
+    :func:`prepare_multiscale_minor`): per-(scale, block) biased maxima
+    refreshed only where the truncated cross-PSF patches landed. All
+    scales' frames update in one ``index_add_`` per iteration.
     """
     npix = residual.shape[0]
-    S = num_scales
-    P = psf_patch
-    if P % 2:
-        raise ValueError("psf_patch must be even")
+    kernels, biases, neg_cross = minor.kernels, minor.biases, minor.neg_cross
+    S = kernels.shape[0]
+    P = minor.psf_patch
     device = residual.device
     pad = P // 2
     block = _minor_block(npix, P)
@@ -235,88 +314,94 @@ def _multiscale_minor_clark(
 
     stride = npix + P
     frames = _scale_frames(residual, kernels, S, pad)
-    flat_frames = frames.view(-1)
-    # Cross-PSF central windows (S, S P^2), built from a PSF window with
-    # a 2 ksize margin. Never materializes (S, S, npix, npix).
-    psf_win, m0 = _clark_psf_window(psf, ksize, P)
-    neg_cross = _neg_cross_psfs(psf_win, kernels, S, crop=(m0, P))
+    with span("multiscale.minor", device=True):
+        count("multiscale_iterations", max_iter)
+        picks = _pick_counter(S, device)
+        flat_frames = frames.view(-1)
 
-    def biased_block_max(region):
-        # region (S, R, R) -> (S, R/block, R/block) of biased |.|
-        R = region.shape[1]
-        mb = torch.abs(
-            region.reshape(S, R // block, block, R // block, block)
-        ).amax(dim=(2, 4))
-        return mb * biases[:, None, None]
+        def biased_block_max(region):
+            # region (S, R, R) -> (S, R/block, R/block) of biased |.|
+            R = region.shape[1]
+            mb = torch.abs(
+                region.reshape(S, R // block, block, R // block, block)
+            ).amax(dim=(2, 4))
+            return mb * biases[:, None, None]
 
-    block_max = biased_block_max(frames[:, pad : pad + npix, pad : pad + npix])
-    flat_block_max = block_max.view(-1)
+        block_max = biased_block_max(
+            frames[:, pad : pad + npix, pad : pad + npix])
+        flat_block_max = block_max.view(-1)
 
-    scale_base = torch.arange(S, device=device)[:, None] * stride * stride
-    tile_win = _window(block, block, stride, device)
-    patch_win = (scale_base + _window(P, P, stride, device)).reshape(-1)
-    region_win = (
-        scale_base + _window(K * block, K * block, stride, device)
-    ).reshape(-1)
-    kk = torch.arange(K, device=device)
-    bm_win = (
-        torch.arange(S, device=device)[:, None] * nb * nb
-        + (kk[:, None] * nb + kk[None, :]).reshape(-1)
-    ).reshape(-1)
-
-    mstride = npix + 2 * kr
-    pad_model = torch.zeros((mstride, mstride), dtype=torch.float32,
-                            device=device)
-    flat_model = pad_model.view(-1)
-    model_win = _window(ksize, ksize, mstride, device)
-    flat_kernels = kernels.reshape(S, -1)
-
-    for _ in range(max_iter):
-        active = torch.amax(block_max) > 0.0
-        coarse = torch.argmax(block_max).reshape(1)
-        s = torch.div(coarse, nb * nb, rounding_mode="floor")
-        rem = coarse - s * nb * nb
-        bi = torch.div(rem, nb, rounding_mode="floor")
-        bj = rem - bi * nb
-        tile = flat_frames[
-            s * stride * stride + (pad + bi * block) * stride + pad
-            + bj * block + tile_win
-        ]
-        fine = torch.argmax(torch.abs(tile)).reshape(1)
-        fi = torch.div(fine, block, rounding_mode="floor")
-        i = bi * block + fi
-        j = bj * block + (fine - fi * block)
-        value = tile[fine]
-        amplitude = torch.where(active, gain * value, torch.zeros_like(value))
-
-        flat_model.index_add_(
-            0, i * mstride + j + model_win,
-            amplitude * torch.index_select(flat_kernels, 0, s)[0],
-        )
-        # All scales lose amplitude * P_{s,t} patches at (i, j): peak at
-        # frame (i + pad, j + pad), patch centred -> start (i, j).
-        flat_frames.index_add_(
-            0, i * stride + j + patch_win,
-            amplitude * torch.index_select(neg_cross, 0, s)[0],
-        )
-        # Refresh the K x K biased block maxima for every scale.
-        bi0 = torch.clamp(
-            torch.div(i - P // 2, block, rounding_mode="floor"), 0, nb - K
-        )
-        bj0 = torch.clamp(
-            torch.div(j - P // 2, block, rounding_mode="floor"), 0, nb - K
-        )
-        region = flat_frames[
-            (pad + bi0 * block) * stride + pad + bj0 * block + region_win
-        ]
-        refreshed = biased_block_max(
-            region.reshape(S, K * block, K * block)
+        scale_base = torch.arange(S, device=device)[:, None] * stride * stride
+        tile_win = _window(block, block, stride, device)
+        patch_win = (scale_base + _window(P, P, stride, device)).reshape(-1)
+        region_win = (
+            scale_base + _window(K * block, K * block, stride, device)
         ).reshape(-1)
-        at = bi0 * nb + bj0 + bm_win
-        flat_block_max[at] = torch.where(active, refreshed,
-                                         flat_block_max[at])
-    model = pad_model[kr : kr + npix, kr : kr + npix].clone()
-    return model, frames[0, pad : pad + npix, pad : pad + npix].clone()
+        kk = torch.arange(K, device=device)
+        bm_win = (
+            torch.arange(S, device=device)[:, None] * nb * nb
+            + (kk[:, None] * nb + kk[None, :]).reshape(-1)
+        ).reshape(-1)
+
+        mstride = npix + 2 * kr
+        pad_model = torch.zeros((mstride, mstride), dtype=torch.float32,
+                                device=device)
+        flat_model = pad_model.view(-1)
+        model_win = _window(ksize, ksize, mstride, device)
+        flat_kernels = kernels.reshape(S, -1)
+
+        for _ in range(max_iter):
+            active = torch.amax(block_max) > 0.0
+            coarse = torch.argmax(block_max).reshape(1)
+            s = torch.div(coarse, nb * nb, rounding_mode="floor")
+            rem = coarse - s * nb * nb
+            bi = torch.div(rem, nb, rounding_mode="floor")
+            bj = rem - bi * nb
+            tile = flat_frames[
+                s * stride * stride + (pad + bi * block) * stride + pad
+                + bj * block + tile_win
+            ]
+            fine = torch.argmax(torch.abs(tile)).reshape(1)
+            fi = torch.div(fine, block, rounding_mode="floor")
+            i = bi * block + fi
+            j = bj * block + (fine - fi * block)
+            value = tile[fine]
+            amplitude = torch.where(active, gain * value,
+                                    torch.zeros_like(value))
+
+            flat_model.index_add_(
+                0, i * mstride + j + model_win,
+                amplitude * torch.index_select(flat_kernels, 0, s)[0],
+            )
+            # All scales lose amplitude * P_{s,t} patches at (i, j): peak
+            # at frame (i + pad, j + pad), patch centred -> start (i, j).
+            flat_frames.index_add_(
+                0, i * stride + j + patch_win,
+                amplitude * torch.index_select(neg_cross, 0, s)[0],
+            )
+            # Refresh the K x K biased block maxima for every scale.
+            bi0 = torch.clamp(
+                torch.div(i - P // 2, block, rounding_mode="floor"), 0,
+                nb - K
+            )
+            bj0 = torch.clamp(
+                torch.div(j - P // 2, block, rounding_mode="floor"), 0,
+                nb - K
+            )
+            region = flat_frames[
+                (pad + bi0 * block) * stride + pad + bj0 * block + region_win
+            ]
+            refreshed = biased_block_max(
+                region.reshape(S, K * block, K * block)
+            ).reshape(-1)
+            at = bi0 * nb + bj0 + bm_win
+            flat_block_max[at] = torch.where(active, refreshed,
+                                             flat_block_max[at])
+            if picks is not None:
+                picks.index_add_(0, s, active.reshape(1).to(torch.int64))
+        _count_picks(picks)
+        model = pad_model[kr : kr + npix, kr : kr + npix].clone()
+        return model, frames[0, pad : pad + npix, pad : pad + npix].clone()
 
 
 def scale_kernels_and_biases(scales, bias_slope: float, device) -> tuple:
@@ -335,6 +420,63 @@ def scale_kernels_and_biases(scales, bias_slope: float, device) -> tuple:
             torch.as_tensor(biases, device=device))
 
 
+def _build_minor_update(operator: MeasurementOperator, *, scales,
+                        bias_slope: float, gain: float, minor_iter: int,
+                        psf_patch):
+    """
+    ``update(model, residual) -> model'``: one multiscale minor cycle on
+    the residual image, added to the model. The PSF, the scale kernels
+    and biases and the cross PSFs are built once, here.
+    """
+    if psf_patch == "auto":
+        psf_patch = pick_psf_patch(operator.plan.num_pixels)
+    kernels, biases = scale_kernels_and_biases(scales, bias_slope,
+                                               operator.device)
+    minor = prepare_multiscale_minor(operator.psf(), kernels, biases,
+                                     psf_patch=psf_patch)
+
+    def update(model, residual):
+        delta, _ = minor(residual, gain=gain, max_iter=minor_iter)
+        return model + delta
+
+    return update
+
+
+def build_multiscale_cycle_step(
+    operator: MeasurementOperator,
+    *,
+    scales=(0.0, 2.0, 4.0, 8.0),
+    bias_slope: float = 0.6,
+    gain: float = 0.1,
+    minor_iter: int = 100,
+    psf_patch: int | str | None = "auto",
+):
+    """
+    One multiscale major-cycle step ``(model, slot_re, slot_im) ->
+    model'``: gradient through the measurement operator, multiscale
+    minor cycle, model update, with no host round trip; the counterpart
+    of ``models/clean.py:build_major_cycle_step``. The PSF, the scale
+    kernels and biases and the cross PSFs are built once, here. The
+    visibility arguments are slot-staged (``operator.stage(vis)``).
+
+    ``bias_slope`` down-weights large scales in peak selection
+    (standard multiscale bias ``1 - slope * scale/max_scale``).
+    ``psf_patch`` as in models/clean.py ("auto": Clark-truncated
+    above 4096 px).
+    """
+    update = _build_minor_update(
+        operator, scales=scales, bias_slope=bias_slope, gain=gain,
+        minor_iter=minor_iter, psf_patch=psf_patch,
+    )
+
+    def step(model, vis_re, vis_im):
+        residual = -operator.residual_gradient(model,
+                                               SlotVis(vis_re, vis_im))
+        return update(model, residual)
+
+    return step
+
+
 def multiscale_clean(
     operator: MeasurementOperator,
     vis,
@@ -347,36 +489,23 @@ def multiscale_clean(
     psf_patch: int | str | None = "auto",
 ):
     """
-    Multiscale Cotton-Schwab CLEAN. Returns ``(model, residual)`` as
-    tensors on the operator's device.
-
-    ``bias_slope`` down-weights large scales in peak selection
-    (standard multiscale bias ``1 - slope * scale/max_scale``).
-    ``psf_patch`` as in models/clean.py ("auto": Clark-truncated
-    above 4096 px).
+    Multiscale Cotton-Schwab CLEAN: ``num_major`` cycles of
+    :func:`build_multiscale_cycle_step`'s minor update, the first on
+    the dirty image (which equals the step's gradient of an empty
+    model, without its predict), each later one on the residual of the
+    model so far. Returns ``(model, residual)`` as tensors on the
+    operator's device.
     """
-    npix = operator.plan.num_pixels
-    if psf_patch == "auto":
-        psf_patch = pick_psf_patch(npix)
     vis = operator.stage(vis)
-    psf = operator.psf()
-    kernels, biases = scale_kernels_and_biases(scales, bias_slope,
-                                               operator.device)
-
+    update = _build_minor_update(
+        operator, scales=scales, bias_slope=bias_slope, gain=gain,
+        minor_iter=minor_iter, psf_patch=psf_patch,
+    )
+    npix = operator.plan.num_pixels
     model = torch.zeros((npix, npix), dtype=torch.float32,
                         device=operator.device)
     residual = operator.dirty_image(vis)
     for _ in range(num_major):
-        delta, _ = _multiscale_minor(
-            residual,
-            psf,
-            kernels,
-            biases,
-            gain=gain,
-            max_iter=minor_iter,
-            num_scales=len(scales),
-            psf_patch=psf_patch,
-        )
-        model = model + delta
+        model = update(model, residual)
         residual = -operator.residual_gradient(model, vis)
     return model, residual

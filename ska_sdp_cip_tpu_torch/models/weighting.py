@@ -17,12 +17,16 @@ exactly the weights a single-device run would.
 
 The density pass runs on the native engine's multithreaded C++ branch
 (``native.py``) where the engine is available, else on the numpy
-``bincount`` pass below; the tests hold the two equal.
+``bincount`` pass below; the tests hold the two equal. It is the host
+span ``weighting.density`` (``utils/task_metrics.py``) and counts the
+visibilities it takes in ``weighted_visibilities``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..utils.task_metrics import count, span
 
 SPEED_OF_LIGHT = 299792458.0
 
@@ -80,6 +84,11 @@ class ImagingWeighter:
         density. Density grids from different chunks/processes add, so
         a distributed fit is per-shard accumulation plus one sum.
         """
+        with span("weighting.density"):
+            count("weighted_visibilities", np.size(weights))
+            return self._accumulate_density(uvw, freqs, weights, density)
+
+    def _accumulate_density(self, uvw, freqs, weights, density):
         if density is None:
             density = np.zeros((self.num_pixels, self.num_pixels))
         from .. import native as _native

@@ -169,19 +169,18 @@ def sharded_major_cycle_clean(
         psf_patch = pick_psf_patch(num_pixels)
     if algorithm == "multiscale":
         from ..models.multiscale import (
-            _multiscale_minor,
+            prepare_multiscale_minor,
             scale_kernels_and_biases,
         )
 
         kernels, biases = scale_kernels_and_biases(scales, bias_slope,
                                                    mesh.device)
+        # The cross PSFs, built once for every cycle.
+        minor = prepare_multiscale_minor(psf, kernels, biases,
+                                         psf_patch=psf_patch)
 
         def minor_step(residual):
-            delta, _ = _multiscale_minor(
-                residual, psf, kernels, biases, gain=gain,
-                max_iter=minor_iter, num_scales=len(scales),
-                psf_patch=psf_patch,
-            )
+            delta, _ = minor(residual, gain=gain, max_iter=minor_iter)
             return delta
     else:
         def minor_step(residual):

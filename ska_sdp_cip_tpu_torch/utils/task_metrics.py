@@ -29,8 +29,10 @@ of the function kind, which the profiler keeps on the host (a
 user-scope ``record_function`` gets a device-side copy that a trace
 reader would count as device work). A span opened with ``device=True``
 also records two CUDA events on the current stream, read only when the
-recorder is read: nothing here synchronizes or reads a tensor. Records
-stay in memory until :func:`reset`.
+recorder is read: nothing here synchronizes or reads a tensor.
+:func:`count_later` keeps a device tensor of counts as it is, to be read
+into the counters by :func:`summary`. Records stay in memory until
+:func:`reset`.
 """
 
 from __future__ import annotations
@@ -228,6 +230,8 @@ class SpanRecorder:
         self.depth = 0
         self.records: list[SpanRecord] = []
         self.counters: dict[str, int] = {}
+        #: (names, tensor) of counts not read yet (:func:`count_later`).
+        self.pending: list[tuple] = []
         self._ids = itertools.count(1)
         self._local = threading.local()
         self._lock = threading.Lock()
@@ -242,6 +246,15 @@ class SpanRecorder:
     def reset(self) -> None:
         self.records = []
         self.counters = {}
+        self.pending = []
+
+    def read_pending(self) -> None:
+        """Add the pending tensors' values to their counters."""
+        with self._lock:
+            pending, self.pending = self.pending, []
+            for names, values in pending:
+                for name, n in zip(names, values.tolist()):
+                    self.counters[name] = self.counters.get(name, 0) + int(n)
 
 
 RECORDER = SpanRecorder()
@@ -320,6 +333,17 @@ def count(name: str, n: int = 1) -> None:
         RECORDER.counters[name] = RECORDER.counters.get(name, 0) + int(n)
 
 
+def count_later(names: list, values: torch.Tensor) -> None:
+    """Add ``values[k]`` to counter ``names[k]`` while the recorder is
+    on, reading the tensor (which may live on the card and still be
+    written by queued work) only when the recorder is read: no
+    synchronization here."""
+    if not (RECORDER.depth or _profiler._is_profiler_enabled):
+        return
+    with RECORDER._lock:
+        RECORDER.pending.append((list(names), values))
+
+
 @contextmanager
 def tracing() -> Iterator[SpanRecorder]:
     """Keep the recorder on inside the block (blocks nest)."""
@@ -338,12 +362,14 @@ def reset() -> None:
 def summary() -> dict:
     """
     ``{"spans": {name: totals}, "counters": {name: n}}`` of what was
-    recorded since the last :func:`reset`. A name's totals: ``count``,
+    recorded since the last :func:`reset` (pending device counts read
+    in first, :func:`count_later`). A name's totals: ``count``,
     ``host_s``, ``self_s`` (host seconds less those of its spans'
     children) and, for device spans, ``device_s`` over the spans whose
     events have completed.
     """
     records = list(RECORDER.records)
+    RECORDER.read_pending()
     children_ns: dict[int, int] = {}
     for r in records:
         if r.parent is not None:
