@@ -56,7 +56,15 @@ then runs these phases and prints one JSON object per phase:
    w-stacking, and at the large one, against its plain version on the
    card (1e-6 of each map's max), its mirrored evaluation bit-equal to
    the one-pixel-at-a-time one, each timed beside the plain version
-   and the bound;
+   and the bound; then ``scale_conv``: the scale frames' kernel S1
+   (:func:`phase_scale_conv`) on a 10240 px residual at the benchmark
+   cell's scales (67 taps) and the CLI's (35), a Clark patch's pad: its
+   frames against the float64 2-D convolution on a central square (2e-6
+   of its max), scale 0's frame bit-equal to the residual, the margins
+   zero; S1's time beside its plain version's (the two passes through
+   cuDNN), cuDNN's 2-D ``conv2d`` of the S kernels (timed only), the
+   bound of ``cipbench/work_multiscale.py``'s least work and that of
+   S1's own multiply-adds;
 4. ``b3``: the degridding kernel (B3, reading the periodic grid)
    against its folded plain version on random planes, on the same
    plans and groups as ``b1`` (G = 1 at bench size: B5), with the
@@ -1317,6 +1325,140 @@ def phase_taper(device, iters=10) -> dict:
             "launches": taper_cuda.TAPER_LAUNCHES - before}
 
 
+#: S1 against the float64 2-D convolution, over its max: the card test's
+#: tolerance.
+SCALE_CONV_RTOL = 2e-6
+
+#: The scale_conv phase's cases at the production image: name ->
+#: (scales, pad); the benchmark cell's scales (radius 33) and the CLI's
+#: default (radius 17), each at the Clark patch's pad (2048 / 2).
+SCALE_CONV_GEOMETRIES = {
+    "cell": ((0.0, 4.0, 8.0, 16.0), 1024),
+    "cli": ((0.0, 2.0, 4.0, 8.0), 1024),
+}
+
+
+def s1_flops(rows: int, cols: int, factors) -> float:
+    """The float32 operations S1's schedule runs (two a multiply-add):
+    for each scale of trimmed radius r > 0 and each output tile, a row
+    pass over tile + 2 r rows and a column pass, each of 2 r + 1 taps
+    rounded up to 8 (``csrc/scale_conv.cu``)."""
+    from ska_sdp_cip_tpu_torch.ops import scale_conv_cuda
+
+    radius = factors.shape[1] // 2
+    tile = scale_conv_cuda.pick_tile(factors.shape[1], factors.shape[0])
+    tiles = -(-rows // tile) * -(-cols // tile)
+    fmas = 0
+    for factor in factors.cpu():
+        taps = factor.nonzero().flatten()
+        r = int((taps - radius).abs().max()) if len(taps) else 0
+        if r:
+            n = -(-(2 * r + 1) // 8) * 8
+            fmas += tiles * ((tile + 2 * r) * tile * n + tile * tile * n)
+    return 2.0 * fmas
+
+
+def scale_residual(npix: int, device, seed: int = 19):
+    """A residual of the kind the minor cycle convolves: noise and a few
+    compact and extended sources, made on ``device``."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    image = 0.01 * torch.randn((npix, npix), generator=gen, device=device)
+    axis = torch.arange(npix, device=device, dtype=torch.float32)
+    for (fy, fx), flux, width in (((0.3, 0.7), 2.0, 1.5),
+                                  ((0.7, 0.35), 1.1, 2.5),
+                                  ((0.5, 0.5), 0.8, 12.0)):
+        gy = torch.exp(-0.5 * ((axis - fy * npix) / width) ** 2)
+        gx = torch.exp(-0.5 * ((axis - fx * npix) / width) ** 2)
+        image += flux * gy[:, None] * gx[None, :]
+    return image
+
+
+def phase_scale_conv(device, npix=PROD_NPIX, iters=10, crop=1024) -> dict:
+    """
+    S1 (``ops/scale_conv_cuda.py``) on a ``npix`` residual
+    (:func:`scale_residual`) at each of :data:`SCALE_CONV_GEOMETRIES`:
+    its frames against the float64 2-D convolution with each scale
+    kernel on the central ``crop`` square (its max error over the exact
+    square's max, gated at :data:`SCALE_CONV_RTOL`; cuDNN's float32
+    ``conv2d`` read the same way beside it), scale 0's frame bit-equal
+    to the residual and every margin cell zero (gated); the times of
+    S1, of its plain version (``_separable_frames_reference``: the two
+    passes through cuDNN) and of cuDNN's 2-D ``conv2d`` of the S
+    kernels (``library_ms``, timed only: the port no longer calls it);
+    the bound of the least work (``cipbench/work_multiscale.py``) and,
+    as ``bound_s1_ms``, of S1's own multiply-adds (:func:`s1_flops`).
+    """
+    import torch
+
+    from cipbench.work_multiscale import scale_conv_work
+    from ska_sdp_cip_tpu_torch.models import multiscale as ms
+    from ska_sdp_cip_tpu_torch.ops import scale_conv_cuda
+    from ska_sdp_cip_tpu_torch.probes.common import cuda_ms
+
+    image = scale_residual(npix, device)
+    before = scale_conv_cuda.SCALE_CONV_LAUNCHES
+    cases = []
+    for name, (scales, pad) in SCALE_CONV_GEOMETRIES.items():
+        kernels, _ = ms.scale_kernels_and_biases(scales, 0.6, device)
+        factors = ms.scale_factors(kernels)
+        S, ksize = factors.shape
+        R = ksize // 2
+        frames = scale_conv_cuda.scale_frames(image, factors, pad)
+        inner = frames[:, pad : pad + npix, pad : pad + npix]
+        delta_bit_equal = same_bits(inner[0], image)
+        margins_zero = bool(
+            frames[:, :pad].abs().max() == 0
+            and frames[:, pad + npix :].abs().max() == 0
+            and frames[:, :, :pad].abs().max() == 0
+            and frames[:, :, pad + npix :].abs().max() == 0)
+        lo = (npix - crop) // 2
+        part = image[lo - R : lo + crop + R, lo - R : lo + crop + R]
+        abs_errs, errs, cudnn_errs = [], [], []
+        for s in range(S):
+            exact = ms._conv_same(part.double(),
+                                  kernels[s].double())[R:-R, R:-R]
+            scale = float(exact.abs().max())
+            got = inner[s, lo : lo + crop, lo : lo + crop].double()
+            abs_errs.append(float((got - exact).abs().max()))
+            errs.append(abs_errs[-1] / scale)
+            lib = ms._conv_same(part, kernels[s])[R:-R, R:-R].double()
+            cudnn_errs.append(float((lib - exact).abs().max()) / scale)
+        del frames, inner
+        case = {
+            "case": name, "npix": npix, "scales": list(scales),
+            "ksize": ksize, "pad": pad,
+            "max_abs_err": max(abs_errs), "max_rel_err": max(errs),
+            "rel_err": errs,
+            "cudnn_rel_err": cudnn_errs,
+            "delta_bit_equal": delta_bit_equal,
+            "margins_zero": margins_zero,
+            "ms": cuda_ms(lambda: scale_conv_cuda.scale_frames(
+                image, factors, pad), iters=iters),
+            "plain_ms": cuda_ms(lambda: ms._separable_frames_reference(
+                image, factors, pad), iters=3),
+            "library_ms": cuda_ms(
+                lambda: [ms._conv_same(image, k) for k in kernels],
+                iters=2),
+            "library_call": "cuDNN conv2d (float32, TF32 off) of the S "
+                            "2-D kernels",
+            **bound(*scale_conv_work(npix, ksize, S)),
+        }
+        case["bound_s1_ms"] = bound(0, s1_flops(npix, npix, factors))[
+            "bound_ms"]
+        cases.append(case)
+        if not case["max_rel_err"] <= SCALE_CONV_RTOL:
+            raise PhaseError(f"S1 {name} vs float64 {case['max_rel_err']:.3e}"
+                             f" > {SCALE_CONV_RTOL}")
+        if not (delta_bit_equal and margins_zero):
+            raise PhaseError(f"S1 {name}: scale 0's frame differs from the "
+                             f"residual ({not delta_bit_equal}) or a margin "
+                             f"is not zero ({not margins_zero})")
+    return {"phase": "scale_conv", "cases": cases,
+            "launches": scale_conv_cuda.SCALE_CONV_LAUNCHES - before}
+
+
 def compare_degrid(plan, arrays, grids, k, chunks, *, time_it: bool,
                    iters: int = 3) -> dict:
     """B3 kernel vs its folded plain version on plane group ``k`` of the
@@ -1527,7 +1669,7 @@ def _launch_counters():
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from ska_sdp_cip_tpu_torch.ops import taper_cuda
+    from ska_sdp_cip_tpu_torch.ops import scale_conv_cuda, taper_cuda
     from ska_sdp_cip_tpu_torch.probes import smem
 
     cuda_gridder, fft_cuda, p1, p2 = _launch_counters()
@@ -1537,6 +1679,7 @@ def reset_launches() -> None:
     fft_cuda.TILED_LAUNCHES = fft_cuda.PRETILE_LAUNCHES = 0
     fft_cuda.LAST_AXIS_LAUNCHES = fft_cuda.LAST_AXIS_IN_CROP_LAUNCHES = 0
     taper_cuda.TAPER_LAUNCHES = 0
+    scale_conv_cuda.SCALE_CONV_LAUNCHES = 0
     for counts in (p1.LAUNCHES, p2.LAUNCHES):
         for key in counts:
             counts[key] = 0
@@ -1545,7 +1688,7 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     """Every kernel's launch count since :func:`reset_launches`."""
-    from ska_sdp_cip_tpu_torch.ops import taper_cuda
+    from ska_sdp_cip_tpu_torch.ops import scale_conv_cuda, taper_cuda
     from ska_sdp_cip_tpu_torch.probes import smem
 
     cuda_gridder, fft_cuda, p1, p2 = _launch_counters()
@@ -1558,7 +1701,8 @@ def read_launches() -> dict:
            "b4": cuda_gridder.GROUP1_LAUNCHES,
            "b5": cuda_gridder.DEGRID_GROUP1_LAUNCHES,
            "b6": fft_cuda.PRETILE_LAUNCHES, "p3": smem.LAUNCHES,
-           "t1": taper_cuda.TAPER_LAUNCHES}
+           "t1": taper_cuda.TAPER_LAUNCHES,
+           "s1": scale_conv_cuda.SCALE_CONV_LAUNCHES}
     out.update({f"p1_{k}": v for k, v in p1.LAUNCHES.items()})
     out.update({f"p2_{k}": v for k, v in p2.LAUNCHES.items()})
     return out
@@ -4097,7 +4241,7 @@ def phase_solvers_cli(device, path: Path, workdir: Path, seed=1234,
     call = cli_call(device, argv("multiscale", "--clean", 2, "--algorithm",
                                  "multiscale", "--minor-iter", minor_iter))
     require_launches(call["launches"], ("b1", *INVERT_KERNELS, *PREDICT_KERNELS,
-                                        "b3"), device, "cli multiscale")
+                                        "b3", "s1"), device, "cli multiscale")
     images = load("multiscale")
     call.update(clean_gates(
         images[".model.npy"], images[".residual.npy"],
@@ -4249,7 +4393,8 @@ def phase_solvers_production_multiscale(device, op, staged, sources,
     if device.type == "cuda":
         out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
     require_launches(out["launches"], ("b1", *INVERT_KERNELS, *PREDICT_KERNELS,
-                                       "b3"), device, "production multiscale")
+                                       "b3", "s1"), device,
+                     "production multiscale")
     dirty = op.dirty_image(staged)
     out.update(clean_gates(model, residual, float(dirty.abs().max()),
                            sources, "production multiscale"))
@@ -4257,24 +4402,26 @@ def phase_solvers_production_multiscale(device, op, staged, sources,
 
     psf = op.psf()
     kernels, biases = ms.scale_kernels_and_biases(scales, 0.6, device)
+    factors = ms.scale_factors(kernels)
     S = len(scales)
+    pad = (psf_patch or npix) // 2
     sync()
     t = time.perf_counter()
-    frames = ms._scale_frames(dirty, kernels, S, (psf_patch or npix) // 2)
+    frames = ms._scale_frames(dirty, kernels, S, pad, factors=factors)
     sync()
     out["scale_frames_seconds"] = time.perf_counter() - t
     del frames
-    # One session: its count of convolutions shows whether the profiler
+    # One session: its count of kernels shows whether the profiler
     # dropped records this time.
     out["profile_scale_frames"] = profile_call(
-        lambda: ms._scale_frames(dirty, kernels, S, (psf_patch or npix) // 2),
+        lambda: ms._scale_frames(dirty, kernels, S, pad, factors=factors),
         device)
     t = time.perf_counter()
     if psf_patch is not None and psf_patch < npix:
         psf_win, m0 = ms._clark_psf_window(psf, kernels.shape[1], psf_patch)
-        ms._neg_cross_psfs(psf_win, kernels, S, crop=(m0, psf_patch))
+        ms._neg_cross_psfs(psf_win, factors, S, crop=(m0, psf_patch))
     else:
-        ms._neg_cross_psfs(psf, kernels, S)
+        ms._neg_cross_psfs(psf, factors, S)
     sync()
     out["cross_psf_seconds"] = time.perf_counter() - t
     out["conv"] = conv_timing(dirty, kernels[-1])
@@ -4352,7 +4499,7 @@ def kernel_entry(name, source, replaces, launches, by_path=None, **nums):
 
 
 def kernels_line(b1, b2, b2l, b3, b6, probes, production, large, taper,
-                 by_path) -> list:
+                 scale_conv, by_path) -> list:
     """
     One entry per kernel of the port: launches on its path (the main
     paths for B1-B3 and B2L, the probe phases for B6, tiled B2 and
@@ -4365,7 +4512,9 @@ def kernels_line(b1, b2, b2l, b3, b6, probes, production, large, taper,
     composition they replaced) and at the large image's (``large``: the
     large phase's B1 and B3 checks, B1's time on each plane group, its
     B2 and B2L cases at n = 32768); T1 from the taper phase, at the
-    production image (its row) and at every geometry (``cases``).
+    production image (its row) and at every geometry (``cases``); S1
+    from the scale_conv phase, at the benchmark cell's scales (its row)
+    and at the CLI's (``cases``).
     """
     row_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
@@ -4488,6 +4637,16 @@ def kernels_line(b1, b2, b2l, b3, b6, probes, production, large, taper,
                                        "bound_mirror_ms", "bound_pixel_ms")},
         cases=taper["cases"],
     ))
+    cell = scale_conv["cases"][0]
+    entries.append(kernel_entry(
+        "scale_frames", "scale_conv.cu",
+        "none (XLA lax.conv in ska_sdp_cip_tpu/models/multiscale.py:"
+        "_conv_same)",
+        count("s1", "production_multiscale"), paths("s1"),
+        **{k: cell[k] for k in (*row_keys, "max_rel_err", "library_call",
+                                "bound_s1_ms")},
+        cases=scale_conv["cases"],
+    ))
     for size in probes["sizes"]:
         entries += probe_rows(size)
     p3 = probes["p3"]
@@ -4593,6 +4752,8 @@ def main() -> int:
     emit(b2l)
     taper = phase_taper(device)
     emit(taper)
+    scale_conv = phase_scale_conv(device)
+    emit(scale_conv)
     b3 = phase_b3(device, bench, bench_w0)
     emit(b3)
     del bench_w0
@@ -4656,7 +4817,7 @@ def main() -> int:
                        for c in sharded["tiles"]})
     b2["slab_widths"] = sharded["b2_slab_widths"]
     emit({"kernels": kernels_line(b1, b2, b2l, b3, b6, probes, production,
-                                  large, taper, {
+                                  large, taper, scale_conv, {
         **by_sharded,
         "e2e_small": e2e["launches"],
         "e2e_tiny": tiny["launches"],

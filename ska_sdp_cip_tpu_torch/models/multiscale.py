@@ -3,10 +3,16 @@ Multiscale CLEAN minor cycle (Cornwell 2008 style) on the device.
 
 Counterpart: ``ska_sdp_cip_tpu/models/multiscale.py``. Per major cycle:
 
-* scale kernels ``k_s`` (tapered Gaussians, k_0 = delta) and the
-  cross-convolved PSFs ``P_st = psf * k_s * k_t`` are built once with
-  ``conv2d`` (the counterpart's ``lax.conv``, a cross-correlation too;
-  the kernels are symmetric), in full float32: TF32 is off for cuDNN;
+* scale kernels ``k_s`` (tapered Gaussians, k_0 = delta), each the
+  outer product ``f_s (x) f_s`` of a 1-D factor (:func:`scale_factors`,
+  derived once and checked when the minor cycle is built), and the
+  cross-convolved PSFs ``P_st = psf * k_s * k_t``, built once. Every
+  scale convolution is separable: a row pass and a column pass of
+  ``f_s`` (the counterpart's ``lax.conv`` is a cross-correlation too;
+  the kernels are symmetric), in float32: kernel S1
+  (``ops/scale_conv_cuda.py``) on the card, all S frames of an image in
+  one launch, and its plain version (``conv2d`` with (1, k) and (k, 1)
+  kernels) on the CPU;
 * the minor loop keeps one residual map per scale in a padded frame,
   picks the global (scale, pixel) peak with per-scale bias weights,
   adds ``gain * peak * k_s`` to the model, and subtracts
@@ -45,6 +51,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops import scale_conv_cuda
 from ..utils.task_metrics import count, count_later, enabled, span
 from .clean import _minor_block, _window, pick_psf_patch
 from .operators import MeasurementOperator, SlotVis
@@ -76,41 +83,106 @@ def _conv_same(image, kernel):
         )[0, 0]
 
 
-def _scale_frames(residual, kernels, num_scales: int, pad: int):
+#: How far a scale kernel may lie from the outer product of its factors,
+#: from its transpose and from its mirror image, over its largest tap: a
+#: few float32 roundings (the scale kernels read ~1e-7).
+SEPARABLE_RTOL = 1e-6
+
+
+def scale_factors(kernels):
     """
-    The scale-convolved residuals, each in a zero frame with a margin of
-    ``pad`` cells on every side: (S, npix + 2 pad, npix + 2 pad).
+    The (S, ksize) float32 factors ``f`` of the (S, ksize, ksize) scale
+    kernels, ``kernels[s] = f[s] (x) f[s]``, on the kernels' device: each
+    kernel's row sums over the square root of its sum (the row sums
+    themselves for a unit-sum kernel), in float64 on the host. Raises
+    ValueError unless every kernel is square of an odd size, has a
+    positive sum, equals its transpose and its mirror image, and is the
+    outer product of its factor within :data:`SEPARABLE_RTOL` of its
+    largest tap: no kernel is convolved as what it is not.
     """
-    npix = residual.shape[0]
-    with span("multiscale.frames", device=True):
-        count("scale_frames", num_scales)
-        frames = torch.zeros((num_scales, npix + 2 * pad, npix + 2 * pad),
-                             dtype=torch.float32, device=residual.device)
-        for s in range(num_scales):
-            frames[s, pad : pad + npix, pad : pad + npix] = _conv_same(
-                residual, kernels[s]
-            )
+    k = kernels.detach().to("cpu", torch.float64)
+    if k.dim() != 3 or k.shape[1] != k.shape[2] or k.shape[1] % 2 == 0:
+        raise ValueError(f"scale kernels must be (S, k, k) with k odd, not "
+                         f"{tuple(k.shape)}")
+    total = k.sum((1, 2))
+    if not bool((total > 0).all()):
+        raise ValueError(f"scale kernels must have a positive sum: "
+                         f"{total.tolist()}")
+    factors = k.sum(2) / total.sqrt()[:, None]
+    peak = k.abs().amax((1, 2))
+    for what, other in (("its transpose", k.transpose(1, 2)),
+                        ("its mirror image", k.flip(1)),
+                        ("the outer product of its factor",
+                         factors[:, :, None] * factors[:, None, :])):
+        gap = (k - other).abs().amax((1, 2)) / peak
+        for s in torch.nonzero(gap > SEPARABLE_RTOL).flatten().tolist():
+            raise ValueError(f"scale kernel {s} differs from {what} by "
+                             f"{float(gap[s]):.3g} of its largest tap")
+    return factors.to(dtype=torch.float32, device=kernels.device)
+
+
+def _separable_frames_reference(image, factors, pad: int):
+    """
+    The plain version of S1 (``ops/scale_conv_cuda.py:scale_frames``):
+    each factor trimmed to its outermost nonzero taps (exact zeros, so
+    the sums are unchanged), a row pass and then a column pass through
+    ``_conv_same`` with (1, k) and (k, 1) kernels, each frame in a zero
+    margin of ``pad`` cells.
+    """
+    rows, cols = image.shape
+    radius = factors.shape[1] // 2
+    frames = torch.zeros((factors.shape[0], rows + 2 * pad, cols + 2 * pad),
+                         dtype=torch.float32, device=image.device)
+    for s, factor in enumerate(factors):
+        taps = torch.nonzero(factor).flatten()
+        r = int((taps - radius).abs().max()) if len(taps) else 0
+        f = factor[radius - r : radius + r + 1]
+        frames[s, pad : pad + rows, pad : pad + cols] = _conv_same(
+            _conv_same(image, f[None, :]), f[:, None])
     return frames
 
 
-def _neg_cross_psfs(psf, kernels, num_scales: int, crop=None):
+def _separable_frames(image, factors, pad: int):
+    """``image`` convolved with every ``factors[s] (x) factors[s]``, each
+    in a zero margin of ``pad`` cells: (S, rows + 2 pad, cols + 2 pad).
+    S1 for a CUDA tensor, its plain version for a CPU one."""
+    if image.device.type == "cuda":
+        return scale_conv_cuda.scale_frames(image, factors, pad)
+    return _separable_frames_reference(image, factors, pad)
+
+
+def _scale_frames(residual, kernels, num_scales: int, pad: int, *,
+                  factors=None):
+    """
+    The scale-convolved residuals, each in a zero frame with a margin of
+    ``pad`` cells on every side: (S, npix + 2 pad, npix + 2 pad). The
+    kernels' ``factors`` (:func:`scale_factors`) are derived here when
+    not given.
+    """
+    if factors is None:
+        factors = scale_factors(kernels)
+    with span("multiscale.frames", device=True):
+        count("scale_frames", num_scales)
+        return _separable_frames(residual, factors[:num_scales], pad)
+
+
+def _neg_cross_psfs(psf, factors, num_scales: int, crop=None):
     """
     ``-P_st = -(psf * k_s * k_t)`` for every (s, t), flattened per s:
     (S, S * n * n), with each P_st cut to its central ``crop`` =
-    (start, size) window when given. The PSF is not renormalized: its
-    peak is assumed ~1, as in the counterpart.
+    (start, size) window when given; ``k_s = factors[s] (x) factors[s]``.
+    The PSF is not renormalized: its peak is assumed ~1, as in the
+    counterpart.
     """
-    psf_s = [_conv_same(psf, kernels[s]) for s in range(num_scales)]
+    factors = factors[:num_scales]
+    psf_s = _separable_frames(psf, factors, 0)
     rows = []
     for s in range(num_scales):
-        per_t = []
-        for t in range(num_scales):
-            cross = _conv_same(psf_s[s], kernels[t])
-            if crop is not None:
-                m0, size = crop
-                cross = cross[m0 : m0 + size, m0 : m0 + size]
-            per_t.append(cross)
-        rows.append(-torch.stack(per_t).reshape(-1))
+        cross = _separable_frames(psf_s[s], factors, 0)
+        if crop is not None:
+            m0, size = crop
+            cross = cross[:, m0 : m0 + size, m0 : m0 + size]
+        rows.append(-cross.reshape(-1))
     return torch.stack(rows)
 
 
@@ -151,15 +223,16 @@ def prepare_multiscale_minor(psf, kernels, biases, *,
     clark = psf_patch is not None and psf_patch < npix
     if clark and psf_patch % 2:
         raise ValueError("psf_patch must be even")
+    factors = scale_factors(kernels)
     with span("multiscale.cross_psfs", device=True):
         if clark:
             psf_win, m0 = _clark_psf_window(psf, kernels.shape[1],
                                             int(psf_patch))
-            neg_cross = _neg_cross_psfs(psf_win, kernels, num_scales,
+            neg_cross = _neg_cross_psfs(psf_win, factors, num_scales,
                                         crop=(m0, int(psf_patch)))
         else:
-            neg_cross = _neg_cross_psfs(psf, kernels, num_scales)
-    return MultiscaleMinor(kernels, biases, neg_cross,
+            neg_cross = _neg_cross_psfs(psf, factors, num_scales)
+    return MultiscaleMinor(kernels, factors, biases, neg_cross,
                            int(psf_patch) if clark else None)
 
 
@@ -170,10 +243,13 @@ class MultiscaleMinor:
     (:func:`prepare_multiscale_minor`): call it on a residual image for
     ``(model, residual)``. ``neg_cross`` is ``-P_st`` flattened per s,
     (S, S * n * n), n the image's size or the Clark patch
-    (``psf_patch``; None on the exact path).
+    (``psf_patch``; None on the exact path). ``factors`` are the
+    kernels' (:func:`scale_factors`), with which the frames of every
+    residual are convolved.
     """
 
     kernels: torch.Tensor  # (S, ksize, ksize)
+    factors: torch.Tensor  # (S, ksize)
     biases: torch.Tensor  # (S,)
     neg_cross: torch.Tensor
     psf_patch: int | None
@@ -241,7 +317,8 @@ def _multiscale_minor_exact(residual, minor: MultiscaleMinor, *,
     # Scale-convolved residual frames (S, 2 npix, 2 npix) for even npix:
     # the subtraction of an (npix, npix) cross PSF centred on any inner
     # pixel (i, j) starts at frame (i, j), inside the frame.
-    frames = _scale_frames(residual, kernels, S, half)
+    frames = _scale_frames(residual, kernels, S, half,
+                           factors=minor.factors)
     with span("multiscale.minor", device=True):
         count("multiscale_iterations", max_iter)
         picks = _pick_counter(S, device)
@@ -313,7 +390,8 @@ def _multiscale_minor_clark(residual, minor: MultiscaleMinor, *,
     kr = ksize // 2
 
     stride = npix + P
-    frames = _scale_frames(residual, kernels, S, pad)
+    frames = _scale_frames(residual, kernels, S, pad,
+                           factors=minor.factors)
     with span("multiscale.minor", device=True):
         count("multiscale_iterations", max_iter)
         picks = _pick_counter(S, device)

@@ -167,6 +167,8 @@ def _declare(lib) -> None:
     lib.cip_taper_maps.argtypes = [ptr, ptr, c_int] + [ptr] * 3 + [
         c_int] + [c_float] * 6 + [c_int, c_int, ptr]
     lib.cip_taper_maps.restype = c_int
+    lib.cip_scale_conv.argtypes = [ptr] * 3 + [c_int] * 6 + [ptr]
+    lib.cip_scale_conv.restype = c_int
 
 
 def _compile(sources: list[Path]) -> None:

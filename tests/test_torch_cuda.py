@@ -15,7 +15,9 @@ order (tiled B2 as row-major B2, P1 and P2's ``s1tw``, ``s2`` and
 same inputs (it sums every cell in an order fixed by its work list);
 the taper maps (T1) within 1e-6 of the max of their plain version (the
 two sum the quadrature in different orders), and T1's mirrored
-evaluation bit-equal to its one-pixel-at-a-time evaluation.
+evaluation bit-equal to its one-pixel-at-a-time evaluation; the scale
+frames (S1) within 2e-6 of the max of the float64 2-D convolution, and
+scale 0's delta frame equal to the image.
 B2 also runs at the distributed mode's slab widths, and the
 distributed invert on 2 shards of an NCCL world of one; a small
 MeasurementSet's invert on the card is held to its VZ's.
@@ -29,6 +31,7 @@ from ska_sdp_cip_tpu_torch.io.synth import synthetic_uvw
 from ska_sdp_cip_tpu_torch.ops import cuda_gridder as tcg
 from ska_sdp_cip_tpu_torch.ops import fft_cuda as tfc
 from ska_sdp_cip_tpu_torch.ops import gridder as tg
+from ska_sdp_cip_tpu_torch.ops import scale_conv_cuda as tsc
 from ska_sdp_cip_tpu_torch.ops import taper_cuda as ttc
 from ska_sdp_cip_tpu_torch.ops.dft import dirty_image_dft, predict_dft
 from ska_sdp_cip_tpu_torch.ops.fft import fft_plan_arrays, make_fft_plan
@@ -970,3 +973,111 @@ def test_taper_kernel_once_per_invert_and_predict(cuda):
         assert ttc.TAPER_LAUNCHES == before + 1
         tg.predict_visibilities(uvw, freqs, image, PIXEL, device=cuda)
         assert ttc.TAPER_LAUNCHES == before + 2
+
+
+#: S1's cases: name -> (npix, scales, radius, pad). The CLI's scales
+#: (radius 17) and the benchmark cell's (33), a factor of 3 taps and of
+#: 131 (scale 32), and one of 151, which takes the 32-cell tile; even,
+#: odd and ragged images; pads 0, npix / 2 and a Clark patch's P / 2.
+SCALE_CONV_CASES = {
+    "k3_97_pad0": (97, (0.0, 0.5, 1.0), 1, 0),
+    "k35_97_half": (97, (0.0, 2.0, 4.0, 8.0), 17, 48),
+    "k35_512_clark": (512, (0.0, 2.0, 4.0, 8.0), 17, 32),
+    "k67_512_half": (512, (0.0, 4.0, 8.0, 16.0), 33, 256),
+    "k67_1000_clark": (1000, (0.0, 4.0, 8.0, 16.0), 33, 1024),
+    "k131_1000_pad0": (1000, (0.0, 8.0, 16.0, 32.0), 65, 0),
+    "k131_512_clark": (512, (0.0, 8.0, 16.0, 32.0), 65, 32),
+    "k151_200_tile32": (200, (0.0, 37.0), 75, 7),
+}
+
+
+def _scale_image(npix, seed=5):
+    """Noise, two compact sources and an extended one: a residual of the
+    kind the minor cycle convolves."""
+    rng = np.random.default_rng(seed)
+    image = 0.01 * rng.normal(size=(npix, npix))
+    y, x = np.mgrid[:npix, :npix]
+    for (fy, fx), flux, width in (((0.3, 0.7), 2.0, 1.5),
+                                  ((0.7, 0.35), 1.1, 2.5),
+                                  ((0.55, 0.6), 0.8, 9.0)):
+        r2 = (y - fy * npix) ** 2 + (x - fx * npix) ** 2
+        image += flux * np.exp(-0.5 * r2 / width**2)
+    return image.astype(np.float32)
+
+
+@pytest.mark.parametrize("name", SCALE_CONV_CASES)
+def test_scale_conv_kernel_matches_float64(cuda, name):
+    """S1 (one launch for all S frames) within 2e-6 of the max of the
+    float64 2-D convolution with each scale kernel; against cuDNN's
+    float32 one within 2e-6 plus cuDNN's own distance from the float64
+    convolution (which reaches 2.6e-6 at 67 taps and 5.9e-6 at 131 on an
+    H100: more taps summed in float32); scale 0's frame equal to the
+    image bit for bit; every margin cell zero (the frames come from a
+    block the caching allocator held filled with NaN)."""
+    from ska_sdp_cip_tpu_torch.models import multiscale as tms
+
+    npix, scales, radius, pad = SCALE_CONV_CASES[name]
+    image = torch.from_numpy(_scale_image(npix)).to(cuda)
+    kernels = torch.from_numpy(
+        np.stack([tms.scale_kernel(s, radius) for s in scales])).to(cuda)
+    factors = tms.scale_factors(kernels)
+    shape = (len(scales), npix + 2 * pad, npix + 2 * pad)
+    nan = torch.full(shape, float("nan"), device=cuda)
+    del nan
+    before = tsc.SCALE_CONV_LAUNCHES
+    frames = tsc.scale_frames(image, factors, pad)
+    torch.cuda.synchronize()
+    assert tsc.SCALE_CONV_LAUNCHES == before + 1
+    assert frames.shape == shape
+    inner = frames[:, pad : pad + npix, pad : pad + npix]
+    margins = frames.clone()
+    margins[:, pad : pad + npix, pad : pad + npix] = 0
+    assert not bool(margins.any())
+    assert torch.equal(inner[0], image)
+    for s in range(len(scales)):
+        exact = tms._conv_same(image.double(), kernels[s].double())
+        scale = float(exact.abs().max())
+        err = float((inner[s].double() - exact).abs().max()) / scale
+        assert err <= 2e-6, (s, err)
+        cudnn = tms._conv_same(image, kernels[s])
+        cudnn_err = float((cudnn.double() - exact).abs().max()) / scale
+        gap = float((inner[s] - cudnn).abs().max()) / scale
+        assert gap <= 2e-6 + cudnn_err, (s, gap, cudnn_err)
+
+
+def test_scale_conv_once_per_minor_cycle(cuda):
+    """Building a minor cycle launches S1 once for the PSF's frames and
+    once for each of their S cross frames; each minor cycle once for
+    its residual (the recorder's counter ``scale_conv_kernel`` one a
+    cycle while tracing), and no scale convolution reaches ``conv2d``."""
+    from ska_sdp_cip_tpu_torch.models import multiscale as tms
+    from ska_sdp_cip_tpu_torch.utils import task_metrics
+
+    dirty, psf = _solver_problem()
+    kernels = torch.from_numpy(
+        np.stack([tms.scale_kernel(s, 9) for s in (0.0, 2.0, 4.0)]))
+    args = [torch.from_numpy(a).to(cuda) for a in (dirty, psf)]
+    conv2d = torch.nn.functional.conv2d
+
+    def refused(*a, **k):
+        raise AssertionError("a CUDA scale convolution reached conv2d")
+
+    torch.nn.functional.conv2d = refused
+    try:
+        for patch in (None, 64):
+            before = tsc.SCALE_CONV_LAUNCHES
+            minor = tms.prepare_multiscale_minor(
+                args[1], kernels.to(cuda), torch.ones(3, device=cuda),
+                psf_patch=patch)
+            assert tsc.SCALE_CONV_LAUNCHES == before + 4
+            task_metrics.reset()
+            with task_metrics.tracing():
+                for k in range(2):
+                    model, _ = minor(args[0], gain=0.2, max_iter=10)
+                    assert tsc.SCALE_CONV_LAUNCHES == before + 5 + k
+            counters = task_metrics.summary()["counters"]
+            assert counters["scale_conv_kernel"] == 2
+            assert counters["scale_frames"] == 2 * 3
+            assert bool(model.any())
+    finally:
+        torch.nn.functional.conv2d = conv2d

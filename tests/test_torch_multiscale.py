@@ -6,6 +6,12 @@ package's, on the CPU (the JAX side on its XLA path).
 * ``_conv_same`` (``conv2d``) matches ``lax.conv`` to 1e-6 of the max
   (2e-6 for the wide scale kernels, whose float32 sums torch orders
   less exactly) and to the float64 sum;
+* the scale kernels' factors (``scale_factors``, row sums) reproduce
+  ``scale_kernel`` to float32 rounding, and a kernel that is not the
+  outer product of a symmetric factor is refused when the minor cycle is
+  built; the separable frames (S1's plain version, which CPU tensors
+  take) match ``lax.conv`` of the JAX package's kernels at the same
+  tolerances as ``_conv_same``;
 * the exact and Clark minor cycles match JAX's ``_multiscale_minor`` on
   seeded inputs whose peaks are well separated (argmax ties cannot
   fork): model and residual to 1e-5 of their max; a zero residual stops
@@ -94,6 +100,143 @@ def test_conv_same_matches_lax(shape, scale, radius):
     assert np.linalg.norm(ours.numpy() - ref) <= 1e-6 * np.linalg.norm(ref)
     exact = _correlate64(image, kernel)
     assert _rel(ours, exact) <= 2e-6 and _rel(ref, exact) <= 2e-6
+
+
+#: (S1's plain version) shape, scales, radius, pad: a delta beside
+#: Gaussians; the default scales' radius 17 and the benchmark cell's 33;
+#: odd and ragged shapes.
+SEPARABLE_CASES = [
+    ((64, 64), (0.0, 2.0), 5, 0), ((96, 96), (0.0, 4.0), 9, 48),
+    ((96, 96), (8.0,), 17, 3), ((128, 128), (0.0, 2.0, 4.0, 8.0), 17, 32),
+    ((97, 97), (4.0, 16.0), 33, 0), ((48, 80), (2.0,), 3, 5)]
+
+
+@pytest.mark.parametrize("shape,scales,radius,pad", SEPARABLE_CASES)
+def test_separable_frames_match_lax(shape, scales, radius, pad):
+    """
+    The plain separable frames against ``lax.conv`` of the JAX package's
+    2-D kernels, at ``test_conv_same_matches_lax``'s tolerances (1e-6 of
+    the max, 2e-6 for the wide kernels), and to the float64 sum; zero
+    margins; a delta's frame equal to the image.
+    """
+    image = _separated_problem()[0][-shape[0] :, -shape[1] :]
+    kernels = _kernels(scales, radius)
+    factors = tms.scale_factors(torch.from_numpy(kernels))
+    frames = tms._separable_frames(torch.from_numpy(image), factors, pad)
+    assert frames.shape == (len(scales), shape[0] + 2 * pad,
+                            shape[1] + 2 * pad)
+    inner = frames[:, pad : pad + shape[0], pad : pad + shape[1]]
+    margins = frames.clone()
+    margins[:, pad : pad + shape[0], pad : pad + shape[1]] = 0
+    assert not margins.any()
+    for s, scale in enumerate(scales):
+        if scale == 0:
+            assert torch.equal(inner[s], torch.from_numpy(image))
+        ref = np.asarray(jms._conv_same(jnp.asarray(image),
+                                        jnp.asarray(kernels[s])))
+        assert _rel(inner[s], ref) <= (1e-6 if radius <= 5 else 2e-6)
+        assert _rel(inner[s], _correlate64(image, kernels[s])) <= 2e-6
+
+
+@pytest.mark.parametrize("scales,radius", [((0.0, 2.0, 4.0, 8.0), 17),
+                                           ((0.0, 4.0, 8.0, 16.0), 33),
+                                           ((1.5, 32.0), 65)])
+def test_scale_factors_reproduce_scale_kernel(scales, radius):
+    """The row-sum factors: f (x) f is ``scale_kernel`` to float32
+    rounding (2 ulps of the largest tap), f sums to 1 and is symmetric,
+    and equals each kernel's row sums."""
+    kernels = _kernels(scales, radius)
+    factors = tms.scale_factors(torch.from_numpy(kernels))
+    assert factors.dtype == torch.float32
+    assert factors.shape == (len(scales), 2 * radius + 1)
+    f = factors.double().numpy()
+    outer = f[:, :, None] * f[:, None, :]
+    peak = kernels.max((1, 2))
+    gap = np.abs(outer - kernels).max((1, 2)) / peak
+    assert (gap <= 2 * np.finfo(np.float32).eps).all(), gap
+    np.testing.assert_allclose(f.sum(1), 1.0, rtol=0, atol=3e-7)
+    assert np.array_equal(f, f[:, ::-1])
+    rows = kernels.astype(np.float64).sum(2)
+    assert np.abs(f - rows).max() <= 2e-7 * f.max()
+
+
+def _not_separable():
+    """A symmetric kernel (equal to its transpose and mirror images) that
+    is no outer product: a ring."""
+    axis = np.arange(-4, 5)
+    rr = np.sqrt(np.add.outer(axis**2, axis**2))
+    kernel = np.exp(-0.5 * (rr - 3.0) ** 2).astype(np.float32)
+    return kernel / kernel.sum()
+
+
+def _asymmetric():
+    """The outer product of a factor that is not symmetric."""
+    f = np.exp(-0.5 * (np.arange(-4, 5) - 0.7) ** 2)
+    return np.outer(f, f).astype(np.float32) / float(f.sum()) ** 2
+
+
+@pytest.mark.parametrize("kind,match", [
+    ("ring", "outer product"), ("shifted", "mirror"),
+    ("transposed", "transpose"), ("negative", "positive sum"),
+    ("even", "odd")])
+def test_kernels_that_are_not_separable_raise_at_build(kind, match):
+    good = tms.scale_kernel(2.0, 4)
+    kernel = {"ring": _not_separable, "shifted": _asymmetric,
+              "transposed": lambda: good * np.linspace(
+                  0.9, 1.1, 9, dtype=np.float32)[None, :],
+              "negative": lambda: -good,
+              "even": lambda: good[:8, :8]}[kind]()
+    kernels = torch.from_numpy(np.stack([good[: len(kernel), : len(kernel)]
+                                         if kind == "even" else good,
+                                         kernel]))
+    with pytest.raises(ValueError, match=match):
+        tms.scale_factors(kernels)
+    psf = torch.zeros((32, 32))
+    psf[16, 16] = 1.0
+    with pytest.raises(ValueError, match=match):
+        tms.prepare_multiscale_minor(psf, kernels, torch.ones(2))
+
+
+def test_s1_limits_and_cpu_tensors_raise():
+    """S1's wrapper refuses a CPU tensor (which takes the plain version)
+    and what the kernel does not take, before it loads any library; its
+    tile keeps two blocks of the benchmark's 67 taps on an SM (228 KB)
+    and drops to 32 cells for the widest factors."""
+    from ska_sdp_cip_tpu_torch.ops import scale_conv_cuda as s1
+
+    image = torch.zeros((16, 16))
+    factors = tms.scale_factors(torch.from_numpy(_kernels((0.0, 2.0), 5)))
+    with pytest.raises(ValueError, match="CUDA"):
+        s1.scale_frames(image, factors, 2)
+    with pytest.raises(ValueError, match="scales"):
+        s1.scale_frames(image, factors.repeat(5, 1), 2)
+    with pytest.raises(ValueError, match="odd"):
+        s1.scale_frames(image, factors[:, :10], 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        s1.scale_frames(image, torch.zeros((4, 185)), 2)
+    with pytest.raises(TypeError):
+        s1.scale_frames(image.double(), factors, 2)
+    assert s1.pick_tile(67, 4) == 64
+    assert 2 * (s1.shared_bytes(64, 67, 4) + 1024) <= 233472
+    assert s1.pick_tile(131, 8) == 64
+    assert s1.pick_tile(151, 4) == s1.pick_tile(183, 8) == 32
+
+
+def test_cpu_frames_never_reach_s1(monkeypatch):
+    from ska_sdp_cip_tpu_torch.ops import scale_conv_cuda as s1
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached S1")
+
+    monkeypatch.setattr(s1, "scale_frames", refused)
+    dirty, psf = _separated_problem()
+    for patch in (None, 64):
+        model, _ = tms._multiscale_minor(
+            torch.from_numpy(dirty), torch.from_numpy(psf),
+            torch.from_numpy(_kernels((0.0, 2.0), 5)),
+            torch.tensor([1.0, 0.7]), gain=0.2, max_iter=5, num_scales=2,
+            psf_patch=patch)
+        assert model.any()
 
 
 def _separated_problem(npix=128, seed=41):
