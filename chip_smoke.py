@@ -87,15 +87,13 @@ then runs these phases and prints one JSON object per phase:
    device="cuda")`` on a 5,836,800-visibility synthetic dataset, with
    the kernels' launch counts, the brightest source's peak position, a
    float64 DFT spot check of 448 pixels, the median wall time of 3 runs
-   after a warm run, one more call that must give the first's bits, a
-   per-stage breakdown (with the planner that ran,
-   whether the image came down into a pinned buffer, and the seconds
-   of the path not taken in each direction: the pageable download and
-   the pinned upload) and a profile of one call; then ``ms``: the same
-   dataset written as a MeasurementSet v2 (:func:`write_measurement_set`:
-   DATA in TiledShapeStMan, FLAG, WEIGHT_SPECTRUM and UVW in
-   TiledColumnStMan, TIME in IncrementalStMan, the subtables in
-   StandardStMan; its seconds, bytes and tile shapes), read back by
+   after a warm run, one more call that must give the first's bits, the
+   planner that ran and a profile of one call; then ``ms``: the same
+   dataset written as a MeasurementSet v2
+   (``tests/helpers/ms_writer.py:write_measurement_set``: DATA in
+   TiledShapeStMan, FLAG, WEIGHT_SPECTRUM and UVW in TiledColumnStMan,
+   TIME in IncrementalStMan, the subtables in StandardStMan; its
+   seconds, bytes and tile shapes), read back by
    ``VisibilityReader`` through the casacore-free ``_NativeMSBackend``
    (every column bit-equal to the VZ's, seconds per column),
    ``tpu-cip-ingest-torch`` at the default and at 10000-row blocks (each
@@ -103,8 +101,8 @@ then runs these phases and prints one JSON object per phase:
    against the VZ's ``invert_dataset`` (bit for bit, and at rtol 1e-5,
    atol 1e-5 of the max) with B1's and B2's launches equal to ``slice``'s, the median CLI
    wall of 3 calls after a warm one, the partitioned reads of a sharded
-   run and of the reorder (each sub-reader decodes the MS again) and a
-   breakdown with the MS read + Stokes beside the VZ's;
+   run and of the reorder (each sub-reader decodes the MS again) and
+   the MS's read + Stokes seconds beside the VZ's;
 8. ``major_cycle``: ``MeasurementOperator.build`` + ``major_cycle_clean(
    num_major=3, minor_iter=100)`` on the same dataset, gated on the
    residual (below 0.6 x the dirty peak) and on the brightest CLEAN
@@ -151,7 +149,7 @@ then runs these phases and prints one JSON object per phase:
     ``sigma="auto"`` = 1.5, a 15360^2 grid, support 8): ``dirty_image``
     (float64 DFT at 256 pixels, B1 against its plain version on the
     largest plane group, median wall of 3 calls, one more call bit-equal
-    to the first, breakdown, launch counts, profile),
+    to the first, launch counts, profile),
     ``predict_visibilities`` (the adjoint identity, also on two more
     dirty images, which must be bit-equal to the first,
     with a witness on three noise images that replaces B2 by its plain
@@ -159,22 +157,18 @@ then runs these phases and prints one JSON object per phase:
     and for the dirty image as I; five point sources
     against a float64 DFT at 4096 visibilities, B3
     against its plain version on the largest plane group, median wall,
-    breakdown), both with their device parts against the two-B2
-    composition before B2L in the same run (:func:`fused_against_unfused`:
-    gated bit-equal or 1e-6, times in turns, peak memory, profiles'
-    kernel classes), and the major cycle on the Clark minor
+    launch counts, profile), and the major cycle on the Clark minor
     cycle (``psf_patch`` 2048) on visibilities of five point sources,
     with the ``major_cycle`` gates; the noise image's adjoint identity is
     gated as |lhs - rhs| / (|I| |D|) <= 1e-6, the dirty image's as
     |lhs - rhs| / |lhs| <= 1e-4; then ``large``, with the card's cached
     memory handed back first: ``invert_dataset`` of the slice's dataset
     at 16384 px / 0.5 asec (a 32768^2 grid; :func:`phase_large`): wall,
-    breakdown, peak memory, a float64 DFT spot check, B1 on each plane
-    group against its bound and on the largest against its plain
-    version (twice, bit-equal), one ``MeasurementOperator`` predict with
-    the noise-image adjoint gate, B3 against its plain version, the
-    invert's and predict's device parts against the two-B2 composition,
-    and B2 and B2L at n = 32768 against their plain versions and
+    peak memory, a float64 DFT spot check, B1 on each plane group
+    against its bound and on the largest against its plain version
+    (twice, bit-equal), one ``MeasurementOperator`` predict with the
+    noise-image adjoint gate, B3 against its plain version, and B2 and
+    B2L at n = 32768 against their plain versions and
     ``torch.fft``;
 12. ``solvers`` (three parts): ``cli``, ``tpu-cip-torch`` in process
     on the slice's dataset at 2048 px (robust and uniform dirty images
@@ -200,10 +194,10 @@ directory without the package. Imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import math
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
@@ -211,6 +205,19 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+# The MS writer and ``bit_equal`` are the tests' helper, loaded by its
+# path: a ``tests`` package installed on the machine would shadow the
+# checkout's ``tests`` directory.
+_spec = importlib.util.spec_from_file_location(
+    "ms_writer",
+    Path(__file__).resolve().parent / "tests" / "helpers" / "ms_writer.py")
+_ms_writer = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_ms_writer)
+MS_MAIN_COLUMNS = _ms_writer.MS_MAIN_COLUMNS
+bit_equal = _ms_writer.bit_equal
+vz_columns = _ms_writer.vz_columns
+write_measurement_set = _ms_writer.write_measurement_set
 
 #: Tolerances (relative to the reference's max magnitude).
 KERNEL_RTOL = 1e-5  # kernel vs its plain version, both float32 on the card
@@ -361,133 +368,6 @@ def b2_replaced(pass_fn):
          gridder.fft_last_axis_fused) = saved
 
 
-def unfused_build_invert(plan, *, mesh=None):
-    """
-    ``build_invert`` as the port composed it before B2L: per plane two B2
-    passes with a ``.t().contiguous()`` between them, the w-screen and
-    the accumulation as torch ops on the transposed image, and a final
-    transpose. The yardstick of the ``production`` and ``large`` phases
-    (:func:`unfused_composition`), not a path of the port.
-    """
-    import torch
-
-    from ska_sdp_cip_tpu_torch.ops import gridder
-    from ska_sdp_cip_tpu_torch.ops.fft_cuda import fft_first_axis_fused
-
-    assert mesh is None or mesh.num_shards == 1
-    G, npix = plan.plane_group, plan.num_pixels
-    fmeta = gridder._fused_fft_meta(plan)
-    counts = [len(ids) for ids in gridder.group_active_blocks(plan)]
-    nchunks = [len(c) for c in gridder.group_grid_chunks(plan)]
-
-    def invert(arrays, re_s, im_s):
-        inv_corr, nm1s = gridder._geometry_maps(plan, arrays)
-        image = torch.zeros((npix, npix), dtype=torch.float32,
-                            device=re_s.device)
-        for k in range(plan.num_groups):
-            w_g = arrays["plane_wg"][k]
-            planes = gridder.grid_planes(
-                arrays["packed"], re_s, im_s, arrays["block_len"],
-                arrays["cblock_ox"], arrays["block_oy"], w_g,
-                arrays["group_blocks"][k, : counts[k]], plan=plan,
-                chunks=arrays["group_grid_chunks"][k, : nchunks[k]])
-            for i in range(min(G, plan.nplanes - k * G)):
-                a_re, a_im = fft_first_axis_fused(
-                    planes[2 * i], planes[2 * i + 1], arrays, meta=fmeta,
-                    sign=+1)
-                img_re, img_im = fft_first_axis_fused(
-                    a_re.t().contiguous(), a_im.t().contiguous(), arrays,
-                    meta=fmeta, sign=+1)
-                del a_re, a_im
-                if plan.wstacking:
-                    theta = (-2.0 * math.pi * w_g[i]) * nm1s
-                    image = image + (img_re * torch.cos(theta)
-                                     - img_im * torch.sin(theta))
-                else:
-                    image = image + img_re
-            del planes
-        return (image * inv_corr).t().contiguous()
-
-    return invert
-
-
-def unfused_build_predict(plan, *, slot_output: bool = False, mesh=None):
-    """
-    ``build_predict`` as the port composed it before B2L: the transposed
-    image screened by torch ops, then two in-cropped B2 passes with a
-    ``.t().contiguous()`` between them (``fft2_from_image_fused``). The
-    yardstick of :func:`unfused_composition`, not a path of the port.
-    """
-    import torch
-
-    from ska_sdp_cip_tpu_torch.ops import gridder
-    from ska_sdp_cip_tpu_torch.ops.fft_cuda import fft2_from_image_fused
-
-    assert mesh is None or mesh.num_shards == 1
-    G, N = plan.plane_group, plan.ngrid
-    fmeta = gridder._fused_fft_meta_ic(plan)
-    counts = [len(ids) for ids in gridder.group_active_blocks(plan)]
-    nchunks = [len(c) for c in gridder.group_tile_chunks(plan)]
-
-    def predict(arrays, image):
-        inv_corr, nm1s = gridder._geometry_maps(plan, arrays)
-        device = inv_corr.device
-        img0_t = torch.as_tensor(image, dtype=torch.float32,
-                                 device=device).t().contiguous() * inv_corr
-        grids = torch.empty((2 * G, N, N), dtype=torch.float32,
-                            device=device)
-        acc = torch.zeros((2, plan.num_vis), dtype=torch.float32,
-                          device=device)
-        for k in range(plan.num_groups):
-            w_g = arrays["plane_wg"][k]
-            num_real = min(G, plan.nplanes - k * G)
-            for i in range(num_real):
-                if plan.wstacking:
-                    theta = (2.0 * math.pi * w_g[i]) * nm1s
-                    img_re = img0_t * torch.cos(theta)
-                    img_im = img0_t * torch.sin(theta)
-                else:
-                    img_re, img_im = img0_t, torch.zeros_like(img0_t)
-                fft2_from_image_fused(arrays, img_re, img_im, meta=fmeta,
-                                      out=(grids[2 * i], grids[2 * i + 1]))
-            last = grids[2 * (num_real - 1) : 2 * num_real]
-            for i in range(num_real, G):
-                grids[2 * i : 2 * i + 2].copy_(last)
-            gridder.degrid_planes(
-                arrays["packed"], arrays["block_len"], arrays["cblock_ox"],
-                arrays["block_oy"], grids, w_g,
-                arrays["group_blocks"][k, : counts[k]], acc, plan=plan,
-                chunks=arrays["group_chunks"][k, : nchunks[k]])
-        if slot_output:
-            return acc[0], acc[1]
-        return gridder._finalize(plan, arrays, acc[0], acc[1])
-
-    return predict
-
-
-@contextlib.contextmanager
-def unfused_composition():
-    """Run ``dirty_image``, ``predict_visibilities`` and the measurement
-    operator with :func:`unfused_build_invert` /
-    :func:`unfused_build_predict` in place of ``build_invert`` /
-    ``build_predict``: today's path beside the one it replaced, in one
-    run."""
-    from ska_sdp_cip_tpu_torch.models import operators
-    from ska_sdp_cip_tpu_torch.ops import gridder
-
-    saved = [(mod, name, getattr(mod, name))
-             for mod in (gridder, operators)
-             for name in ("build_invert", "build_predict")]
-    for mod, name, _ in saved:
-        setattr(mod, name, unfused_build_invert if name == "build_invert"
-                else unfused_build_predict)
-    try:
-        yield
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-
-
 def gridding_work(plan, ids, G: int, *, degrid: bool) -> tuple:
     """Bytes and flops of one B1 (``degrid=False``) or B3 launch over the
     active blocks ``ids``, whatever the kernel's design: each slot's three
@@ -581,9 +461,9 @@ def staged_problem(uvw, freqs, vis, wgt, npix, asec, device, **plan_kw):
 
 
 def group_args(plan, arrays, re_s, im_s, k):
-    from ska_sdp_cip_tpu_torch.ops.gridder import group_active_blocks
+    from ska_sdp_cip_tpu_torch.ops.gridder import work_lists
 
-    count = len(group_active_blocks(plan)[k])
+    count = len(work_lists(plan)["blocks"][k])
     return (
         arrays["packed"],
         re_s,
@@ -598,34 +478,29 @@ def group_args(plan, arrays, re_s, im_s, k):
 
 def group_chunks(plan, arrays, k, chunk_blocks=None):
     """Plane group ``k``'s B3 chunk table on the arrays' device: the
-    staged one, or one cut at ``chunk_blocks`` blocks a chunk."""
+    plan's (``ops/gridder.py:work_lists``), or one cut at
+    ``chunk_blocks`` blocks a chunk."""
     import torch
 
-    from ska_sdp_cip_tpu_torch.ops.gridder import (
-        group_active_blocks,
-        group_tile_chunks,
-        tile_chunks,
-    )
+    from ska_sdp_cip_tpu_torch.ops.gridder import tile_chunks, work_lists
 
-    if chunk_blocks is None:
-        count = len(group_tile_chunks(plan)[k])
-        return arrays["group_chunks"][k, :count]
-    table = tile_chunks(plan, group_active_blocks(plan)[k], chunk_blocks)
+    lists = work_lists(plan, predict=True)
+    table = (lists["tile"][k] if chunk_blocks is None
+             else tile_chunks(plan, lists["blocks"][k], chunk_blocks))
     return torch.from_numpy(table).to(arrays["packed"].device)
 
 
 def group_grid_chunks(plan, arrays, k, chunk_blocks=None):
-    """Plane group ``k``'s B1 work list on the arrays' device: the staged
-    one, or one cut at ``chunk_blocks`` blocks a column piece."""
+    """Plane group ``k``'s B1 work list on the arrays' device: the plan's
+    (``ops/gridder.py:work_lists``), or one cut at ``chunk_blocks``
+    blocks a column piece."""
     import torch
 
-    from ska_sdp_cip_tpu_torch.ops import gridder
+    from ska_sdp_cip_tpu_torch.ops.gridder import grid_chunks, work_lists
 
-    if chunk_blocks is None:
-        count = len(gridder.group_grid_chunks(plan)[k])
-        return arrays["group_grid_chunks"][k, :count]
-    table = gridder.grid_chunks(plan, gridder.group_active_blocks(plan)[k],
-                                chunk_blocks)
+    lists = work_lists(plan, invert=True)
+    table = (lists["grid"][k] if chunk_blocks is None
+             else grid_chunks(plan, lists["blocks"][k], chunk_blocks))
     return torch.from_numpy(table).to(arrays["packed"].device)
 
 
@@ -773,9 +648,9 @@ def bench_problem(device, bench=(BENCH_TIMES, BENCH_ANTENNAS, BENCH_CHANNELS),
 
 
 def largest_group(plan) -> int:
-    from ska_sdp_cip_tpu_torch.ops.gridder import group_active_blocks
+    from ska_sdp_cip_tpu_torch.ops.gridder import work_lists
 
-    return int(np.argmax([len(x) for x in group_active_blocks(plan)]))
+    return int(np.argmax([len(x) for x in work_lists(plan)["blocks"]]))
 
 
 def small_cases(device, compare, table=group_chunks) -> list:
@@ -795,18 +670,15 @@ def small_cases(device, compare, table=group_chunks) -> list:
 
 def bench_geometry(plan) -> dict:
     """The plan's shape and, for its largest plane group, both work
-    lists: B3's chunks (with how many are split or edge chunks, the rows
-    a scratch of shared rows would have held) and B1's rectangles (with
-    how many hold runs, and their sources at most)."""
-    from ska_sdp_cip_tpu_torch.ops import gridder
-    from ska_sdp_cip_tpu_torch.ops.gridder import group_active_blocks
+    lists' lengths: B3's chunks and B1's rectangles (with how many hold
+    runs, and their sources at most)."""
+    from ska_sdp_cip_tpu_torch.ops.gridder import work_lists
 
-    ids = group_active_blocks(plan)[largest_group(plan)]
-    b3 = gridder.tile_chunks(plan, ids)
-    b1 = gridder.grid_chunks(plan, ids)
+    lists = work_lists(plan, invert=True, predict=True)
+    k = largest_group(plan)
+    b3, b1 = lists["tile"][k], lists["grid"][k]
     return {
         "largest_group_b3_chunks": int(b3.shape[0]),
-        "largest_group_b3_split_or_edge": int((b3[:, 2] != 0).sum()),
         "largest_group_b1_chunks": int(b1.shape[0]),
         "largest_group_b1_chunks_with_runs": int((b1[:, 5] > 0).sum()),
         "largest_group_b1_max_sources": int((b1[:, 5::2] > 0).sum(1).max()),
@@ -819,7 +691,7 @@ def bench_geometry(plan) -> dict:
         "num_blocks": plan.num_blocks,
         "num_vis_slots": plan.num_vis,
         "num_vis_data": plan.num_vis_data,
-        "group_active_blocks": [len(x) for x in group_active_blocks(plan)],
+        "group_active_blocks": [len(x) for x in lists["blocks"]],
     }
 
 
@@ -1467,11 +1339,10 @@ def compare_degrid(plan, arrays, grids, k, chunks, *, time_it: bool,
     import torch
 
     from ska_sdp_cip_tpu_torch.ops import cuda_gridder as cg
-    from ska_sdp_cip_tpu_torch.ops import gridder
-    from ska_sdp_cip_tpu_torch.ops.gridder import group_active_blocks
+    from ska_sdp_cip_tpu_torch.ops.gridder import work_lists
     from ska_sdp_cip_tpu_torch.probes.common import cuda_ms
 
-    ids = group_active_blocks(plan)[k]
+    ids = work_lists(plan)["blocks"][k]
     args = (
         arrays["packed"], arrays["block_len"], arrays["cblock_ox"],
         arrays["block_oy"], grids, arrays["plane_wg"][k],
@@ -1790,59 +1661,7 @@ def phase_predict(device, bench: dict, npix=256, repeats=3) -> dict:
     }
     if not (results["bench"]["finite"] and adjoint_rel <= DFT_RTOL):
         raise PhaseError(f"adjoint identity {adjoint_rel:.3e} > {DFT_RTOL}")
-    results["breakdown"] = predict_breakdown(uvw, freqs, image, pix, device)
     return results
-
-
-def predict_breakdown(uvw, freqs, image, pix, device, **plan_kw) -> dict:
-    """Seconds per stage of one predict_visibilities call, synchronized,
-    a profile of its device part, which planner ran, whether the
-    visibilities came down into a pinned buffer, and the seconds of the
-    same arrays' upload through pinned buffers."""
-    import torch
-
-    from ska_sdp_cip_tpu_torch.ops.gridder import (
-        build_predict,
-        slot_plan_host_arrays,
-        stage_arrays,
-    )
-    from ska_sdp_cip_tpu_torch.ops.plan import make_plan
-    from ska_sdp_cip_tpu_torch.utils.staging import device_get
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-
-    out = {"planner": planner_name()}
-    t = time.perf_counter()
-    plan = make_plan(uvw, freqs, image.shape[0], pix, **plan_kw)
-    out["plan_seconds"] = time.perf_counter() - t
-    t = time.perf_counter()
-    host = slot_plan_host_arrays(plan, device, invert=False)
-    out["host_arrays_seconds"] = time.perf_counter() - t
-    host["image"] = image
-    sync()
-    t = time.perf_counter()
-    arrays = stage_arrays(host, device)
-    img = arrays.pop("image")
-    sync()
-    out["h2d_seconds"] = time.perf_counter() - t
-    out["h2d_pinned_seconds"] = pinned_upload_seconds(host, device)
-    predict = build_predict(plan)
-    predict(arrays, img)  # warm
-    sync()
-    t = time.perf_counter()
-    re, im = predict(arrays, img)
-    sync()
-    out["predict_device_seconds"] = time.perf_counter() - t
-    t = time.perf_counter()
-    host_re, _ = device_get(re), device_get(im)
-    out["d2h_seconds"] = time.perf_counter() - t
-    out["d2h_pinned"] = bool(torch.from_numpy(host_re).is_pinned())
-    del host_re
-    out["profile_device_part"] = profile_call(lambda: predict(arrays, img),
-                                              device)
-    return out
 
 
 def make_dataset(workdir: Path,
@@ -1941,267 +1760,8 @@ def phase_slice(device, path: Path, dataset_seconds: float, seed=1234,
     results["dft_spot_check"] = rel
     if not rel["max_rel_err"] <= DFT_RTOL:
         raise PhaseError(f"slice vs DFT {rel['max_rel_err']:.3e} > {DFT_RTOL}")
-    results["breakdown"] = slice_breakdown(reader, npix, asec, device)
     results["profile"] = profile_call(run, device)
     return results
-
-
-#: The ``ms`` phase's MeasurementSet: each tiled column in a manager of
-#: its own (the reader maps one (type, group) to one ``table.f<seq>``),
-#: DATA in TiledShapeStMan as the CASA filler binds it, TIME in
-#: IncrementalStMan; (column, VZ file, manager, group, value type name).
-MS_MAIN_COLUMNS = (
-    ("UVW", "uvw", "TiledColumnStMan", "TiledUVW", "Double"),
-    ("TIME", "time", "IncrementalStMan", "ISMData", "Double"),
-    ("DATA", "data", "TiledShapeStMan", "TiledData", "Complex"),
-    ("FLAG", "flag", "TiledColumnStMan", "TiledFlag", "Bool"),
-    ("WEIGHT_SPECTRUM", "weight_spectrum", "TiledColumnStMan",
-     "TiledWgtSpectrum", "Float"),
-    ("WEIGHT", "weight", "TiledColumnStMan", "TiledWeight", "Float"),
-)
-#: Big-endian dtypes of the cells (AipsIO's canonical byte order).
-MS_DTYPES = {"Double": ">f8", "Complex": ">c8", "Float": ">f4",
-             "Int": ">i4", "Bool": "u1"}
-#: casacore AipsIO's magic number before a top-level object.
-AIPSIO_MAGIC = 0xBEBEBEBE
-
-
-def _aipsio_string(text: str) -> bytes:
-    raw = text.encode()
-    return struct.pack(">I", len(raw)) + raw
-
-
-def _aipsio_frame(typ: str, version: int, payload: bytes) -> bytes:
-    """One AipsIO object: [uInt length][String type][uInt version]
-    payload, the length counting everything after itself."""
-    body = _aipsio_string(typ) + struct.pack(">I", version) + payload
-    return struct.pack(">I", len(body)) + body
-
-
-def _iposition(shape) -> bytes:
-    return _aipsio_frame("IPosition", 2, struct.pack(
-        f">I{len(shape)}q", len(shape), *shape))
-
-
-def _column_desc(name, type_name, shape, dm_type, dm_group, *,
-                 ndim=None) -> bytes:
-    """A ColumnDesc frame: scalar when ``shape`` is None, a fixed-shape
-    direct array for a shape (casacore order, fastest axis first), a
-    variable-shape array of ``ndim`` axes when ``shape`` is ()."""
-    from ska_sdp_cip_tpu_torch.io import casacore_tables as ct
-
-    codes = {"Bool": ct.TP_BOOL, "Int": ct.TP_INT, "Float": ct.TP_FLOAT,
-             "Double": ct.TP_DOUBLE, "Complex": ct.TP_COMPLEX}
-    is_array = shape is not None
-    if not is_array:
-        options, ndim = 0, 0
-    elif shape:
-        options, ndim = ct.OPT_DIRECT | ct.OPT_FIXEDSHAPE, len(shape)
-    else:
-        options = 0
-    payload = (_aipsio_string(
-        f"{'Array' if is_array else 'Scalar'}ColumnDesc<{type_name}>")
-        + struct.pack(">I", 1) + _aipsio_string(name) + _aipsio_string("")
-        + _aipsio_string(dm_type) + _aipsio_string(dm_group)
-        + struct.pack(">3i", codes[type_name], options, ndim))
-    if is_array:
-        payload += _iposition(shape)
-    return _aipsio_frame("ColumnDesc", 1, payload)
-
-
-def _write_table_dat(path: Path, num_rows: int, descs: list) -> None:
-    path.mkdir(parents=True, exist_ok=True)
-    table = _aipsio_frame("Table", 2, struct.pack(">2I", num_rows, 0)
-                          + _aipsio_string(path.name)
-                          + _aipsio_frame("TableDesc", 1, b"".join(descs)))
-    (path / "table.dat").write_bytes(struct.pack(">I", AIPSIO_MAGIC) + table)
-
-
-def _tile_cube(values: np.ndarray, tile: tuple, type_name: str) -> bytes:
-    """The TSM hypercube of ``values`` (rows first, numpy order): a
-    Fortran-ordered grid of Fortran-ordered tiles over cell + (rows,),
-    ``tile`` in casacore order; Bool tiles bit-packed. Whole tiles at
-    once: the grid is numpy's C order over the reversed axes."""
-    rev = tuple(reversed(tile))
-    counts = [-(-n // t) for n, t in zip(values.shape, rev)]
-    padded = np.zeros([n * t for n, t in zip(counts, rev)],
-                      MS_DTYPES[type_name])
-    padded[tuple(slice(0, n) for n in values.shape)] = values
-    split = padded.reshape([d for nt in zip(counts, rev) for d in nt])
-    rank = len(rev)
-    tiles = np.ascontiguousarray(split.transpose(
-        [2 * a for a in range(rank)] + [2 * a + 1 for a in range(rank)]))
-    if type_name == "Bool":
-        return np.packbits(tiles.reshape(int(np.prod(counts)), -1), axis=1,
-                           bitorder="little").tobytes()
-    return tiles.tobytes()
-
-
-def _write_tiled_column(path: Path, seq: int, dm_type: str,
-                        values: np.ndarray, tile: tuple, type_name: str):
-    """``table.f<seq>`` (the manager's header: TSSM holds the hypercube
-    shape and then the tile shape, TSM the tile shape) and its cube file
-    ``table.f<seq>_TSM0``."""
-    cube = tuple(reversed(values.shape))
-    shapes = (cube, tile) if dm_type == "TiledShapeStMan" else (tile,)
-    header = _aipsio_frame(dm_type, 1, b"".join(_iposition(s)
-                                                for s in shapes))
-    (path / f"table.f{seq}").write_bytes(
-        struct.pack(">I", AIPSIO_MAGIC) + header)
-    (path / f"table.f{seq}_TSM0").write_bytes(
-        _tile_cube(values, tile, type_name))
-
-
-def _write_ism_column(path: Path, seq: int, values: np.ndarray) -> None:
-    """One scalar Double column in IncrementalStMan: one bucket holding
-    the value at each change point and its index, then the ISMIndex
-    object (64-bit row boundaries)."""
-    from ska_sdp_cip_tpu_torch.io import casacore_tables as ct
-
-    starts = np.flatnonzero(np.r_[True, values[1:] != values[:-1]])
-    n = len(starts)
-    index_offset = 4 + 8 * n
-    used = index_offset + 4 + 8 * n
-    bucket_size = max(512, -(-used // 512) * 512)
-    bucket = bytearray(bucket_size)
-    bucket[:used] = (
-        struct.pack(">I", index_offset)
-        + values[starts].astype(">f8").tobytes() + struct.pack(">I", n)
-        + starts.astype(">u4").tobytes()
-        + (4 + 8 * np.arange(n)).astype(">u4").tobytes())
-    header = _aipsio_frame("IncrementalStMan", 5, struct.pack(
-        ">?4I", True, bucket_size, 1, 1, 0))
-    index = _aipsio_frame("ISMIndex", 2, struct.pack(
-        ">2I2qII", 1, 2, 0, len(values), 1, 0))
-    head = struct.pack(">I", AIPSIO_MAGIC) + header
-    (path / f"table.f{seq}").write_bytes(
-        head + bytes(ct._SSM_HEADER_AREA - len(head)) + bytes(bucket)
-        + index)
-
-
-def _write_ssm_table(path: Path, columns: list) -> None:
-    """A one-row subtable in one StandardStMan bucket: ``columns`` is
-    (name, type name, value, indirect); an indirect array stores its
-    Int64 offset into the aux file ``table.f0i``, whose cell is
-    [uInt ndim][uInt dims][big-endian values]; an SSMIndex object in a
-    second bucket maps the row to bucket 0."""
-    from ska_sdp_cip_tpu_torch.io import casacore_tables as ct
-
-    descs = [_column_desc(name, type_name, () if indirect else None,
-                          "StandardStMan", "StandardStMan",
-                          ndim=np.ndim(value) if indirect else None)
-             for name, type_name, value, indirect in columns]
-    _write_table_dat(path, 1, descs)
-    widths = [8 if indirect else np.dtype(MS_DTYPES[type_name]).itemsize
-              for _, type_name, _, indirect in columns]
-    bucket_size = 512
-    rows_per_bucket = bucket_size // sum(widths)
-    bucket, aux = bytearray(bucket_size), bytearray(16)
-    offset = 0
-    for (_, type_name, value, indirect), width in zip(columns, widths):
-        value = np.asarray(value, MS_DTYPES[type_name])
-        if indirect:
-            cell = struct.pack(f">{value.ndim + 1}I", value.ndim,
-                               *reversed(value.shape)) + value.tobytes()
-            raw = struct.pack(">q", len(aux))
-            aux += cell
-        else:
-            raw = value.tobytes()
-        bucket[offset:offset + len(raw)] = raw
-        offset += width * rows_per_bucket
-    index = _aipsio_frame("SSMIndex", 1, struct.pack(">3I", 1, 0, 0))
-    header = _aipsio_frame("StandardStMan", 2, struct.pack(
-        ">7i", bucket_size, 2, 1, 0, -1, 1, 1))
-    head = struct.pack(">I", AIPSIO_MAGIC) + header
-    (path / "table.f0").write_bytes(
-        head + bytes(ct._SSM_HEADER_AREA - len(head)) + bytes(bucket)
-        + index + bytes(bucket_size - len(index)))
-    (path / "table.f0i").write_bytes(bytes(aux))
-
-
-def ms_tile_shapes(columns: dict, tile_bytes: int) -> dict:
-    """Each tiled column's tile shape (casacore order): every
-    correlation, every channel (half of them for WEIGHT_SPECTRUM, so its
-    tiles also form a grid along frequency), and as many rows as make
-    about ``tile_bytes`` (at most the table's)."""
-    shapes = {}
-    for name, key, dm_type, _, type_name in MS_MAIN_COLUMNS:
-        if dm_type == "IncrementalStMan" or key not in columns:
-            continue
-        cell = list(reversed(columns[key].shape[1:]))
-        if name == "WEIGHT_SPECTRUM":
-            cell[1] = -(-cell[1] // 2)
-        bits = 1 if type_name == "Bool" else 8 * np.dtype(
-            MS_DTYPES[type_name]).itemsize
-        rows = max(1, 8 * tile_bytes // (bits * int(np.prod(cell))))
-        shapes[name] = (*cell, min(rows, len(columns[key])))
-    return shapes
-
-
-def write_measurement_set(path: Path, columns: dict,
-                          tile_bytes: int = 1 << 20) -> dict:
-    """
-    Write ``columns`` (VZ arrays: ``uvw``, ``time``, ``data``, ``flag``,
-    ``weight_spectrum`` and/or ``weight``, ``chan_freq``, ``corr_types``)
-    as a MeasurementSet v2 in the casacore table format that
-    ``io/casacore_tables.py`` reads: the main table's columns bound as
-    :data:`MS_MAIN_COLUMNS` says (TiledShapeStMan, TiledColumnStMan and
-    IncrementalStMan), big-endian cells, and the subtables
-    SPECTRAL_WINDOW (CHAN_FREQ, NUM_CHAN), POLARIZATION (CORR_TYPE,
-    NUM_CORR) and FIELD as one-bucket StandardStMan tables with indirect
-    array cells. Numpy and stdlib only; the big columns are written as
-    whole tiles. Returns each tiled column's tile shape.
-    """
-    path = Path(path)
-    num_rows = len(columns["uvw"])
-    tiles = ms_tile_shapes(columns, tile_bytes)
-    descs, bound = [], []
-    for name, key, dm_type, group, type_name in MS_MAIN_COLUMNS:
-        if key not in columns:
-            continue
-        cell = tuple(reversed(columns[key].shape[1:]))
-        if dm_type == "TiledShapeStMan":
-            descs.append(_column_desc(name, type_name, (), dm_type, group,
-                                      ndim=len(cell)))
-        else:
-            descs.append(_column_desc(name, type_name, cell or None,
-                                      dm_type, group))
-        bound.append((key, dm_type, type_name, tiles.get(name)))
-    _write_table_dat(path, num_rows, descs)
-    for seq, (key, dm_type, type_name, tile) in enumerate(bound):
-        values = np.asarray(columns[key])
-        if dm_type == "IncrementalStMan":
-            _write_ism_column(path, seq, values)
-        else:
-            _write_tiled_column(path, seq, dm_type, values, tile, type_name)
-    freqs = np.asarray(columns["chan_freq"])
-    corr = np.asarray(columns["corr_types"])
-    _write_ssm_table(path / "SPECTRAL_WINDOW", [
-        ("CHAN_FREQ", "Double", freqs, True),
-        ("NUM_CHAN", "Int", len(freqs), False)])
-    _write_ssm_table(path / "POLARIZATION", [
-        ("CORR_TYPE", "Int", corr, True), ("NUM_CORR", "Int", len(corr),
-                                           False)])
-    _write_ssm_table(path / "FIELD", [
-        ("PHASE_DIR", "Double", np.zeros((1, 2)), True),
-        ("SOURCE_ID", "Int", 0, False)])
-    return tiles
-
-
-def vz_columns(path: Path) -> dict:
-    """A VZ dataset's arrays by file stem, plus its ``corr_types``."""
-    columns = {p.stem: np.load(p) for p in sorted(Path(path).glob("*.npy"))}
-    meta = json.loads((Path(path) / "metadata.json").read_text())
-    columns["corr_types"] = np.asarray(meta["corr_types"], np.int32)
-    return columns
-
-
-def bit_equal(a, b) -> bool:
-    """Same dtype, shape and bytes."""
-    a, b = np.asarray(a), np.asarray(b)
-    return (a.dtype == b.dtype and a.shape == b.shape
-            and np.ascontiguousarray(a).tobytes()
-            == np.ascontiguousarray(b).tobytes())
 
 
 def disk_bytes(path: Path) -> int:
@@ -2239,8 +1799,8 @@ def phase_ms(device, path: Path, workdir: Path, slice_launches: dict,
     ``invert_dataset`` of the VZ, bit for bit (and at rtol 1e-5, atol
     1e-5 of the max),
     with B1's and B2's launches equal to ``slice_launches``, the median
-    CLI wall of ``repeats`` calls after the first, and a breakdown: MS
-    read + Stokes beside the VZ's, then plan, upload, device, download.
+    CLI wall of ``repeats`` calls after the first, and the seconds of
+    the MS's read + Stokes beside the VZ's.
     """
     import shutil
 
@@ -2341,14 +1901,10 @@ def phase_ms(device, path: Path, workdir: Path, slice_launches: dict,
         f"{fmt}_{rows}x{chans}": partition_read_seconds(dataset, rows, chans)
         for rows, chans in ((2, 2), (4, 1))
         for fmt, dataset in (("ms", ms), ("vz", path))}
-    t = time.perf_counter()
-    StokesIGridderInput.from_reader(VisibilityReader(path))
-    breakdown = {"vz_read_stokes_seconds": time.perf_counter() - t}
-    breakdown.update(slice_breakdown(VisibilityReader(ms), npix, asec,
-                                     device))
-    breakdown["ms_read_stokes_seconds"] = breakdown.pop(
-        "read_stokes_seconds")
-    out["breakdown"] = breakdown
+    for fmt, dataset in (("vz", path), ("ms", ms)):
+        t = time.perf_counter()
+        StokesIGridderInput.from_reader(VisibilityReader(dataset))
+        out[f"{fmt}_read_stokes_seconds"] = time.perf_counter() - t
     shutil.rmtree(ms)
     return out
 
@@ -2510,107 +2066,6 @@ def dft_spot_check(reader, image, centre, pix, device, seed=0,
         "max_abs_err": float(np.abs(got - dft).max()),
         "max_rel_err": float(np.abs(got - dft).max() / np.abs(image).max()),
     }
-
-
-def slice_breakdown(reader, npix, asec, device) -> dict:
-    """Seconds per stage of one invert_dataset call, synchronized."""
-    from ska_sdp_cip_tpu_torch.invert import (
-        StokesIGridderInput,
-        pixel_size_lm_from_asec,
-    )
-
-    t = time.perf_counter()
-    gi = StokesIGridderInput.from_reader(reader)
-    weighted = (gi.visibilities.astype(np.complex64)
-                * gi.effective_weights().astype(np.float32)).ravel()
-    out = {"read_stokes_seconds": time.perf_counter() - t}
-    out.update(invert_breakdown(gi.uvw, gi.channel_frequencies, weighted,
-                                npix, pixel_size_lm_from_asec(asec), device))
-    return out
-
-
-def pinned_upload_seconds(host: dict, device):
-    """Seconds of the same host arrays' upload through pinned buffers,
-    the path ``utils/staging.py`` does not take: each array (as
-    ``stage_arrays`` converts it) filled into a pinned buffer, then
-    copied with ``non_blocking=True``; synchronized, the second of two
-    runs, so the caching host allocator already holds the buffers.
-    None off the card (a CPU-only torch cannot pin)."""
-    import torch
-
-    from ska_sdp_cip_tpu_torch.utils.staging import _host_array
-
-    if device.type != "cuda":
-        return None
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for value in host.values():
-            if not isinstance(value, int):
-                pinned = torch.from_numpy(_host_array(value)).pin_memory()
-                pinned.to(device, non_blocking=True)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t
-    return seconds
-
-
-def invert_breakdown(uvw, freqs, weighted, npix, pix, device,
-                     **plan_kw) -> dict:
-    """Seconds per stage of one invert of weighted visibilities
-    (``dirty_image``'s steps), synchronized; which planner ran, whether
-    the image came down into a pinned buffer, and the pageable
-    download's seconds (``image.cpu()``) on the same image."""
-    import torch
-
-    from ska_sdp_cip_tpu_torch.ops.gridder import (
-        build_assemble,
-        build_invert,
-        compact_plan_host_arrays,
-        stage_arrays,
-    )
-    from ska_sdp_cip_tpu_torch.ops.plan import make_plan
-    from ska_sdp_cip_tpu_torch.utils.staging import device_get
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-
-    weighted = np.asarray(weighted, np.complex64).ravel()
-    out = {"planner": planner_name()}
-    t = time.perf_counter()
-    plan = make_plan(uvw, freqs, npix, pix, export_packed=False, **plan_kw)
-    out["plan_seconds"] = time.perf_counter() - t
-    t = time.perf_counter()
-    host = compact_plan_host_arrays(plan, uvw, freqs, device)
-    out["host_arrays_seconds"] = time.perf_counter() - t
-    host["re"], host["im"] = weighted.real, weighted.imag
-    sync()
-    t = time.perf_counter()
-    arrays = stage_arrays(host, device)
-    re, im = arrays.pop("re"), arrays.pop("im")
-    sync()
-    out["h2d_seconds"] = time.perf_counter() - t
-    out["h2d_pinned_seconds"] = pinned_upload_seconds(host, device)
-    t = time.perf_counter()
-    arrays, re_s, im_s = build_assemble(plan)(arrays, re, im)
-    sync()
-    out["assemble_seconds"] = time.perf_counter() - t
-    invert = build_invert(plan)
-    t = time.perf_counter()
-    image = invert(arrays, re_s, im_s)
-    sync()
-    out["invert_device_seconds"] = time.perf_counter() - t
-    t = time.perf_counter()
-    host_image = device_get(image)
-    out["d2h_seconds"] = time.perf_counter() - t
-    out["d2h_pinned"] = bool(torch.from_numpy(host_image).is_pinned())
-    del host_image
-    t = time.perf_counter()
-    image.cpu()
-    out["d2h_pageable_seconds"] = time.perf_counter() - t
-    if device.type == "cuda":
-        out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    return out
 
 
 def planner_name() -> str:
@@ -3568,72 +3023,6 @@ def timed_calls(fn, device, repeats: int) -> tuple:
     return first, first_seconds, launches, walls
 
 
-#: The gate of the port's path against the composition it replaced,
-#: relative to the latter's max (they are expected to agree bit for bit:
-#: B2L is B2 on the transpose, its screen torch's ops on the same bits).
-FUSED_RTOL = 1e-6
-
-
-def fused_against_unfused(build, call, device) -> dict:
-    """
-    One device-side invert or predict on staged inputs through the port's
-    path (B2 + B2L, ``build()`` = ``gridder.build_*(plan)``) and through
-    the composition it replaced (the same ``build`` under
-    :func:`unfused_composition`), in the same run: ``call(fn)`` runs the
-    built function. The two results are gated bit-equal or within
-    :data:`FUSED_RTOL` of the max (``max_rel_diff`` says which); each
-    path's CUDA-event milliseconds in :data:`B2L_TURNS`, its peak device
-    memory above what was allocated before it, and its profile's kernel
-    classes (:func:`kernel_classes`: strided copies, elementwise,
-    reductions, the port's kernels).
-    """
-    import torch
-
-    from ska_sdp_cip_tpu_torch.probes.common import cuda_ms
-
-    fns = {"fused": build()}
-    with unfused_composition():
-        fns["unfused"] = build()
-    on_card = device.type == "cuda"
-    got, peak = {}, {}
-    for turn, fn in fns.items():
-        if on_card:
-            free_device_memory(device)
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-        got[turn] = call(fn)
-        if on_card:
-            torch.cuda.synchronize()
-            peak[turn] = (torch.cuda.max_memory_allocated() - base) / 2**30
-    pairs = (list(zip(got["fused"], got["unfused"]))
-             if isinstance(got["fused"], tuple)
-             else [(got["fused"], got["unfused"])])
-    del got
-    equal = all(torch.equal(a, b) for a, b in pairs)
-    rel = (max(float((a - b).abs().max()) for a, b in pairs)
-           / max(float(b.abs().max()) for _, b in pairs))
-    del pairs
-    out = {"bit_equal": equal, "max_rel_diff": rel, "limit": FUSED_RTOL,
-           "peak_gib_above_inputs": peak or "not measured"}
-    if on_card:
-        turns = {"fused": [], "unfused": []}
-        for turn in B2L_TURNS:
-            turns[turn].append(cuda_ms(lambda: call(fns[turn]), iters=1))
-        for turn in fns:
-            out[turn] = {
-                "ms_turns": turns[turn],
-                "median_ms": statistics.median(turns[turn]),
-                "profile": {k: v for k, v in profile_call(
-                    lambda: call(fns[turn]), device).items()
-                    if k in ("device_busy_seconds", "classes",
-                             "top_kernels")},
-            }
-    if not (equal or rel <= FUSED_RTOL):
-        raise PhaseError(f"B2L's path against the composition it replaced: "
-                         f"{rel:.3e} of the max (limit {FUSED_RTOL})")
-    return out
-
-
 def phase_production_invert(device, problem, npix=PROD_NPIX,
                             asec=PROD_ASEC, repeats=3,
                             dft_pixels=256) -> tuple:
@@ -3642,12 +3031,9 @@ def phase_production_invert(device, problem, npix=PROD_NPIX,
     one call, the median wall of ``repeats`` calls after it, a float64
     DFT check at ``dft_pixels`` random pixels (1e-4 of the sampled
     max), B1 against its plain version on the plan's largest plane
-    group, ``build_invert``'s device part against the composition before
-    B2L (:func:`fused_against_unfused`), a per-stage breakdown and a
-    profile of one call. Returns the phase's results and the image (for
-    predict's adjoint identity).
+    group and a profile of one call. Returns the phase's results and the
+    image (for predict's adjoint identity).
     """
-    from ska_sdp_cip_tpu_torch.ops import gridder
     from ska_sdp_cip_tpu_torch.ops.gridder import dirty_image
 
     uvw, freqs, vis, wgt = problem
@@ -3672,13 +3058,9 @@ def phase_production_invert(device, problem, npix=PROD_NPIX,
     b1_check = {"group": k, **compare_group(
         plan, group_args(plan, arrays, re_s, im_s, k),
         group_grid_chunks(plan, arrays, k), time_it=True)}
-    versus_unfused = fused_against_unfused(
-        lambda: gridder.build_invert(plan),
-        lambda fn: fn(arrays, re_s, im_s), device)
     del arrays, re_s, im_s
     out = {
         "phase": "production", "part": "invert", "npix": npix,
-        "versus_unfused": versus_unfused,
         "pixel_asec": asec, "num_vis": int(vis.size),
         "plan": plan_summary(plan),
         "first_call_seconds": first, "wall_seconds": walls,
@@ -3697,8 +3079,6 @@ def phase_production_invert(device, problem, npix=PROD_NPIX,
     if not out["dft_check"]["rel_to_sampled_max"] <= DFT_RTOL:
         raise PhaseError(f"production image vs DFT "
                          f"{out['dft_check']['rel_to_sampled_max']:.3e}")
-    out["breakdown"] = invert_breakdown(uvw, freqs, vis * wgt, npix, pix,
-                                        device, sigma="auto")
     out["profile"] = profile_call(run, device)
     return out, image
 
@@ -3722,14 +3102,9 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
     sparse image of five seeded point sources against a float64 DFT of
     its nonzero pixels at ``samples`` random visibilities (1e-4 of the
     max); B3 against its plain version on the plan's largest plane
-    group of random planes; ``build_predict``'s device part on the noise
-    image against the composition before B2L
-    (:func:`fused_against_unfused`); the median wall of ``repeats``
-    calls, launch counts, a breakdown and a profile of the device part.
+    group of random planes; the median wall of ``repeats`` calls, launch
+    counts and a profile of one call.
     """
-    import torch
-
-    from ska_sdp_cip_tpu_torch.ops import gridder
     from ska_sdp_cip_tpu_torch.ops.gridder import (
         dirty_image,
         predict_visibilities,
@@ -3788,12 +3163,7 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
     b3_check = {"group": k, **compare_degrid(
         plan, arrays, grids, k, group_chunks(plan, arrays, k),
         time_it=True)}
-    del grids
-    noise = torch.as_tensor(image, device=device)
-    versus_unfused = fused_against_unfused(
-        lambda: gridder.build_predict(plan),
-        lambda fn: fn(arrays, noise), device)
-    del arrays, noise
+    del arrays, grids
     norms = float(np.linalg.norm(image.astype(np.float64))
                   * np.linalg.norm(d64))
     out = {
@@ -3816,7 +3186,6 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
         "sparse_dft_check": {"samples": samples, "max_abs_err": err,
                              "rel_to_max": err / float(np.abs(ref).max())},
         "b3_check": b3_check,
-        "versus_unfused": versus_unfused,
         "first_call_seconds": first, "wall_seconds": walls,
         "median_wall_seconds": statistics.median(walls),
         "launches": launches,
@@ -3836,8 +3205,7 @@ def phase_production_predict(device, problem, dirty, npix=PROD_NPIX,
     if not out["sparse_dft_check"]["rel_to_max"] <= DFT_RTOL:
         raise PhaseError(f"production predict vs DFT "
                          f"{out['sparse_dft_check']['rel_to_max']:.3e}")
-    out["breakdown"] = predict_breakdown(uvw, freqs, image, pix, device,
-                                         sigma="auto")
+    out["profile"] = profile_call(run, device)
     return out
 
 
@@ -3990,18 +3358,16 @@ def phase_large(device, path: Path, seed=1234, npix=LARGE_NPIX,
     The main path at 16384 px / 0.5 asec on the slice's dataset (a
     32768^2 grid, support 6, sigma 2, w-stacking, plane groups of 2):
     ``invert_dataset`` once (wall, launch counts, peak memory), the
-    brightest source's peak, a float64 DFT spot check (1e-4 of the image
-    max) and a per-stage breakdown; B1 on every plane group (ms, against
+    brightest source's peak and a float64 DFT spot check (1e-4 of the
+    image max); B1 on every plane group (ms, against
     the bytes bound) and, on the largest, against its plain version
     (1e-5 of the max) and launched twice, gated bit-equal; then
     ``MeasurementOperator.build`` and one ``forward`` (predict) of a
     standard-normal image I, gated on the adjoint identity
     |<I, D> - Re<v, G I>| / (|I| |D|) <= 1e-6 (D the invert's image
     unnormalized, v the weighted visibilities), and B3 against its plain
-    version on the largest plane group of random planes; the invert's
-    and predict's device parts against the composition before B2L
-    (:func:`fused_against_unfused`: bits, times, peak memory, profiles);
-    last B2 at n = 32768 (both crops, at m = 32768 and 16384 by default)
+    version on the largest plane group of random planes; last B2 at
+    n = 32768 (both crops, at m = 32768 and 16384 by default)
     and B2L at n = 32768 and 16384 rows (:func:`phase_b2l`) against
     their plain versions and ``torch.fft``.
     """
@@ -4011,8 +3377,7 @@ def phase_large(device, path: Path, seed=1234, npix=LARGE_NPIX,
     from ska_sdp_cip_tpu_torch.invert import StokesIGridderInput
     from ska_sdp_cip_tpu_torch.models import MeasurementOperator
     from ska_sdp_cip_tpu_torch.ops import cuda_gridder as cg
-    from ska_sdp_cip_tpu_torch.ops import gridder
-    from ska_sdp_cip_tpu_torch.ops.gridder import group_active_blocks
+    from ska_sdp_cip_tpu_torch.ops.gridder import work_lists
     from ska_sdp_cip_tpu_torch.probes.common import cuda_ms
 
     def sync():
@@ -4053,8 +3418,6 @@ def phase_large(device, path: Path, seed=1234, npix=LARGE_NPIX,
     if not out["dft_spot_check"]["max_rel_err"] <= DFT_RTOL:
         raise PhaseError(f"large image vs DFT "
                          f"{out['dft_spot_check']['max_rel_err']:.3e}")
-    free_device_memory(device)
-    out["breakdown"] = slice_breakdown(reader, npix, asec, device)
 
     gi = StokesIGridderInput.from_reader(reader)
     weights = gi.effective_weights()
@@ -4064,7 +3427,7 @@ def phase_large(device, path: Path, seed=1234, npix=LARGE_NPIX,
         asec, device)
     out["plan"] = plan_summary(plan)
     out["b1_groups"] = []
-    for k, ids in enumerate(group_active_blocks(plan)):
+    for k, ids in enumerate(work_lists(plan)["blocks"]):
         args = group_args(plan, arrays, re_s, im_s, k)
         chunks = group_grid_chunks(plan, arrays, k)
         row = {"group": k, "active_blocks": len(ids),
@@ -4080,9 +3443,6 @@ def phase_large(device, path: Path, seed=1234, npix=LARGE_NPIX,
     out["b1_check"] = {"group": k, **compare_group(
         plan, group_args(plan, arrays, re_s, im_s, k),
         group_grid_chunks(plan, arrays, k), time_it=True, iters=2)}
-    out["invert_versus_unfused"] = fused_against_unfused(
-        lambda: gridder.build_invert(plan),
-        lambda fn: fn(arrays, re_s, im_s), device)
     del arrays, re_s, im_s
 
     free_device_memory(device)
@@ -4128,13 +3488,7 @@ def phase_large(device, path: Path, seed=1234, npix=LARGE_NPIX,
     out["b3_check"] = {"group": k, **compare_degrid(
         op.plan, op.arrays, grids, k, group_chunks(op.plan, op.arrays, k),
         time_it=True, iters=2)}
-    del grids
-    free_device_memory(device)
-    noise = torch.randn((npix, npix), generator=gen, device=device)
-    out["predict_versus_unfused"] = fused_against_unfused(
-        lambda: gridder.build_predict(op.plan),
-        lambda fn: fn(op.arrays, noise), device)
-    del op, noise
+    del grids, op
 
     free_device_memory(device)
     out["b2"] = phase_b2(device, plan.ngrid, npix, iters=3,

@@ -31,7 +31,7 @@
 // evaluation, shuffles, the sum) bound the kernel.
 //
 // Design:
-//   * the same chunks of tile runs as grid.cu (ops/gridder.py
+//   * chunks of tile runs, (first, count) rows (ops/gridder.py
 //     tile_chunks). A persistent thread block walks the chunks
 //     blockIdx.x, blockIdx.x + gridDim.x, ... and loads the next
 //     chunk's 2G 48 x 128 windows with cp.async into the second of two
@@ -179,14 +179,14 @@ degrid_chunks_kernel(const float* __restrict__ xpos,
 
   int c = blockIdx.x;
   if (c >= num_chunks) return;
-  load_windows<G>(smem, grids, block_ox, block_oy, blocks[chunks[3 * c]],
+  load_windows<G>(smem, grids, block_ox, block_oy, blocks[chunks[2 * c]],
                   patch_x, patch_y, stride, support, n, vec);
   cp_async_commit();
   for (int it = 0; c < num_chunks; ++it, c += gridDim.x) {
     const int next = c + gridDim.x;
     if (next < num_chunks) {
       load_windows<G>(smem + ((it + 1) & 1) * wcells, grids, block_ox,
-                      block_oy, blocks[chunks[3 * next]], patch_x, patch_y,
+                      block_oy, blocks[chunks[2 * next]], patch_x, patch_y,
                       stride, support, n, vec);
     }
     cp_async_commit();
@@ -194,8 +194,8 @@ degrid_chunks_kernel(const float* __restrict__ xpos,
     __syncthreads();
 
     const float* win = smem + (it & 1) * wcells;
-    const int first = chunks[3 * c];
-    const int count = chunks[3 * c + 1];
+    const int first = chunks[2 * c];
+    const int count = chunks[2 * c + 1];
     const int shift =
         window_shift(wrap(static_cast<int64_t>(block_oy[blocks[first]]) -
                           support, n), vec);
@@ -367,9 +367,10 @@ cudaError_t launch_cs(const float* xpos, const float* ypos, const float* ws,
 
 // C entry (bound with ctypes by ops/cuda_gridder.py). `grids` holds 2G
 // contiguous periodic (ngrid, ngrid) float32 planes in the order re_0,
-// im_0, re_1, im_1, ...; `chunks` is grid.cu's (first, count, flags)
-// table over `blocks`; the group's contributions are ADDED into
-// acc_re/acc_im. Returns the CUDA error code of the launch (0 = ok);
+// im_0, re_1, im_1, ...; `chunks` is the (first, count) table of
+// ops/gridder.py:tile_chunks over `blocks`; the group's contributions
+// are ADDED into acc_re/acc_im. Returns the CUDA error code of the
+// launch (0 = ok);
 // G other than 1 and 2 returns cudaErrorInvalidValue.
 extern "C" int cip_degrid_planes(
     const float* xpos, const float* ypos, const float* ws,

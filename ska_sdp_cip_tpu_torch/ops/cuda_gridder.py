@@ -203,11 +203,11 @@ def grid_planes(
 
 def _check_chunks(chunks, blocks, builder: str) -> torch.Tensor:
     """The work list as a kernel reads it (``ops/gridder.py:<builder>``:
-    (n, 3) rows for B3, (n, 4 + 2S) for B1), or raise."""
+    (n, 2) rows for B3, (n, 4 + 2S) for B1), or raise."""
     if chunks is None:
         raise ValueError("the CUDA kernels need the chunk table of "
                          f"ops/gridder.py:{builder} (chunks=...)")
-    width_ok = (chunks.shape[-1] == 3 if builder == "tile_chunks"
+    width_ok = (chunks.shape[-1] == 2 if builder == "tile_chunks"
                 else chunks.shape[-1] >= 6 and chunks.shape[-1] % 2 == 0)
     if (chunks.device != blocks.device or chunks.dtype != torch.int32
             or chunks.dim() != 2 or not width_ok):
@@ -419,7 +419,7 @@ def degrid_planes(
     returned). The adjoint of :func:`grid_planes`.
 
     ``packed``, ``block_len/ox/oy``, ``w_g`` and ``blocks`` are as in
-    :func:`grid_planes`; ``chunks`` is B3's (first, count, flags) table
+    :func:`grid_planes`; ``chunks`` is B3's (first, count) table
     over ``blocks`` (``ops/gridder.py:tile_chunks``), required on CUDA
     tensors; ``grids`` is the (2G, ngrid, ngrid)
     f32 stack of (already transformed) periodic planes ordered re_0,

@@ -46,13 +46,18 @@ Counterpart: ``ska_sdp_cip_tpu/ops/gridder.py``:
   ``predict_visibilities``, whose results come down through pinned
   buffers (``utils/staging.py``).
 
+The plane groups' work lists (active blocks, B1's rectangles, B3's
+chunks) are built once per plan, by :func:`work_lists`; staging uploads
+them and the builders read them.
+
 Spans and counters (``utils/task_metrics.py``; nothing while the
 recorder is off): ``dirty_image`` is the root span ``image`` over
 ``plan``, ``weight``, ``stage`` (``stage.host_arrays``,
 ``stage.upload``, ``stage.assemble``), ``invert`` and ``download``;
-``build_invert``'s work lists are ``invert.work_lists``, the maps of
-every invert and predict ``invert.taper`` / ``predict.taper``, and each
-plane group of the invert ``invert.group`` (counters ``active_blocks``,
+the one build of a plan's work lists is ``invert.work_lists`` (inside
+``stage.host_arrays`` on ``dirty_image``'s path), the maps of every
+invert and predict ``invert.taper`` / ``predict.taper``, and each plane
+group of the invert ``invert.group`` (counters ``active_blocks``,
 ``b1_chunks``, ``slot_visits``).
 
 Everything runs eagerly on the device of the staged tensors; the
@@ -69,7 +74,7 @@ import numpy as np
 import torch
 
 from .. import native as _native
-from ..utils.staging import device_get, device_put_parallel
+from ..utils.staging import device_get, device_put_parallel, resolve_device
 from ..utils.task_metrics import count, span
 from .cuda_gridder import (  # noqa: F401  (the fold stays importable here,
                              # where the counterpart keeps it)
@@ -93,19 +98,6 @@ from .plan import GridderPlan, make_plan
 from .taper_cuda import taper_maps
 
 SPEED_OF_LIGHT = 299792458.0
-
-
-def resolve_device(device) -> torch.device:
-    """The ``torch.device`` for ``device``; a CUDA device needs a card."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} requested but torch.cuda.is_available() is "
-            "False"
-        )
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 def stage_arrays(host: dict, device) -> dict:
@@ -180,23 +172,29 @@ def _quad_arrays(plan: GridderPlan) -> dict:
     }
 
 
+def _kept(plan: GridderPlan, name: str, build):
+    """``build()``, computed once per plan and kept in its ``__dict__``
+    under ``name`` (a plan's arrays do not change after planning)."""
+    kept = plan.__dict__
+    if name not in kept:
+        kept[name] = build()
+    return kept[name]
+
+
 def _fused_fft_meta(plan: GridderPlan):
-    """Geometry of the fused invert FFT passes (image crop)."""
-    npix = plan.num_pixels
-    crop0 = (plan.ngrid - npix) // 2
-    return fused_pass_meta(
-        make_fft_plan(plan.ngrid, shifted=True), (crop0, npix)
-    )
+    """Geometry of the fused invert FFT passes (image crop), kept on the
+    plan."""
+    crop = ((plan.ngrid - plan.num_pixels) // 2, plan.num_pixels)
+    return _kept(plan, "_fused_fft_meta", lambda: fused_pass_meta(
+        make_fft_plan(plan.ngrid, shifted=True), crop))
 
 
 def _fused_fft_meta_ic(plan: GridderPlan):
-    """Geometry of the fused predict FFT passes (in-cropped image)."""
-    npix = plan.num_pixels
-    crop0 = (plan.ngrid - npix) // 2
-    return fused_pass_meta(
-        make_fft_plan(plan.ngrid, shifted=True), None,
-        in_crop=(crop0, npix),
-    )
+    """Geometry of the fused predict FFT passes (in-cropped image), kept
+    on the plan."""
+    crop = ((plan.ngrid - plan.num_pixels) // 2, plan.num_pixels)
+    return _kept(plan, "_fused_fft_meta_ic", lambda: fused_pass_meta(
+        make_fft_plan(plan.ngrid, shifted=True), None, in_crop=crop))
 
 
 def group_active_blocks(plan: GridderPlan) -> list:
@@ -227,9 +225,11 @@ def useful_slot_visits(plan: GridderPlan, arrays: dict) -> int:
     and kept on the plan: a pass over the slots on the host took 1.9 s
     at 116 M visibilities on the H100's host.
     """
-    cached = plan.__dict__.get("_useful_slot_visits")
-    if cached is not None:
-        return cached
+    return _kept(plan, "_useful_slot_visits",
+                 lambda: _useful_slot_visits(plan, arrays))
+
+
+def _useful_slot_visits(plan: GridderPlan, arrays: dict) -> int:
     W, G, P = plan.support, plan.plane_group, plan.nplanes
     order = arrays["order"]
     if plan.wstacking:
@@ -247,9 +247,7 @@ def useful_slot_visits(plan: GridderPlan, arrays: dict) -> int:
         bins = np.array([int((order < plan.num_vis_data).sum())])
     q = np.arange(len(bins))
     groups = np.minimum(q + W - 1, P - 1) // G - q // G + 1
-    visits = int((bins * groups).sum())
-    plan.__dict__["_useful_slot_visits"] = visits
-    return visits
+    return int((bins * groups).sum())
 
 
 #: Blocks per chunk, the knob of both work lists: B3 cuts a tile run
@@ -261,14 +259,6 @@ def useful_slot_visits(plan: GridderPlan, arrays: dict) -> int:
 #: group's B1 and B3 at R = 2 to 32 (``chunk_sweep_ms``).
 CHUNK_BLOCKS = 8
 
-#: Chunk flags of :func:`tile_chunks`, which describe a chunk and drive
-#: no kernel (B3 reads only first and count): the tile's run is split
-#: over more than one chunk ...
-CHUNK_SPLIT = 1
-#: ... and the tile holds an alloc row or column that the wrap fold
-#: moves or targets, [0, 2W) or [N, N + 2W).
-CHUNK_EDGE = 2
-
 #: Fields of a B1 chunk row before its sources: the destination
 #: rectangle (row0, nrows, col0, ncols) on the periodic grid.
 GRID_CHUNK_HEAD = 4
@@ -278,36 +268,22 @@ MIN_PIECE_COLS = 8
 ZERO_CHUNK_COLS = 2048
 
 
-def _edge_tiles(plan: GridderPlan, ox, oy) -> np.ndarray:
-    """Whether the patches at alloc origins (ox, oy) hold a row or column
-    in [0, 2W) or [N, N + 2W), the wrap fold's sources and targets."""
-    N, W = plan.ngrid, plan.support
-
-    def touches(lo, size):
-        lo = np.asarray(lo, np.int64)
-        return (lo < 2 * W) | ((lo < N + 2 * W) & (lo + size > N))
-
-    return touches(ox, plan.patch_x) | touches(oy, plan.patch_y)
-
-
 def tile_chunks(plan: GridderPlan, ids,
                 chunk_blocks: int = CHUNK_BLOCKS) -> np.ndarray:
     """
-    The B1/B3 work list of one plane group: (n, 3) int32 rows (first,
-    count, flags) over ``ids``, the group's sorted active block ids.
-    A run is a stretch of consecutive ``ids`` with one patch origin
+    The B3 work list of one plane group: (n, 2) int32 rows (first,
+    count) over ``ids``, the group's sorted active block ids. A run is
+    a stretch of consecutive ``ids`` with one patch origin
     (``block_ox``, ``block_oy``): the planner sorts slots tile-major, so
     a run holds all of a tile's active blocks. Each run is cut into
-    chunks of at most ``chunk_blocks`` blocks; ``flags`` carries
-    :data:`CHUNK_SPLIT` when the chunk's tile has more than one chunk
-    and :data:`CHUNK_EDGE` for :func:`_edge_tiles`. Chunks come heaviest
+    chunks of at most ``chunk_blocks`` blocks. Chunks come heaviest
     first (by slots), so the longest start first on the card.
     """
     if chunk_blocks < 1:
         raise ValueError(f"chunk_blocks must be >= 1, got {chunk_blocks}")
     ids = np.asarray(ids, np.int64)
     if ids.size == 0:
-        return np.zeros((0, 3), np.int32)
+        return np.zeros((0, 2), np.int32)
     ox = plan.block_ox[ids].astype(np.int64)
     oy = plan.block_oy[ids].astype(np.int64)
     key = ox * plan.nalloc_y + oy
@@ -319,21 +295,9 @@ def tile_chunks(plan: GridderPlan, ids,
                                            per_run)
     first = starts[run] + chunk_blocks * rank
     count = np.minimum(chunk_blocks, ends[run] - first)
-    _, tile, chunks_of_tile = np.unique(key[first], return_inverse=True,
-                                        return_counts=True)
-    flags = (np.where(chunks_of_tile[tile] > 1, CHUNK_SPLIT, 0)
-             | np.where(_edge_tiles(plan, ox[first], oy[first]),
-                        CHUNK_EDGE, 0))
     slots = np.r_[0, np.cumsum(plan.block_len[ids].astype(np.int64))]
     order = np.argsort(-(slots[first + count] - slots[first]), kind="stable")
-    return np.stack([first, count, flags], axis=1)[order].astype(np.int32)
-
-
-def group_tile_chunks(plan: GridderPlan,
-                      chunk_blocks: int = CHUNK_BLOCKS) -> list:
-    """:func:`tile_chunks` of every plane group's active blocks."""
-    return [tile_chunks(plan, ids, chunk_blocks)
-            for ids in group_active_blocks(plan)]
+    return np.stack([first, count], axis=1)[order].astype(np.int32)
 
 
 def _band_edges(ngrid: int, step: int, support: int,
@@ -497,17 +461,37 @@ def grid_chunks(plan: GridderPlan, ids,
     return np.concatenate([busy, zero]).astype(np.int32)
 
 
-def group_grid_chunks(plan: GridderPlan,
-                      chunk_blocks: int = CHUNK_BLOCKS) -> list:
-    """:func:`grid_chunks` of every plane group's active blocks."""
-    return [grid_chunks(plan, ids, chunk_blocks)
-            for ids in group_active_blocks(plan)]
+def work_lists(plan: GridderPlan, *, invert: bool = False,
+               predict: bool = False) -> dict:
+    """
+    The plan's per-group work lists, each built at most once per plan
+    and kept on it: ``"blocks"``, every plane group's sorted active
+    block ids (:func:`group_active_blocks`); with ``invert`` also
+    ``"grid"``, B1's :func:`grid_chunks` of each group; with ``predict``
+    ``"tile"``, B3's :func:`tile_chunks` of each group. What a call
+    builds is timed by the span ``invert.work_lists``.
+    """
+    lists = _kept(plan, "_work_lists", dict)
+    wanted = {"blocks": True, "grid": invert, "tile": predict}
+    if all(key in lists for key, want in wanted.items() if want):
+        return lists
+    with span("invert.work_lists"):
+        if "blocks" not in lists:
+            lists["blocks"] = group_active_blocks(plan)
+        if invert and "grid" not in lists:
+            lists["grid"] = [grid_chunks(plan, ids)
+                             for ids in lists["blocks"]]
+        if predict and "tile" not in lists:
+            lists["tile"] = [tile_chunks(plan, ids)
+                             for ids in lists["blocks"]]
+    return lists
 
 
-def _stack_tables(tables: list, width: int) -> np.ndarray:
+def _stack_tables(tables: list) -> np.ndarray:
     """Per-group int32 tables in one (groups, rows, width) array, padded
     with zero rows (and zero columns) to the largest."""
     rows = max(max((len(t) for t in tables), default=0), 1)
+    width = max(t.shape[1] for t in tables)
     out = np.zeros((len(tables), rows, width), np.int32)
     for k, table in enumerate(tables):
         out[k, : len(table), : table.shape[1]] = table
@@ -519,23 +503,23 @@ def plan_host_arrays(plan: GridderPlan, device, *, invert: bool = True,
     """
     Host (numpy) arrays of a plan that the port's invert and predict
     read on ``device``: the per-block tables, the (num_groups, G) plane
-    w's, the per-group active block lists (padded with -1), their B3
-    chunk tables (:func:`tile_chunks`) and B1 work lists
-    (:func:`grid_chunks`), each padded with zero rows, the
-    quadrature rule, and the first-axis DFT factors of the passes that
-    run there — on a CUDA device the fused kernels' (B2's and B2L's),
-    ``fftp_*`` for the ``invert`` and ``fftq_*`` for the ``predict``;
-    on the CPU the plain version's (``fft_*``), which serve both.
+    w's, the per-group active block lists (``group_blocks``, padded with
+    -1), the work lists of :func:`work_lists` each padded with zero rows
+    (for the ``invert`` B1's, ``group_grid_chunks``; for the ``predict``
+    B3's, ``group_chunks``), the quadrature rule, and the first-axis DFT
+    factors of the passes that run there — on a CUDA device the fused
+    kernels' (B2's and B2L's), ``fftp_*`` for the ``invert`` and
+    ``fftq_*`` for the ``predict``; on the CPU the plain version's
+    (``fft_*``), which serve both.
     """
     G = plan.plane_group
     wg = plan.w0 + plan.dw * np.arange(G * plan.num_groups, dtype=np.float64)
-    lists = group_active_blocks(plan)
-    width = max(max((len(x) for x in lists), default=0), 1)
-    group_blocks = np.full((len(lists), width), -1, np.int32)
-    for k, ids in enumerate(lists):
+    lists = work_lists(plan, invert=invert, predict=predict)
+    blocks = lists["blocks"]
+    width = max(max((len(x) for x in blocks), default=0), 1)
+    group_blocks = np.full((len(blocks), width), -1, np.int32)
+    for k, ids in enumerate(blocks):
         group_blocks[k, : len(ids)] = ids
-    tables = [tile_chunks(plan, ids) for ids in lists]
-    grid_tables = [grid_chunks(plan, ids) for ids in lists]
     arrays = {
         "block_len": plan.block_len.astype(np.int32),
         "cblock_ox": plan.block_ox.astype(np.int32),
@@ -544,10 +528,11 @@ def plan_host_arrays(plan: GridderPlan, device, *, invert: bool = True,
         # outside every block's ES window (zero contributions).
         "plane_wg": wg.astype(np.float32).reshape(-1, G),
         "group_blocks": group_blocks,
-        "group_chunks": _stack_tables(tables, 3),
-        "group_grid_chunks": _stack_tables(
-            grid_tables, max(t.shape[1] for t in grid_tables)),
     }
+    if invert:
+        arrays["group_grid_chunks"] = _stack_tables(lists["grid"])
+    if predict:
+        arrays["group_chunks"] = _stack_tables(lists["tile"])
     arrays.update(_quad_arrays(plan))
     fft_plan = make_fft_plan(plan.ngrid, shifted=True)
     if resolve_device(device).type == "cuda":
@@ -1004,11 +989,11 @@ def build_invert(plan, *, mesh=None):
         return _build_invert_distributed(list(plan), mesh)
     G = plan.plane_group
     npix = plan.num_pixels
-    with span("invert.work_lists"):
-        fmeta = _fused_fft_meta(plan)
-        counts = [len(ids) for ids in group_active_blocks(plan)]
-        nchunks = [len(c) for c in group_grid_chunks(plan)]
-        visits = [c * plan.block for c in counts]
+    fmeta = _fused_fft_meta(plan)
+    lists = work_lists(plan, invert=True)
+    counts = [len(ids) for ids in lists["blocks"]]
+    nchunks = [len(c) for c in lists["grid"]]
+    visits = [c * plan.block for c in counts]
 
     def invert(arrays, re_s, im_s):
         with span("invert.taper", device=True):
@@ -1103,8 +1088,9 @@ def build_predict(plan, *, slot_output: bool = False, mesh=None):
     G = plan.plane_group
     N = plan.ngrid
     fmeta = _fused_fft_meta_ic(plan)
-    counts = [len(ids) for ids in group_active_blocks(plan)]
-    nchunks = [len(c) for c in group_tile_chunks(plan)]
+    lists = work_lists(plan, predict=True)
+    counts = [len(ids) for ids in lists["blocks"]]
+    nchunks = [len(c) for c in lists["tile"]]
 
     def predict(arrays, image):
         with span("predict.taper", device=True):
@@ -1247,8 +1233,9 @@ def _build_invert_distributed(plans: list, mesh):
     S = mesh.num_shards
     cols = npix // S
     fmeta = _fused_fft_meta(plan)
-    counts = [[len(ids) for ids in group_active_blocks(p)] for p in plans]
-    nchunks = [[len(c) for c in group_grid_chunks(p)] for p in plans]
+    lists = [work_lists(p, invert=True) for p in plans]
+    counts = [[len(ids) for ids in x["blocks"]] for x in lists]
+    nchunks = [[len(c) for c in x["grid"]] for x in lists]
     slabs = [slice(g * cols, (g + 1) * cols)
              for g in mesh.addressable_shard_indices]
 
@@ -1334,8 +1321,9 @@ def _build_predict_distributed(plans: list, mesh, *, slot_output: bool):
     S = mesh.num_shards
     cols = npix // S
     fmeta = _fused_fft_meta_ic(plan)
-    counts = [[len(ids) for ids in group_active_blocks(p)] for p in plans]
-    nchunks = [[len(c) for c in group_tile_chunks(p)] for p in plans]
+    lists = [work_lists(p, predict=True) for p in plans]
+    counts = [[len(ids) for ids in x["blocks"]] for x in lists]
+    nchunks = [[len(c) for c in x["tile"]] for x in lists]
     slabs = [slice(g * cols, (g + 1) * cols)
              for g in mesh.addressable_shard_indices]
 

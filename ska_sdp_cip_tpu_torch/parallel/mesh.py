@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.staging import resolve_device
 from ..utils.task_metrics import count, span
 
 #: Seconds a rank waits for the others to join (and for a collective)
@@ -339,8 +340,6 @@ def make_device_mesh(num_shards: int | None = None, *, device) -> DeviceMesh:
     (:func:`initialize_distributed`). Raises unless the world size
     divides ``num_shards``.
     """
-    from ..ops.gridder import resolve_device
-
     device = resolve_device(local_device(device))
     if not dist.is_initialized():
         initialize_distributed(backend=backend_for(device))

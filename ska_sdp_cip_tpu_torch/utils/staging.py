@@ -18,9 +18,6 @@ relay, and the two directions take different copies:
   pageable download faults in a fresh destination as it goes, which
   made it about 20 times slower for the 0.42 GB production image.
 
-``chip_smoke.py``'s breakdowns time the path not taken beside the one
-taken in both directions.
-
 On a CPU target nothing is pinned and nothing is copied: the tensors
 share the numpy arrays' memory, as ``torch.from_numpy`` does.
 
@@ -35,6 +32,19 @@ import numpy as np
 import torch
 
 from .task_metrics import count
+
+
+def resolve_device(device) -> torch.device:
+    """The ``torch.device`` for ``device``; a CUDA device needs a card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but torch.cuda.is_available() is "
+            "False"
+        )
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
 
 
 def _host_array(value) -> np.ndarray:
@@ -57,8 +67,6 @@ class AsyncStager:
     """
 
     def __init__(self, device):
-        from ..ops.gridder import resolve_device
-
         self.device = resolve_device(device)
         self._entries: dict = {}
 

@@ -11,13 +11,12 @@ against the JAX package's, on the same bytes: the port of
   ``ms_to_vz`` with python-casacore absent) reads equal arrays, bit for
   bit, through both readers, or raises each reader's own
   ``CasacoreFormatError`` with the same message;
-* ``chip_smoke.write_measurement_set`` (the smoke's MS writer) on a
-  small problem: both readers give back the arrays written, with
+* ``tests/helpers/ms_writer.py:write_measurement_set`` on a small
+  problem: both readers give back the arrays written, with
   WEIGHT_SPECTRUM and with a row-level WEIGHT.
 """
 
 import base64
-import importlib.util
 import io as iolib
 import json
 import sys
@@ -27,6 +26,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import test_casacore_tables as jtests
+from helpers import ms_writer
 from helpers.casacore_writer import _write_fake_table
 
 from ska_sdp_cip_tpu.io import casacore_tables as jct
@@ -39,13 +39,6 @@ from ska_sdp_cip_tpu_torch.io.visibility_dataset import VisibilityReader
 REPO = Path(__file__).resolve().parent.parent
 FIXTURE = jtests.FIXTURE
 GOLDEN = jtests.GOLDEN
-
-
-# The smoke's MS writer (``write_measurement_set``) and helpers.
-_spec = importlib.util.spec_from_file_location("chip_smoke",
-                                               REPO / "chip_smoke.py")
-chip_smoke = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(chip_smoke)
 
 
 def test_module_is_a_verbatim_copy():
@@ -257,7 +250,7 @@ def test_golden_fixture_columns(tmp_path):
 @pytest.mark.parametrize("spectrum", [True, False],
                          ids=["weight_spectrum", "row_weight"])
 def test_smoke_writer_reads_back(tmp_path, spectrum):
-    """``chip_smoke.write_measurement_set`` on 3 times x 7 antennas x 4
+    """``ms_writer.write_measurement_set`` on 3 times x 7 antennas x 4
     channels, in small tiles (several along rows, two along frequency
     for WEIGHT_SPECTRUM, a padded last one): every main-table column
     and subtable through both readers equals the arrays written."""
@@ -265,9 +258,9 @@ def test_smoke_writer_reads_back(tmp_path, spectrum):
         tmp_path / "small.vz", num_times=3, num_antennas=7,
         channel_frequencies=np.linspace(1.0e9, 1.1e9, 4),
         weight_spectrum=spectrum, seed=5)
-    columns = chip_smoke.vz_columns(vz)
+    columns = ms_writer.vz_columns(vz)
     ms = tmp_path / "small.ms"
-    tiles = chip_smoke.write_measurement_set(ms, columns, tile_bytes=1024)
+    tiles = ms_writer.write_measurement_set(ms, columns, tile_bytes=1024)
     assert len(columns["uvw"]) == 63
     assert tiles["DATA"] == (4, 4, 8) and tiles["UVW"] == (3, 42)
     if spectrum:

@@ -2,17 +2,19 @@
 The schedule of kernels B1 (``csrc/grid.cu``) and B3 (``csrc/degrid.cu``)
 held on the CPU, where no CUDA kernel runs.
 
-* (a) The work lists. B3's (``ops/gridder.py:tile_chunks``): every
-  active block of a plane group in exactly one chunk, one patch origin
-  per chunk, consecutive blocks, at most R a chunk; the split flag on
-  every chunk of a tile that has more than one, and the edge flag on
-  exactly the tiles whose patch holds an alloc row or column in
-  [0, 2W) or [N, N + 2W). B1's (``ops/gridder.py:grid_chunks``): the
+* (a) The work lists. B3's (``ops/gridder.py:tile_chunks``, (first,
+  count) rows): every active block of a plane group in exactly one
+  chunk, one patch origin per chunk, consecutive blocks, at most R a
+  chunk, heaviest first. B1's (``ops/gridder.py:grid_chunks``): the
   destination rectangles partition the periodic grid, at most tile_x
   rows and, where a run reaches them, ``grid_piece_cols`` columns (the
   kernel's shared planes) and at most N - W + 1 rows and columns (so no
   footprint meets one on both sides); each lists, in
   run order, every tile run whose patch reaches it after the fold.
+  Both are built once per plan (``ops/gridder.py:work_lists``), across
+  staging and the invert and predict builders, which launch the staged
+  tables' rows; a staging holds only the lists of the passes it
+  stages.
 * (b) A torch model of B1's schedule: per chunk, per source run in
   order, each visibility's candidate footprint (the kernel's window:
   the W cells after floor(pos - W/2), clipped to the patch) lands at
@@ -105,6 +107,27 @@ def problem(request):
     return {"name": request.param, "plan": plan, "port": port_plan,
             "R": R, "packed4": jpg.pack_plan_columns(plan), "re": re,
             "im": im, "grids": grids, "uvw": uvw, "freqs": freqs}
+
+
+def _chunk_tiles(plan, ids, chunks):
+    """Per row of a B3 table, from block origins and (first, count)
+    alone: its tile's key, whether the tile's run is split over more
+    than one chunk, and whether the tile's patch holds an alloc row or
+    column in [0, 2W) or [N, N + 2W) (an edge tile: rows and columns
+    the wrap fold moves or targets)."""
+    N, W = plan.ngrid, plan.support
+    moved = set(range(2 * W)) | set(range(N, N + 2 * W))
+    first = ids[chunks[:, 0]]
+    key = plan.block_ox[first].astype(np.int64) * 10**6 + plan.block_oy[
+        first]
+    split = np.array([int((key == k).sum()) > 1 for k in key], bool)
+    edge = np.array([
+        bool(moved & set(range(int(plan.block_ox[b]),
+                               int(plan.block_ox[b]) + plan.patch_x)))
+        or bool(moved & set(range(int(plan.block_oy[b]),
+                                  int(plan.block_oy[b]) + plan.patch_y)))
+        for b in first], bool)
+    return key, split, edge
 
 
 def _group_inputs(p, k, builder=tg.tile_chunks):
@@ -238,7 +261,7 @@ def degrid_model(plan, packed, grids, ids, chunks, w_g):
     """B3's schedule: (2, num_vis) slot contributions of one group."""
     N, G = plan.ngrid, len(w_g)
     acc = torch.zeros((2, plan.num_vis))
-    for first, count, _ in chunks.tolist():
+    for first, count in chunks.tolist():
         slots, ox, oy = _chunk_slots(plan, ids, first, count)
         prow, pcol = _periodic(plan, ox, oy)
         window = grids[:, prow[:, None], pcol[None, :]]  # modular rows/cols
@@ -277,33 +300,18 @@ def test_tile_chunks_hold_each_active_block_once(problem, R):
     plan = problem["port"]
     for ids in tg.group_active_blocks(plan):
         chunks = tg.tile_chunks(plan, ids, R)
-        assert chunks.dtype == np.int32 and chunks.shape[1] == 3
-        seen = np.concatenate([np.arange(f, f + c) for f, c, _ in chunks])
+        assert chunks.dtype == np.int32 and chunks.shape[1] == 2
+        seen = np.concatenate([np.arange(f, f + c) for f, c in chunks])
         np.testing.assert_array_equal(np.sort(seen), np.arange(len(ids)))
         assert chunks[:, 1].min() >= 1 and chunks[:, 1].max() <= R
         key = plan.block_ox[ids].astype(np.int64) * 10**6 + plan.block_oy[ids]
-        for first, count, flags in chunks:
+        for first, count in chunks:
             assert len(set(key[first : first + count])) == 1
-            same_tile = int((key[chunks[:, 0]] == key[first]).sum())
-            assert bool(flags & tg.CHUNK_SPLIT) == (same_tile > 1)
         # Runs: a tile's active blocks are consecutive ids of the group.
         runs = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
         assert len(runs) == len(np.unique(key))
-        work = [plan.block_len[ids[f : f + c]].sum() for f, c, _ in chunks]
+        work = [plan.block_len[ids[f : f + c]].sum() for f, c in chunks]
         assert work == sorted(work, reverse=True)
-
-
-def test_edge_flag_follows_the_wrap_rule(problem):
-    plan = problem["port"]
-    N, W = plan.ngrid, plan.support
-    moved = set(range(2 * W)) | set(range(N, N + 2 * W))
-    for ids in tg.group_active_blocks(plan):
-        for first, _, flags in tg.tile_chunks(plan, ids, problem["R"]):
-            b = ids[first]
-            ox, oy = int(plan.block_ox[b]), int(plan.block_oy[b])
-            edge = bool(moved & set(range(ox, ox + plan.patch_x))) or bool(
-                moved & set(range(oy, oy + plan.patch_y)))
-            assert bool(flags & tg.CHUNK_EDGE) == edge
 
 
 @pytest.mark.parametrize("R", [1, 2, 8])
@@ -407,18 +415,20 @@ def test_plans_cross_the_edge_and_split_the_hot_tile(problem):
     uvw, freqs = problem["uvw"], problem["freqs"]
     u = np.abs(np.multiply.outer(uvw[:, 0], freqs / tplan.SPEED_OF_LIGHT))
     v = np.abs(np.multiply.outer(uvw[:, 1], freqs / tplan.SPEED_OF_LIGHT))
-    tables = [tg.tile_chunks(plan, ids, problem["R"])
-              for ids in tg.group_active_blocks(plan)]
-    flags = np.concatenate([c[:, 2] for c in tables])
+    groups = tg.group_active_blocks(plan)
+    tables = [tg.tile_chunks(plan, ids, problem["R"]) for ids in groups]
+    facts = [_chunk_tiles(plan, ids, c) for ids, c in zip(groups, tables)]
+    split = np.concatenate([f[1] for f in facts])
+    edge = np.concatenate([f[2] for f in facts])
     if problem["name"] in ("wrap", "edge"):
         assert max(u.max(), v.max()) / plan.du > N / 2 - W
         # Footprint cells in the rows and columns the fold moves.
         x0, y0 = plan.x0[plan.order < plan.num_vis_data], plan.y0[
             plan.order < plan.num_vis_data]
         assert ((x0 < W) | (x0 > N) | (y0 < W) | (y0 > N)).any()
-        assert (flags & tg.CHUNK_EDGE).any()
+        assert edge.any()
     if problem["name"] == "edge":
-        assert (flags == 0).any()  # interior tiles take plain stores
+        assert (~edge & ~split).any()  # interior tiles, each one chunk
     if problem["name"].startswith("tiny"):
         # Every patch's columns cover the whole period, and the N - W + 1
         # rule cuts B1's rectangles narrower than the shared planes.
@@ -428,16 +438,92 @@ def test_plans_cross_the_edge_and_split_the_hot_tile(problem):
             grid = tg.grid_chunks(plan, ids, problem["R"])
             assert grid[:, 3].max() <= N - W + 1 < N
     if problem["name"] == "split":
-        ids, chunks = tg.group_active_blocks(plan)[0], tables[0]
+        ids, chunks = groups[0], tables[0]
         key = plan.block_ox[ids].astype(np.int64) * 10**6 + plan.block_oy[ids]
         tiles, size = np.unique(key, return_counts=True)
         hot = tiles[np.argmax(size)]
         assert size.max() > problem["R"]
-        mine = chunks[key[chunks[:, 0]] == hot]
-        assert len(mine) > 1 and (mine[:, 2] & tg.CHUNK_SPLIT).all()
+        chunk_key, chunk_split, _ = facts[0]
+        mine = chunk_key == hot
+        assert mine.sum() > 1 and chunk_split[mine].all()
         # B1 cuts the hot tile's rectangle into column pieces.
         grid = tg.grid_chunks(plan, ids, problem["R"])
         hot_first = int(np.flatnonzero(key == hot)[0])
         pieces = grid[(grid[:, 4::2] == hot_first).any(axis=1)
                       & (grid[:, 5::2] > 0).any(axis=1)]
         assert len(np.unique(pieces[:, 0])) < len(pieces)
+
+
+def _counted(monkeypatch, name, calls):
+    """Count the calls of ``ops/gridder.py``'s ``name`` in ``calls``."""
+    real = getattr(tg, name)
+
+    def counted(*args, **kwargs):
+        calls[name] += 1
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tg, name, counted)
+
+
+def _staged_rows(table) -> int:
+    """Rows of a staged per-group table before its zero padding."""
+    return int((np.asarray(table) != 0).any(axis=1).sum())
+
+
+def test_work_lists_are_built_once_and_launched_as_staged(problem,
+                                                          monkeypatch):
+    """Across staging (``slot_plan_host_arrays``), ``build_invert`` and
+    ``build_predict`` a plan's active blocks are found once and each
+    group's B1 and B3 lists built once; each builder launches, group by
+    group, the staged tables' rows and active blocks."""
+    plan = tplan.plan_from_fields(dataclasses.asdict(problem["plan"]))
+    calls = {"group_active_blocks": 0, "grid_chunks": 0, "tile_chunks": 0}
+    for name in calls:
+        _counted(monkeypatch, name, calls)
+    launched = {"grid": [], "tile": []}
+    grid_planes, degrid_planes = tg.grid_planes, tg.degrid_planes
+
+    def grid(*args, chunks, **kwargs):
+        launched["grid"].append((int(args[7].shape[0]), int(chunks.shape[0])))
+        return grid_planes(*args, chunks=chunks, **kwargs)
+
+    def degrid(*args, chunks, **kwargs):
+        launched["tile"].append((int(args[6].shape[0]), int(chunks.shape[0])))
+        return degrid_planes(*args, chunks=chunks, **kwargs)
+
+    monkeypatch.setattr(tg, "grid_planes", grid)
+    monkeypatch.setattr(tg, "degrid_planes", degrid)
+    host = tg.slot_plan_host_arrays(plan, "cpu", invert=True, predict=True)
+    arrays = tg.stage_arrays(host, "cpu")
+    slots = torch.zeros(plan.num_vis)
+    image = tg.build_invert(plan)(arrays, slots, slots)
+    tg.build_predict(plan)(arrays, torch.zeros_like(image))
+    G = plan.num_groups
+    assert calls == {"group_active_blocks": 1, "grid_chunks": G,
+                     "tile_chunks": G}
+    for key, table in (("grid", "group_grid_chunks"),
+                       ("tile", "group_chunks")):
+        assert len(launched[key]) == G
+        for k, (blocks, rows) in enumerate(launched[key]):
+            assert blocks == int((host["group_blocks"][k] >= 0).sum())
+            assert rows == _staged_rows(host[table][k]) > 0
+
+
+@pytest.mark.parametrize("passes", ["invert", "predict"])
+def test_staging_holds_only_its_passes_work_lists(passes):
+    """The compact (invert-only) staging holds no B3 table and builds no
+    B3 list; a predict-only staging holds no B1 table and builds no B1
+    list."""
+    times, antennas, channels, npix, asec, _ = PLANS["edge"]
+    uvw, freqs = _uv(times, antennas, channels)
+    pixel = float(np.sin(np.radians(asec / 3600.0)))
+    plan = tplan.make_plan(uvw, freqs, npix, pixel)
+    if passes == "invert":
+        host = tg.compact_plan_host_arrays(plan, uvw, freqs, "cpu")
+    else:
+        host = tg.slot_plan_host_arrays(plan, "cpu", invert=False)
+    assert ("group_grid_chunks" in host) == (passes == "invert")
+    assert ("group_chunks" in host) == (passes == "predict")
+    built = tg.work_lists(plan)
+    assert ("grid" in built) == (passes == "invert")
+    assert ("tile" in built) == (passes == "predict")

@@ -16,13 +16,13 @@ JAX package's: the port of ``tests/test_ms_ingest.py``.
   writes its VZ.
 """
 
-import importlib.util
 import json
 import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
+from helpers import ms_writer
 
 # The JAX tests' stubbed python-casacore and fake MS (24 rows, 4
 # channels): the stub serves both packages' ``_CasacoreBackend``.
@@ -40,13 +40,6 @@ from ska_sdp_cip_tpu_torch.io.ms_ingest import ms_to_vz
 from ska_sdp_cip_tpu_torch.io.synth import make_synthetic_dataset
 
 REPO = Path(__file__).resolve().parent.parent
-
-
-# The smoke's MS writer (``write_measurement_set``) and helpers.
-_spec = importlib.util.spec_from_file_location("chip_smoke",
-                                               REPO / "chip_smoke.py")
-chip_smoke = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(chip_smoke)
 
 
 def test_module_is_a_verbatim_copy():
@@ -140,16 +133,16 @@ def test_native_ms_to_vz_matches_jax(tmp_path, no_casacore, spectrum,
                                 num_antennas=12, weight_spectrum=spectrum,
                                 seed=8)
     ms = tmp_path / "src.ms"
-    chip_smoke.write_measurement_set(ms, chip_smoke.vz_columns(vz),
-                                     tile_bytes=2048)
+    ms_writer.write_measurement_set(ms, ms_writer.vz_columns(vz),
+                                    tile_bytes=2048)
     assert type(tvd.VisibilityReader(ms)._metadata.backend) is (
         tvd._NativeMSBackend)
     kw = {} if row_block is None else {"row_block": row_block}
     ours = ms_to_vz(ms, tmp_path / "ours.vz", **kw)
     _same_vz(ours, jax_ms_to_vz(ms, tmp_path / "ref.vz", **kw))
     for name in sorted(p.name for p in vz.glob("*.npy")):
-        assert chip_smoke.bit_equal(np.load(ours / name),
-                                    np.load(vz / name)), name
+        assert ms_writer.bit_equal(np.load(ours / name),
+                                   np.load(vz / name)), name
 
 
 def _options(parser):

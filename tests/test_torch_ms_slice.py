@@ -1,7 +1,7 @@
 """
 The imaging and reorder CLIs of the port on a MeasurementSet v2, on
 the CPU (``--device cpu``; the JAX side on its XLA path). The MS is a
-synthetic dataset's columns written by ``chip_smoke.write_measurement_set``
+synthetic dataset's columns written by ``tests/helpers/ms_writer.py``
 (4 times x 12 antennas = 264 rows x 4 channels) and read by the
 casacore-free ``_NativeMSBackend`` on both sides.
 
@@ -16,12 +16,10 @@ casacore-free ``_NativeMSBackend`` on both sides.
   interval's reader decodes the MS in its worker).
 """
 
-import importlib.util
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
+from helpers import ms_writer
 
 from ska_sdp_cip_tpu.apps import pipeline_app as japp
 from ska_sdp_cip_tpu_torch.apps import pipeline_app as tapp
@@ -30,16 +28,8 @@ from ska_sdp_cip_tpu_torch.io.synth import make_synthetic_dataset
 
 torch.set_num_threads(1)
 
-REPO = Path(__file__).resolve().parent.parent
 NPIX, ASEC = 128, 30.0
 IMAGE_RTOL = 2 * 1.03e-5  # tests/test_torch_pipeline_app.py
-
-
-# The smoke's MS writer (``write_measurement_set``) and helpers.
-_spec = importlib.util.spec_from_file_location("chip_smoke",
-                                               REPO / "chip_smoke.py")
-chip_smoke = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture(scope="module")
@@ -47,8 +37,8 @@ def small(tmp_path_factory) -> dict:
     vz = make_synthetic_dataset(tmp_path_factory.mktemp("slice") / "small.vz",
                                 num_times=4, num_antennas=12, seed=1234)
     ms = vz.with_suffix(".ms")
-    chip_smoke.write_measurement_set(ms, chip_smoke.vz_columns(vz),
-                                     tile_bytes=4096)
+    ms_writer.write_measurement_set(ms, ms_writer.vz_columns(vz),
+                                    tile_bytes=4096)
     return {"vz": vz, "ms": ms}
 
 
@@ -108,4 +98,4 @@ def test_reorder_cli_on_ms_writes_the_vz_tiles(small, tmp_path,
         a, b = np.load(ours), np.load(ref)
         assert sorted(a.files) == sorted(b.files), ours.name
         for key in b.files:
-            assert chip_smoke.bit_equal(a[key], b[key]), (ours.name, key)
+            assert ms_writer.bit_equal(a[key], b[key]), (ours.name, key)

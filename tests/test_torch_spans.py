@@ -53,7 +53,7 @@ IMAGE_SPANS = {
     "stage.upload": "stage",
     "stage.assemble": "stage",
     "invert": "image",
-    "invert.work_lists": "invert",
+    "invert.work_lists": "stage.host_arrays",
     "invert.taper": "invert",
     "invert.group": "invert",
     "download": "image",
@@ -136,11 +136,11 @@ def test_dirty_image_spans_and_counters(recorder, observation):
     assert counters["slots"] == plan.num_vis
     assert counters["planes"] == plan.nplanes
     assert counters["groups"] == plan.num_groups
-    blocks = [len(ids) for ids in gridder.group_active_blocks(plan)]
+    lists = gridder.work_lists(plan, invert=True)
+    blocks = [len(ids) for ids in lists["blocks"]]
     assert counters["active_blocks"] == sum(blocks)
     assert counters["slot_visits"] == sum(blocks) * plan.block
-    assert counters["b1_chunks"] == sum(
-        len(c) for c in gridder.group_grid_chunks(plan))
+    assert counters["b1_chunks"] == sum(len(c) for c in lists["grid"])
 
     host = gridder.compact_plan_host_arrays(plan, uvw, FREQS, "cpu")
     weighted = (vis * weights).astype(np.complex64).ravel()
@@ -204,7 +204,7 @@ def test_gradient_and_minor_spans(recorder, observation):
 
     counters = recorder.counters
     assert counters["minor_iterations"] == 5
-    blocks = [len(ids) for ids in gridder.group_active_blocks(op.plan)]
+    blocks = [len(ids) for ids in gridder.work_lists(op.plan)["blocks"]]
     assert counters["slot_visits"] == sum(blocks) * op.plan.block
     useful = _reference_useful_visits(op.plan)
     assert counters["useful_visits"] == useful

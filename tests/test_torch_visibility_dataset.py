@@ -1,6 +1,6 @@
 """
 The port's ``VisibilityReader`` on a VZ dataset and on a MeasurementSet
-v2 of the same columns (written by ``chip_smoke.write_measurement_set``,
+v2 of the same columns (written by ``tests/helpers/ms_writer.py``,
 read by the casacore-free ``_NativeMSBackend``): the ports of
 ``tests/test_visibility_dataset.py`` and ``tests/test_chunked_read.py``.
 
@@ -17,12 +17,12 @@ read by the casacore-free ``_NativeMSBackend``): the ports of
 Datasets: 4 times x 12 antennas (264 rows) x 4 channels.
 """
 
-import importlib.util
 import pickle
 from pathlib import Path
 
 import numpy as np
 import pytest
+from helpers import ms_writer
 from helpers.casacore_writer import _write_fake_table
 
 from ska_sdp_cip_tpu.io.casacore_tables import TP_DOUBLE, TP_INT
@@ -41,24 +41,16 @@ from ska_sdp_cip_tpu_torch.io.visibility_dataset import (
 )
 from ska_sdp_cip_tpu_torch.utils.chunking import balanced_chunk_bounds
 
-REPO = Path(__file__).resolve().parent.parent
 FORMATS = ["vz", "ms"]
 CHUNKINGS = [(1, 4), (2, 3), (7, 1)]
 COLUMNS = ["visibilities", "flags", "weights", "uvw", "channel_frequencies",
            "time"]
 
 
-# The smoke's MS writer (``write_measurement_set``) and helpers.
-_spec = importlib.util.spec_from_file_location("chip_smoke",
-                                               REPO / "chip_smoke.py")
-chip_smoke = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(chip_smoke)
-
-
 def _as_ms(vz: Path) -> Path:
     ms = vz.with_suffix(".ms")
-    chip_smoke.write_measurement_set(ms, chip_smoke.vz_columns(vz),
-                                     tile_bytes=4096)
+    ms_writer.write_measurement_set(ms, ms_writer.vz_columns(vz),
+                                    tile_bytes=4096)
     return ms
 
 
@@ -190,7 +182,7 @@ def test_layout_validation_rejects_multi_spw(tmp_path, fmt):
 def test_ms_reads_equal_vz_reads(datasets, column):
     ms, vz = VisibilityReader(datasets["ms"]), VisibilityReader(
         datasets["vz"])
-    assert chip_smoke.bit_equal(getattr(ms, column)(), getattr(vz, column)())
+    assert ms_writer.bit_equal(getattr(ms, column)(), getattr(vz, column)())
 
 
 @pytest.mark.parametrize("column", COLUMNS)
@@ -215,6 +207,6 @@ def test_chunked_read_equals_whole_read(reader, column, row_chunks,
             else:
                 expected = whole[r0:r1, c0:c1]
             assert np.array_equal(got, expected), (column, index)
-            assert chip_smoke.bit_equal(got, getattr(jchunks[index],
-                                                     column)())
+            assert ms_writer.bit_equal(got, getattr(jchunks[index],
+                                                    column)())
             index += 1
