@@ -19,7 +19,9 @@ then runs in slot space with no gather between predict and invert.
 ``residual_gradient`` is the root span ``gradient`` over ``predict``,
 ``residual`` and ``invert`` (``utils/task_metrics.py``), and counts
 ``useful_visits`` (``ops/gridder.py:useful_slot_visits``), to hold
-against the invert's ``slot_visits``.
+against the invert's ``slot_visits``, and ``register_hits`` and
+``register_adds`` (``ops/gridder.py:register_reuse``): how often B1's
+owners keep a cell's sum in registers from one slot to the next.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..ops.gridder import (
     _prepare_sorted_vis,
     build_invert,
     build_predict,
+    register_reuse,
     resolve_device,
     slot_duplicate_pairs,
     slot_group_sum,
@@ -250,6 +253,9 @@ class MeasurementOperator:
             # Worked out once a plan (one host read), outside the span.
             count("useful_visits", useful_slot_visits(self.plan,
                                                       self.arrays))
+            hits, adds = register_reuse(self.plan, self.arrays)
+            count("register_hits", hits)
+            count("register_adds", adds)
         with span("gradient"):
             slots = self.stage(vis)
             with span("predict"):

@@ -228,7 +228,7 @@ GRID_BATCH = 128
 
 #: Widest B1 destination rectangle that runs reach, in columns
 #: (``ops/gridder.py:grid_chunks`` cuts wider ones): the columns of the
-#: planes a warp holds in shared memory.
+#: rectangle's planes that a thread block holds in shared memory.
 GRID_PIECE_COLS = 64
 
 
@@ -238,14 +238,15 @@ def grid_piece_cols(plan: GridderPlan) -> int:
 
 
 def _grid_shared_bytes(plan: GridderPlan, G: int) -> int:
-    """B1's shared memory (``csrc/grid.cu``'s Layout): two buffers of
-    GRID_BATCH staged visibilities (vis * amps, footprint start, W + W
-    factors), a window's selected slots with their ballots and offsets,
-    and the 2G planes of a (tile_x, :func:`grid_piece_cols`) rectangle,
-    rows that width + W floats apart."""
+    """B1's shared memory (``csrc/grid.cu``'s Layout): a ring of two
+    buffers of GRID_BATCH staged visibilities (vis * amps, packed
+    footprint start, W + W factors) with their fills, a window's
+    selected slots with their ballots and offsets, and the 2G planes of
+    a (tile_x, :func:`grid_piece_cols`) rectangle, rows that width + W
+    floats apart."""
     W = plan.support
     floats = 2 * GRID_BATCH * (2 * G + 1 + 2 * W + 1)
-    floats += GRID_WINDOW + 2 * (GRID_WINDOW // 32) + 1
+    floats += GRID_WINDOW + 2 * (GRID_WINDOW // 32) + 1 + 4
     floats += 2 * G * plan.tile_x * (grid_piece_cols(plan) + W)
     return 4 * floats
 

@@ -250,14 +250,57 @@ def _useful_slot_visits(plan: GridderPlan, arrays: dict) -> int:
     return int((bins * groups).sum())
 
 
-#: Blocks per chunk, the knob of both work lists: B3 cuts a tile run
-#: into chunks of at most this many blocks (:func:`tile_chunks`), and B1
-#: cuts a destination rectangle into one column piece per this many
-#: blocks its sources hold (:func:`grid_chunks`), so that the uv
+def register_reuse(plan: GridderPlan, arrays: dict) -> tuple:
+    """
+    ``(register_hits, register_adds)``: how often B1's owners
+    (``csrc/grid.cu``) keep a cell's sum in registers from one slot to
+    the next, counted on the plan. A slot's footprint starts at
+    floor(pos - W/2) in each axis; from one real slot of a block to the
+    next, (W - min(W, |d_row|)) * (W - min(W, |d_col|)) of its W^2 owner
+    cells stay where they were, and their sums carry over. Hits are that
+    over every real slot after a block's first (padding slots, beyond
+    ``block_len``, hold nothing), adds W^2 a real slot. A plan-level
+    count: it ignores how the work list's rectangles clip a footprint
+    and which slots a rectangle selects, and counts each block once,
+    whatever the plane groups it is active on. Read from the staged
+    ``packed`` positions and ``block_len`` on their device, in slices
+    of at most 2^24 slots, with one host read, and kept on the plan.
+    """
+    return _kept(plan, "_register_reuse",
+                 lambda: _register_reuse(plan, arrays))
+
+
+def _register_reuse(plan: GridderPlan, arrays: dict) -> tuple:
+    W, B = plan.support, plan.block
+    packed, block_len = arrays["packed"], arrays["block_len"]
+    lane = torch.arange(1, B, device=packed.device)
+    hits = torch.zeros((), dtype=torch.int64, device=packed.device)
+    step = max(1, (1 << 24) // B) * B  # whole blocks
+    for a in range(0, plan.num_vis, step):
+        n = min(step, plan.num_vis - a)
+        kept = []
+        for row in packed[:2, a : a + n]:
+            start = torch.floor(row - 0.5 * W).to(torch.int32).view(-1, B)
+            kept.append(W - (start[:, 1:] - start[:, :-1]).abs().clamp_(max=W))
+        real = lane[None, :] < block_len[a // B : (a + n) // B, None]
+        hits += (kept[0] * kept[1] * real).sum()
+    hits, slots = torch.stack([hits, block_len.sum()]).tolist()
+    return int(hits), W * W * int(slots)
+
+
+#: Blocks per chunk of B3's work list: B3 cuts a tile run into chunks of
+#: at most this many blocks (:func:`tile_chunks`), so that the uv
 #: centre's tile (83 blocks in the bench plan's largest group) does not
-#: hold one SM. Picked on the card: ``chip_smoke.py`` times the bench
-#: group's B1 and B3 at R = 2 to 32 (``chunk_sweep_ms``).
+#: hold one SM; also the fewest blocks a B1 column piece is cut at
+#: (:func:`grid_chunk_blocks`). Picked on the card: ``chip_smoke.py``
+#: times the bench group's B1 and B3 at R = 2 to 32 (``chunk_sweep_ms``).
 CHUNK_BLOCKS = 8
+
+#: B1's column pieces (:func:`grid_chunk_blocks`): a plane group's busy
+#: rectangles are cut into about this many pieces, at
+#: :data:`CHUNK_BLOCKS` to :data:`GRID_CHUNK_BLOCKS` blocks a piece.
+GRID_PIECES = 1024
+GRID_CHUNK_BLOCKS = 128
 
 #: Fields of a B1 chunk row before its sources: the destination
 #: rectangle (row0, nrows, col0, ncols) on the periodic grid.
@@ -344,8 +387,24 @@ def _interval_bands(start, length: int, edges: np.ndarray,
     return key // nbands, key % nbands, np.bincount(inverse, overlap)
 
 
+def grid_chunk_blocks(num_blocks: int) -> int:
+    """
+    Blocks a B1 column piece is cut at for a plane group of
+    ``num_blocks`` active blocks: about :data:`GRID_PIECES` pieces a
+    group, at :data:`CHUNK_BLOCKS` to :data:`GRID_CHUNK_BLOCKS` blocks
+    each. Each piece selects from every slot of its sources, so a dense
+    group (the cycles' 120,000 blocks a group) wants few wide pieces,
+    and a sparse one (the bench group's 6,961) enough pieces to keep the
+    card's 132 SMs busy to the end. On an H100 (PERF.md): B1 over the
+    cycle cell's invert 246 / 195 / 165 / 164 ms at 8 / 64 / 128 / 256
+    blocks a piece, over the bench group 3.4 / 5.3 / 5.2 / 5.2 ms.
+    """
+    return int(np.clip(-(-num_blocks // GRID_PIECES), CHUNK_BLOCKS,
+                       GRID_CHUNK_BLOCKS))
+
+
 def grid_chunks(plan: GridderPlan, ids,
-                chunk_blocks: int = CHUNK_BLOCKS) -> np.ndarray:
+                chunk_blocks: int | None = None) -> np.ndarray:
     """
     The B1 work list of one plane group, over ``ids``, the group's
     sorted active block ids: (n, 4 + 2S) int32 rows (row0, nrows, col0,
@@ -366,7 +425,8 @@ def grid_chunks(plan: GridderPlan, ids,
     column pieces of at least :data:`MIN_PIECE_COLS` and at most
     :func:`grid_piece_cols` columns (the kernel's shared planes), one
     per ``chunk_blocks`` blocks its sources hold (each counted by the
-    share of its patch inside the rectangle); pieces come heaviest
+    share of its patch inside the rectangle; by default
+    :func:`grid_chunk_blocks` of the group); pieces come heaviest
     first. The rest of the grid follows as source-free rectangles of at
     most :data:`ZERO_CHUNK_COLS` columns, which the kernel fills with
     zeros.
@@ -375,8 +435,10 @@ def grid_chunks(plan: GridderPlan, ids,
     that small, bands and pieces are cut narrower), so no footprint
     meets one on both sides: the kernel keeps a footprint's start
     rectangle-local, in (-W, nrows) x (-W, ncols), which is exact then
-    and fits its 16-bit fields at any N.
+    and fits its byte fields at any N.
     """
+    if chunk_blocks is None:
+        chunk_blocks = grid_chunk_blocks(len(ids))
     if chunk_blocks < 1:
         raise ValueError(f"chunk_blocks must be >= 1, got {chunk_blocks}")
     N, W = plan.ngrid, plan.support

@@ -51,11 +51,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _small(seed=23, num_times=3, num_antennas=10, num_channels=2):
+def _small(seed=23, num_times=3, num_antennas=10, num_channels=2,
+           top_hz=1.07e9):
     rng = np.random.default_rng(seed)
     uvw, _ = synthetic_uvw(num_times, num_antennas, max_baseline_m=5000.0,
                            seed=seed)
-    freqs = np.linspace(1.0e9, 1.07e9, num_channels)
+    freqs = np.linspace(1.0e9, top_hz, num_channels)
     shape = (len(uvw), num_channels)
     vis = (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(
         np.complex64
@@ -64,15 +65,22 @@ def _small(seed=23, num_times=3, num_antennas=10, num_channels=2):
     return uvw, freqs, vis, wgt
 
 
-#: B1/B3 plans (``tests/test_torch_grid_schedule.py``'s): name ->
-#: (problem size, npix, asec, plan options, blocks a chunk). "small":
+#: B1/B3 plans (``tests/test_torch_grid_schedule.py``'s and more): name ->
+#: (problem size: times, antennas, channels and the top channel's Hz,
+#: 1.07e9 if not given; npix, asec, plan options, blocks a chunk). "small":
 #: every tile an edge tile; "edge": footprints across the periodic edge
 #: beside interior tiles; "split": hot tiles split over chunks of two
 #: (B3) and over column pieces (B1); "tiny64", "tiny32" and "tiny72":
 #: grids of 64, 32 and 72 cells, narrower than a patch (48 x 128), whose
 #: rectangles B1 cuts to N - W + 1 cells; "wide": a 32768^2 grid
 #: (16384 px at 0.5 asec) with 480 visibilities; "eps3", "eps5" and
-#: "eps5_sigma15": supports 5, 7 and 10, B1's generic kernel.
+#: "eps5_sigma15": supports 5, 7 and 10, B1's generic kernel; "runs":
+#: 128 channels over a 2% band at 5 asec (support 8), the planner's
+#: channel-fastest order, so consecutive slots share a footprint start
+#: for tens of slots and B1's owners keep their sums in registers;
+#: "runs_edge": the same band at 30 asec and epsilon 1e-5 (support 7,
+#: the generic kernel), whose runs cross rectangle edges and the
+#: periodic edge.
 GRID_PLANS = {
     "small": ((3, 10, 2), 96, 40.0, {}, None),
     "edge": ((4, 16, 3), 256, 20.0, {}, None),
@@ -85,6 +93,8 @@ GRID_PLANS = {
     "eps5": ((4, 16, 3), 256, 20.0, {"epsilon": 1e-5}, None),
     "eps5_sigma15": ((4, 16, 3), 256, 20.0,
                      {"epsilon": 1e-5, "sigma": 1.5}, None),
+    "runs": ((4, 16, 128, 1.02e9), 256, 5.0, {"sigma": 1.5}, None),
+    "runs_edge": ((4, 16, 128, 1.02e9), 256, 30.0, {"epsilon": 1e-5}, None),
 }
 
 

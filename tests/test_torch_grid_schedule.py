@@ -19,8 +19,10 @@ held on the CPU, where no CUDA kernel runs.
   order, each visibility's candidate footprint (the kernel's window:
   the W cells after floor(pos - W/2), clipped to the patch) lands at
   row (ox + r - W) mod N and column (oy + c - W) mod N; the cells inside
-  the chunk's rectangle are added in slot order by the warp that owns
-  the row (bands of 32 // W rows), and the rectangle is stored once.
+  the chunk's rectangle are added in slot order by their owner, the one
+  of W^2 that holds the cell's (row mod W, column mod W), as a register
+  sum while the owner's cell stays the same, added to the plane when it
+  changes and at the chunk's end; the rectangle is stored once.
   Each footprint's start is kept rectangle-local, a start within W - 1
   cells below N taken as one that wraps into the rectangle's first rows
   or columns: exact because the rectangles that runs reach span at most
@@ -30,7 +32,7 @@ held on the CPU, where no CUDA kernel runs.
   held against ``_fold_wraps o grid_planes_reference`` and against the
   JAX group kernel in interpret mode folded by the JAX package's
   ``_fold_wraps``, at 1e-5 of each plane's max. Run with its chunks and
-  each chunk's warps in shuffled orders (seeded) it gives the same
+  each chunk's owners in shuffled orders (seeded) it gives the same
   bits: the order of every cell's sum is fixed by the plan and the work
   list, not by the order the work runs in.
 * (c) The same for B3: each chunk's windows read from the periodic grid
@@ -208,20 +210,23 @@ def _grid_staged(plan, packed, re, im, first, count, ids, w_g, row0, col0):
 def grid_model(plan, packed, re, im, ids, chunks, w_g, seed=None):
     """B1's schedule on the periodic grid (see the module docstring): a
     chunk's visibilities whose footprint meets its rectangle, in slot
-    order; warp w of the chunk owns rows [w * H, w * H + H), H = 32 //
-    W, and adds each footprint cell in those rows, one visibility after
-    the other (amps not all zero), into the rectangle's planes, which
-    are stored once. With a ``seed`` the chunks, and each chunk's warps,
+    order (amps not all zero). Owner (i, j) holds every cell of the
+    rectangle whose rectangle-local (row mod W, column mod W) is (i, j):
+    of a footprint starting at (lr, lc), row di = (i + (-lr mod W)) mod
+    W and column dj = (j + (-lc mod W)) mod W, the staged start's byte
+    fields. It sums its cell's products while the cell stays the same,
+    adds the sum to the planes when the cell changes and at the chunk's
+    end, and the rectangle is stored once. (The kernel's owner sets,
+    which split the planes between them, hold the same cells in the
+    same order.) With a ``seed`` the chunks, and each chunk's owners,
     run in a shuffled order. Raises unless the rectangles cover each
     cell once."""
     N, G, W = plan.ngrid, len(w_g), plan.support
-    band = 32 // W
     out = torch.full((2 * G, N, N), float("nan"))
     written = torch.zeros((N, N), dtype=torch.int64)
     rng = np.random.default_rng(seed)
     order = (rng.permutation(len(chunks)) if seed is not None
              else range(len(chunks)))
-    fi, fj = torch.meshgrid(torch.arange(W), torch.arange(W), indexing="ij")
     for n in order:
         row0, nrows, col0, ncols = chunks[n, :4].tolist()
         written[row0 : row0 + nrows, col0 : col0 + ncols] += 1
@@ -238,19 +243,24 @@ def grid_model(plan, packed, re, im, ids, chunks, w_g, seed=None):
             lr, lc, ax, ay, va = (torch.cat(x) for x in zip(*staged))
             keep = (lr < nrows) & (lc < ncols) & (va != 0).any(dim=1)
             lr, lc, ax, ay, va = (x[keep] for x in (lr, lc, ax, ay, va))
-            rows = lr[:, None, None] + fi[None]  # (vis, W, W)
-            cols = lc[:, None, None] + fj[None]
+            owners = torch.arange(W * W)
+            if seed is not None:
+                owners = owners[torch.from_numpy(rng.permutation(W * W))]
+            di = (owners[:, None] // W + (-lr) % W) % W  # (owner, vis)
+            dj = (owners[:, None] % W + (-lc) % W) % W
+            rows, cols = lr + di, lc + dj
             on = (rows >= 0) & (rows < nrows) & (cols >= 0) & (cols < ncols)
+            # Each owner's cells in slot order, owner after owner.
+            o, v = on.nonzero(as_tuple=True)
+            cell = (rows * ncols + cols)[o, v]
+            new = torch.ones_like(cell, dtype=torch.bool)
+            new[1:] = (cell[1:] != cell[:-1]) | (o[1:] != o[:-1])
+            run = torch.cumsum(new, 0) - 1
             # ax * (vis * amp) first, then * ay: the kernel's order.
-            val = (ax[:, None, :, None] * va[:, :, None, None]
-                   * ay[:, None, None, :])  # (vis, 2G, W, W)
-            warps = -(-nrows // band)
-            for w in (rng.permutation(warps) if seed is not None
-                      else range(warps)):
-                # Warp w's cells, one visibility after the other.
-                mine = on & (rows >= w * band) & (rows < (w + 1) * band)
-                patch.index_add_(1, (rows * ncols + cols)[mine],
-                                 val.permute(1, 0, 2, 3)[:, mine])
+            val = (ax[v, di[o, v]][:, None] * va[v]) * ay[v, dj[o, v]][:, None]
+            sums = torch.zeros((int(new.sum()), 2 * G))
+            sums.index_add_(0, run, val)  # a register sum a stay
+            patch.index_add_(1, cell[new], sums.T)  # added on leaving
         out[:, row0 : row0 + nrows, col0 : col0 + ncols] = patch.view(
             2 * G, nrows, ncols)
     assert bool((written == 1).all())
@@ -374,7 +384,7 @@ def test_grid_partition_model_matches_plain_and_jax(problem, k):
 @pytest.mark.parametrize("seed", [1, 2])
 @pytest.mark.parametrize("k", [0, 1, 2])
 def test_grid_model_is_bit_equal_in_shuffled_order(problem, k, seed):
-    """The chunks and each chunk's warps in a shuffled order give the
+    """The chunks and each chunk's owners in a shuffled order give the
     planes of the table's order, bit for bit."""
     port = problem["port"]
     t = torch.from_numpy
@@ -527,3 +537,56 @@ def test_staging_holds_only_its_passes_work_lists(passes):
     built = tg.work_lists(plan)
     assert ("grid" in built) == (passes == "invert")
     assert ("tile" in built) == (passes == "predict")
+
+
+def _register_reuse_loop(W, B, xpos, ypos, block_len):
+    """``ops/gridder.py:register_reuse`` as a plain loop over blocks and
+    their real slots."""
+    hits = slots = 0
+    for b, length in enumerate(block_len):
+        start = None
+        for s in range(b * B, b * B + int(length)):
+            here = (int(np.floor(xpos[s] - W / 2)),
+                    int(np.floor(ypos[s] - W / 2)))
+            if start is not None:
+                hits += ((W - min(W, abs(here[0] - start[0])))
+                         * (W - min(W, abs(here[1] - start[1]))))
+            start, slots = here, slots + 1
+    return hits, W * W * slots
+
+
+def test_register_reuse_counts_the_owner_cells_that_stay(problem):
+    """B1's plan-level register counters against a plain loop, on each
+    plan (``wrap``: every tile an edge tile, footprints across the
+    periodic edge)."""
+    plan = problem["port"]
+    packed = torch.from_numpy(np.ascontiguousarray(problem["packed4"][:3]))
+    arrays = {"packed": packed, "block_len": torch.from_numpy(
+        plan.block_len.astype(np.int32))}
+    got = tg.register_reuse(plan, arrays)
+    want = _register_reuse_loop(plan.support, plan.block, packed[0].numpy(),
+                                packed[1].numpy(), plan.block_len)
+    assert got == want
+    assert 0 < got[0] < got[1]
+    assert tg.register_reuse(plan, {}) == got  # kept on the plan
+
+
+def test_register_reuse_on_a_block_of_one_slot_and_padding():
+    """Hand-made slots: a block whose footprint stays, moves a cell and
+    jumps W or more; a block of one slot; a block of two real slots and
+    padding whose positions would count if read."""
+    W, B = 8, 4
+    xpos = [10.2, 10.9, 11.5, 30.0,   5.0, 99.0, 99.0, 99.0,
+            20.0, 23.5, 20.0, 20.0]
+    ypos = [40.0, 40.3, 47.9, 40.0,   7.0, 7.0, 7.0, 7.0,
+            60.0, 61.0, 60.0, 60.0]
+    block_len = [4, 1, 2]
+    plan = tplan.GridderPlan.__new__(tplan.GridderPlan)
+    plan.__dict__.update(support=W, block=B, order=np.zeros(12, np.int32))
+    arrays = {"packed": torch.tensor([xpos, ypos, [0.0] * 12]),
+              "block_len": torch.tensor(block_len, dtype=torch.int32)}
+    # Block 0: (6, 36) -> (6, 36): 64; -> (7, 43): 7 * 1; -> (26, 36): 0.
+    # Block 1: nothing. Block 2: (16, 56) -> (19, 57): 5 * 7.
+    want = (64 + 7 + 35, W * W * 7)
+    assert _register_reuse_loop(W, B, xpos, ypos, block_len) == want
+    assert tg.register_reuse(plan, arrays) == want

@@ -12,8 +12,8 @@ Grids outside the sizes the bench and production plans make, on the CPU.
   touch end to start); every rectangle that runs reach is at most tile_x
   x ``grid_piece_cols``; and every footprint that meets a rectangle
   starts, rectangle-local as the kernel keeps it, in (-W, tile_x) x
-  (-W, ``grid_piece_cols``), the range that makes the kernel's 16-bit
-  packing safe at any N.
+  (-W, ``grid_piece_cols``), the range that makes the kernel's byte
+  fields of a staged start safe at any N.
 * The w-taper correction computed in row slabs equals the one computed
   whole; a grid narrower than the support has no work list.
 """
