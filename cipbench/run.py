@@ -1,5 +1,6 @@
 """
-One run of one benchmark cell of ``ska_sdp_cip_tpu_torch`` on one card.
+One run of one benchmark cell of ``ska_sdp_cip_tpu_torch``, on the cards
+its ``chips`` names.
 
     python3 -m cipbench.run --workload csd3-10k.snapshot --seed 7 --seconds 40 --trace 0
 
@@ -17,8 +18,15 @@ loop for ``--seconds`` (one call after another, each synchronized),
 checks what the window produced against the plain reference, and prints
 one JSON line: the end-to-end metrics with ``--trace 0``, the per-layer
 ones with ``--trace 1`` (host spans around the program's functions and a
-``torch.profiler`` session over the window). It refuses to run without a
-card, and fails if JAX or the JAX package was loaded.
+``torch.profiler`` session over the window). It refuses to run without
+the cards the cell asks for, and fails if JAX or the JAX package was
+loaded.
+
+A cell of one chip runs in this one process, on ``cuda:0``, which prints
+the line. A cell of N > 1 chips runs as N rank processes, rank r on
+``cuda:r``, each with the environment ``torchrun`` would give it, and
+rank 0 prints the line (``ranks.py`` says how the ranks share one window,
+merge their checks and report the cards they used).
 """
 
 from __future__ import annotations
@@ -246,6 +254,13 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
+    if chips > 1:
+        from . import ranks
+
+        print(f"cards: {chips} of {torch.cuda.device_count()}; "
+              f"{power_line()}", file=sys.stderr, flush=True)
+        return ranks.launch(ROOT, args.workload, args.seed, args.seconds,
+                            bool(args.trace), chips, t_start=T_START)
     device = torch.device("cuda", 0)
     print(f"card: {torch.cuda.get_device_name(device)}; {power_line()}",
           file=sys.stderr, flush=True)

@@ -2,7 +2,8 @@
 (``recorded.py``), on a recorder filled by calls of each cell at a tiny
 size on the CPU: each reads its span or counter over the calls, and
 reads nothing from an empty recorder, from a program without the
-recorder, or in a cell of the other unit."""
+recorder, or in a cell of the other unit. A metric may list several
+cells, each of its own unit."""
 
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from ska_sdp_cip_tpu_torch.utils import task_metrics
 
 from .conftest import ROOT, shrink
 
-#: The metrics that read the recorder, with the one counter of each cell.
+#: The metrics that read the recorder, with their source.
 NAMES = {
     "plan_host_s.image": "program_span",
     "stage_host_s.image": "program_span",
@@ -30,6 +31,7 @@ NAMES = {
     "minor_host_s.cycle": "program_span",
     "taper_s.cycle": "program_span",
     "slot_fill.cycle": "program_counter",
+    "register_hit.cycle": "program_counter",
 }
 PROGRAM = [m for m in json.loads((ROOT / "BENCHMARK.json").read_text())
            ["per_layer"] if m["name"] in NAMES]
@@ -80,6 +82,8 @@ def _expected(name: str, summary: dict, calls: int) -> float:
     spans, counters = summary["spans"], summary["counters"]
     if name == "slot_fill.cycle":
         return 100.0 * counters["useful_visits"] / counters["slot_visits"]
+    if name == "register_hit.cycle":
+        return 100.0 * counters["register_hits"] / counters["register_adds"]
     if name == "upload_mb.image":
         return counters["h2d_bytes"] / 1e6 / calls
     read = {
@@ -101,41 +105,51 @@ def test_each_is_declared_in_its_cell():
     for m in PROGRAM:
         assert m["source"] == NAMES[m["name"]]
         unit = m["name"].rsplit(".", 1)[1]
-        assert m["workloads"] == [{"image": "csd3-10k.snapshot",
-                                   "cycle": "csd3-10k.cycle"}[unit]]
+        assert m["workloads"]
+        assert len(set(m["workloads"])) == len(m["workloads"])
+        for workload in m["workloads"]:
+            traffic = run.load_cell(ROOT, workload).traffic
+            driver = importlib.import_module(
+                f"cipbench.drivers.{traffic['operation']}")
+            assert driver.UNIT == unit, (m["name"], workload)
         assert m["moves"] == f"{unit}_s"
 
 
 @pytest.mark.parametrize("metric", PROGRAM, ids=lambda m: m["name"])
 def test_reads_the_recorder(recorder_of, metric):
-    (workload,) = metric["workloads"]
-    run_, readers = recorder_of(workload)
-    value = readers[metric["name"]].read(run_)
-    summary = task_metrics.summary()
-    assert value == pytest.approx(_expected(metric["name"], summary, CALLS))
-    assert value > 0
-    if metric["name"] == "slot_fill.cycle":
-        assert value <= 100.0
-    root = "image" if workload.endswith("snapshot") else "gradient"
-    assert summary["spans"][root]["count"] == CALLS
+    for workload in metric["workloads"]:
+        run_, readers = recorder_of(workload)
+        value = readers[metric["name"]].read(run_)
+        summary = task_metrics.summary()
+        assert value == pytest.approx(
+            _expected(metric["name"], summary, CALLS)), workload
+        assert value > 0, workload
+        if metric["unit"] == "%":
+            assert value <= 100.0, workload
+        root = {"image": "image", "cycle": "gradient"}[run_.unit]
+        assert summary["spans"][root]["count"] == CALLS, workload
 
 
 @pytest.mark.parametrize("metric", PROGRAM, ids=lambda m: m["name"])
 def test_reads_nothing_without_records(filled, monkeypatch, metric):
-    (workload,) = metric["workloads"]
-    run_, _, readers = filled[workload]
-    reader = readers[metric["name"]]
     task_metrics.reset()
-    assert reader.read(run_) is None
+    for workload in metric["workloads"]:
+        run_, _, readers = filled[workload]
+        assert readers[metric["name"]].read(run_) is None, workload
     monkeypatch.delattr(task_metrics, "summary")  # a program without it
-    assert reader.read(run_) is None
+    for workload in metric["workloads"]:
+        run_, _, readers = filled[workload]
+        assert readers[metric["name"]].read(run_) is None, workload
 
 
 @pytest.mark.parametrize("metric", PROGRAM, ids=lambda m: m["name"])
 def test_reads_nothing_in_a_cell_of_the_other_unit(recorder_of, filled,
                                                    metric):
-    (workload,) = metric["workloads"]
-    (other,) = set(filled) - {workload}
-    recorder_of(workload)
-    assert filled[workload][2][metric["name"]].read(filled[other][0]) is None
+    for workload in metric["workloads"]:
+        run_, readers = recorder_of(workload)
+        others = [w for w, (r, _, _) in filled.items() if r.unit != run_.unit]
+        assert others
+        for other in others:
+            assert readers[metric["name"]].read(filled[other][0]) is None, \
+                (workload, other)
 

@@ -34,7 +34,8 @@ def _recorded(monkeypatch, counters: dict) -> None:
 def test_is_declared_in_the_cycle_cell():
     cell = run.load_cell(ROOT, "csd3-10k.cycle")
     (metric,) = [m for m in cell.per_layer if m["name"] == NAME]
-    assert metric["workloads"] == ["csd3-10k.cycle"]
+    assert metric["workloads"] == ["csd3-10k.cycle",
+                                   "csd3-10k-briggs.multiscale"]
     assert metric["source"] == "program_counter"
     assert metric["moves"] == "cycle_s" and metric["unit"] == "%"
     assert NAME in cell.readers
