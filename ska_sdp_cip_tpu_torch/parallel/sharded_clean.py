@@ -8,8 +8,18 @@ space and grids it; the partial images (or, in the distributed FFT
 mode, the partial plane grids) are summed over the mesh, and the minor
 cycle runs on the reduced residual, which every rank holds whole — so
 the model update is the same on every rank and no host round trip
-happens inside a cycle. The host loop sequences the cycles and the
-checkpoints.
+happens inside a cycle. A Hogbom cycle is one step of
+:func:`build_sharded_major_cycle_step`; the host loop sequences the
+cycles and the checkpoints.
+
+Spans and counters (``utils/task_metrics.py``): ``sharded.residual``
+(device) around :meth:`ShardedOperator.residual`, this rank's predicts,
+slot residuals and inverts and the image psum (``collective.all_reduce``
+inside it, ``parallel/mesh.py``), with the counters
+``shard_visibilities`` (this rank's staged visibilities) and
+``useful_visits`` (``ops/gridder.py:useful_slot_visits``, against the
+inverts' ``slot_visits``) once a residual; ``sharded.step`` (host)
+around a step.
 """
 
 from __future__ import annotations
@@ -20,8 +30,9 @@ import numpy as np
 import torch
 
 from ..io.visibility_dataset import VisibilityReader
-from ..models.clean import hogbom_clean, pick_psf_patch
-from ..ops.gridder import build_predict, slot_group_sum
+from ..models import clean
+from ..ops.gridder import build_predict, slot_group_sum, useful_slot_visits
+from ..utils.task_metrics import count, enabled, span
 from .mesh import DeviceMesh
 from .sharded_invert import (
     FFT_MODES,
@@ -47,6 +58,10 @@ class ShardedOperator:
             raise ValueError(f"unknown fft_mode {fft_mode!r}")
         self.staging = staging
         self.fft_mode = fft_mode
+        #: This rank's staged visibilities (padding and straddler copies
+        #: left out).
+        self.num_visibilities = sum(plan.num_vis_data
+                                    for plan in staging.plans)
         mesh = staging.mesh
         if fft_mode == "distributed" and mesh.num_shards > 1:
             self._predict = build_predict(staging.plans, slot_output=True,
@@ -82,15 +97,55 @@ class ShardedOperator:
         """G* w (v - G model) / sum(w): the residual image at ``model``,
         entirely in slot space."""
         s = self.staging
-        res_re, res_im = [], []
-        predicted = self._predict(s.arrays, model)
-        for (m_re, m_im), re, im, w, da, db in zip(
-                predicted, s.vis_re, s.vis_im, s.weights, s.dup_a, s.dup_b):
-            m_re, m_im = slot_group_sum(m_re, m_im, da, db)
-            res_re.append((re - m_re) * w)
-            res_im.append((im - m_im) * w)
-        del predicted
-        return self.invert(res_re, res_im)
+        if enabled():
+            count("shard_visibilities", self.num_visibilities)
+            for plan, arrays in zip(s.plans, s.arrays):
+                count("useful_visits", useful_slot_visits(plan, arrays))
+        with span("sharded.residual", device=True):
+            res_re, res_im = [], []
+            predicted = self._predict(s.arrays, model)
+            for (m_re, m_im), re, im, w, da, db in zip(
+                    predicted, s.vis_re, s.vis_im, s.weights, s.dup_a,
+                    s.dup_b):
+                m_re, m_im = slot_group_sum(m_re, m_im, da, db)
+                res_re.append((re - m_re) * w)
+                res_im.append((im - m_im) * w)
+            del predicted
+            return self.invert(res_re, res_im)
+
+
+def build_sharded_major_cycle_step(op: ShardedOperator, *, gain: float,
+                                   minor_iter: int, psf_patch="auto"):
+    """
+    One Hogbom major cycle over a sharded operator, ``(model, residual)
+    -> (model', residual')``: the minor cycle on the residual image the
+    cycle before left (the dirty image before the first), ``model' =
+    model +`` its components, and the residual image at ``model'``
+    (:meth:`ShardedOperator.residual`: per shard a predict, a slot
+    residual and an invert, then one image psum). So a run starts from
+    the dirty image and costs one residual a cycle, with no host round
+    trip. Every rank holds the same reduced residual and makes the same
+    update; every rank calls the step together.
+
+    The PSF is built once, here, and kept as the step's ``psf``.
+    ``psf_patch="auto"`` is ``models.clean.pick_psf_patch`` of the image
+    size. The minor cycle is ``models.clean.hogbom_clean``, looked up at
+    each call.
+    """
+    if psf_patch == "auto":
+        psf_patch = clean.pick_psf_patch(op.staging.plans[0].num_pixels)
+    psf = op.psf()
+
+    def step(model, residual):
+        with span("sharded.step"):
+            delta, _ = clean.hogbom_clean(residual, psf, gain=gain,
+                                          max_iter=minor_iter,
+                                          psf_patch=psf_patch)
+            model = model + delta
+            return model, op.residual(model)
+
+    step.psf = psf
+    return step
 
 
 def sharded_major_cycle_clean(
@@ -153,7 +208,12 @@ def sharded_major_cycle_clean(
     mesh = staging.mesh
     op = ShardedOperator(staging, fft_mode)
     with step("psf"):
-        psf = op.psf()
+        if algorithm == "hogbom":
+            cycle_step = build_sharded_major_cycle_step(
+                op, gain=gain, minor_iter=minor_iter, psf_patch=psf_patch)
+            psf = cycle_step.psf
+        else:
+            psf = op.psf()
     with step("dirty"):
         residual = op.dirty()
 
@@ -165,9 +225,9 @@ def sharded_major_cycle_clean(
         )
         return _host(model), _host(residual), _host(psf)
 
-    if psf_patch == "auto":
-        psf_patch = pick_psf_patch(num_pixels)
     if algorithm == "multiscale":
+        if psf_patch == "auto":
+            psf_patch = clean.pick_psf_patch(num_pixels)
         from ..models.multiscale import (
             prepare_multiscale_minor,
             scale_kernels_and_biases,
@@ -179,14 +239,10 @@ def sharded_major_cycle_clean(
         minor = prepare_multiscale_minor(psf, kernels, biases,
                                          psf_patch=psf_patch)
 
-        def minor_step(residual):
+        def cycle_step(model, residual):
             delta, _ = minor(residual, gain=gain, max_iter=minor_iter)
-            return delta
-    else:
-        def minor_step(residual):
-            delta, _ = hogbom_clean(residual, psf, gain=gain,
-                                    max_iter=minor_iter, psf_patch=psf_patch)
-            return delta
+            model = model + delta
+            return model, op.residual(model)
 
     from ..models.checkpoint import MajorCycleCheckpoint, graceful_shutdown
 
@@ -224,8 +280,7 @@ def sharded_major_cycle_clean(
             with step("major_cycle"):
                 # One predict + invert round trip per cycle: the minor
                 # cycle takes the residual carried from the last cycle.
-                model = model + minor_step(residual)
-                residual = op.residual(model)
+                model, residual = cycle_step(model, residual)
                 state.update(cycle=cycle + 1, model=model, res=residual)
                 flush()
     return _host(model), _host(residual), _host(psf)

@@ -5,7 +5,10 @@ dask-distributed invert (reference: src/ska_sdp_cip/invert.py:212-270).
 Counterpart: ``ska_sdp_cip_tpu/parallel/sharded_invert.py``
 (``shard_chunk_counts``, copied; ``ShardedStaging``,
 ``stage_sharded_inputs``, ``stage_planned_shards`` and
-``sharded_invert_dataset`` on a mesh of ``parallel/mesh.py``).
+``sharded_invert_dataset`` on a mesh of ``parallel/mesh.py``). Here
+``stage_sharded_inputs`` is split after its load:
+:func:`stage_loaded_shards` weights, plans and stages shards already in
+memory, given the global visibility count.
 
 The dataset is partitioned into (row_chunks x freq_chunks) shards with
 the reference's balanced-chunk semantics; a rank loads, weights, plans
@@ -153,7 +156,8 @@ def stage_sharded_inputs(
     slot_mode: bool = False,
 ) -> ShardedStaging:
     """
-    Partition, load, plan and stage a dataset on the mesh: the front
+    Partition and load a dataset on the mesh, then weight, plan and
+    stage this rank's shards (:func:`stage_loaded_shards`): the front
     half of every sharded operation (invert, major cycle). ``step`` is
     an optional ``name -> context manager`` (``TaskRecorder.step``).
 
@@ -167,20 +171,60 @@ def stage_sharded_inputs(
     if step is None:
         step = lambda name: nullcontext()  # noqa: E731
     mesh = resolve_mesh(mesh, device)
-    num_shards = mesh.num_shards
     row_chunks, freq_chunks = shard_chunk_counts(
-        num_shards, reader.num_channels, row_chunks, freq_chunks
+        mesh.num_shards, reader.num_channels, row_chunks, freq_chunks
     )
-    pixel_size_lm = pixel_size_lm_from_asec(pixel_size_asec)
-    local_ids = mesh.addressable_shard_indices
     chunk_readers = reader.partition(row_chunks, freq_chunks)
 
     with step("load_shards"):
         shards = {
             index: StokesIGridderInput.from_reader(chunk_readers[index])
-            for index in local_ids
+            for index in mesh.addressable_shard_indices
         }
-        if weighting != "natural":
+    return stage_loaded_shards(
+        shards, reader.num_data_rows * reader.num_channels, num_pixels,
+        pixel_size_asec, mesh=mesh, epsilon=epsilon,
+        do_wstacking=do_wstacking, weighting=weighting, robust=robust,
+        step=step, sigma=sigma, common_w_grid=common_w_grid,
+        slot_mode=slot_mode,
+    )
+
+
+def stage_loaded_shards(
+    shards: dict,
+    num_visibilities: int,
+    num_pixels: int,
+    pixel_size_asec: float,
+    *,
+    mesh: DeviceMesh,
+    epsilon: float = 1e-4,
+    do_wstacking: bool = True,
+    weighting: str = "natural",
+    robust: float = 0.0,
+    step=None,
+    sigma: float | str = 2.0,
+    common_w_grid: bool = False,
+    slot_mode: bool = False,
+) -> ShardedStaging:
+    """
+    Weight, plan and stage this rank's loaded shards: ``shards`` maps
+    each of ``mesh.addressable_shard_indices`` to its
+    ``StokesIGridderInput`` (from a reader's partition, or made in
+    memory), and ``num_visibilities`` is the count over every shard of
+    the mesh (rows x channels of the whole dataset). The rest of
+    :func:`stage_sharded_inputs`, with its arguments: a weighting other
+    than ``"natural"`` from the global density (step
+    ``weight_shards``), the block size and w-bin grouping from the
+    global count over the shard count, sigma and the w range from the
+    global count and the allgathered w range (``plan_shards``), then
+    padding and staging (``stage_shards``).
+    """
+    if step is None:
+        step = lambda name: nullcontext()  # noqa: E731
+    pixel_size_lm = pixel_size_lm_from_asec(pixel_size_asec)
+
+    if weighting != "natural":
+        with step("weight_shards"):
             # Global density from per-shard histograms and one sum, so
             # the shards see the weights of a single-device run.
             from ..models.weighting import ImagingWeighter
@@ -205,7 +249,7 @@ def stage_sharded_inputs(
         # The shards agree on block size and w-bin grouping, from the
         # global per-shard visibility count.
         block, bin_group = auto_block_and_group(
-            reader.num_data_rows * reader.num_channels // num_shards
+            num_visibilities // mesh.num_shards
         )
         global_w = None
         if sigma == "auto" or common_w_grid:
@@ -214,7 +258,7 @@ def stage_sharded_inputs(
                        for s in shards.values()))
         if sigma == "auto":
             sigma = resolve_sigma(
-                reader.num_data_rows * reader.num_channels,
+                num_visibilities,
                 num_pixels,
                 w_extent=global_w[1] - global_w[0],
                 nm1_min=nm1_min_of(num_pixels, pixel_size_lm),

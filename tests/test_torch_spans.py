@@ -15,7 +15,11 @@ on the CPU:
   ranges are host events only;
 * ``TaskRecorder.step`` keeps its schema and opens a span;
 * the mesh's collective calls and bytes are counted with the recorder
-  on or off, and timed only while it is on.
+  on or off, and timed only while it is on;
+* a sharded Hogbom step records ``sharded.step`` around the minor cycle
+  and ``sharded.residual`` (device), with the image psum's
+  ``collective.all_reduce`` inside it, and counts ``shard_visibilities``
+  and ``useful_visits`` once a residual.
 """
 
 import json
@@ -276,6 +280,57 @@ def test_collective_counts_with_the_recorder_on_or_off(recorder):
                      "collective.host_allgather"]
     assert recorder.counters["collective.all_to_all.bytes"] == 96
     assert recorder.counters["collective.host_allgather.calls"] == 1
+
+
+def test_sharded_step_spans_and_counters(recorder, observation):
+    from ska_sdp_cip_tpu_torch.invert import StokesIGridderInput
+    from ska_sdp_cip_tpu_torch.parallel.mesh import make_device_mesh
+    from ska_sdp_cip_tpu_torch.parallel.sharded_clean import (
+        ShardedOperator,
+        build_sharded_major_cycle_step,
+    )
+    from ska_sdp_cip_tpu_torch.parallel.sharded_invert import (
+        stage_loaded_shards,
+    )
+
+    uvw, vis, weights = observation
+    mesh = make_device_mesh(2, device="cpu")
+    shards = {i: StokesIGridderInput(
+        channel_frequencies=FREQS[2 * i:2 * i + 2],
+        flags=np.zeros((len(uvw), 2), bool), uvw=uvw,
+        visibilities=vis[:, 2 * i:2 * i + 2],
+        weights=weights[:, 2 * i:2 * i + 2]) for i in range(2)}
+    staged = stage_loaded_shards(shards, vis.size, NPIX, 120.0, mesh=mesh)
+    op = ShardedOperator(staged, "replicated")
+    step = build_sharded_major_cycle_step(op, gain=0.1, minor_iter=5)
+    model = torch.zeros((NPIX, NPIX))
+    residual = op.dirty()
+    task_metrics.reset()
+    mesh.reset_stats()
+    with tracing():
+        step(model, residual)
+    by_name = _by_name(recorder.records)
+    (root,) = by_name["sharded.step"]
+    assert root.parent is None and root.device is False
+    (residual_span,) = by_name["sharded.residual"]
+    assert residual_span.parent == root.id and residual_span.device
+    (minor,) = by_name["minor"]
+    assert minor.parent == root.id
+    (psum,) = by_name["collective.all_reduce"]
+    # A host span on a CPU mesh, a device span on a card's.
+    assert psum.parent == residual_span.id and not psum.device
+    for name in ("predict.taper", "invert.taper", "invert.group"):
+        assert by_name[name]
+        assert all(r.root == root.id for r in by_name[name]), name
+    counters = recorder.counters
+    assert counters["shard_visibilities"] == vis.size
+    assert counters["useful_visits"] == sum(
+        _reference_useful_visits(plan) for plan in staged.plans)
+    assert counters["collective.all_reduce.calls"] == 1
+    assert counters["collective.all_reduce.bytes"] == NPIX * NPIX * 4
+    assert mesh.collective_stats()["calls"] == {"all_reduce": 1}
+    summary = task_metrics.summary()["spans"]
+    assert summary["sharded.residual"]["device_s"] > 0
 
 
 def test_spans_json(recorder, observation, tmp_path):
